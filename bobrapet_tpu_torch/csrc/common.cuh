@@ -1,0 +1,51 @@
+// Shared helpers of the port's kernels: element types, conversions and
+// warp/block reductions. Plain CUDA, no PyTorch headers, so nvcc builds a
+// source in seconds.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace bobra {
+
+// element-type codes of the C interface (kernels/build.py callers)
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+// round to nearest even, as torch's and XLA's casts do
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Sum over the whole block; every thread gets the total. blockDim.x must
+// be a multiple of 32 and at most 1024.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float partial[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) partial[warp] = v;
+  __syncthreads();
+  const int n_warps = blockDim.x >> 5;
+  v = lane < n_warps ? partial[lane] : 0.f;
+  v = warp_sum(v);
+  __syncthreads();  // partial[] may be reused by a later call
+  return v;
+}
+
+}  // namespace bobra

@@ -1,0 +1,294 @@
+"""Llama-3 model family in PyTorch.
+
+Counterpart of ``bobrapet_tpu/models/llama.py``: the same config presets,
+the same parameter tree (nested dicts and lists of tensors, so the bridge
+carries JAX weights over one to one), the same forward arithmetic and
+rounding points. Every norm goes through :func:`ops.rmsnorm` and every
+attention, prefill and decode, through :func:`ops.attention`; on a card
+both launch the port's CUDA kernels, on the CPU their plain versions.
+
+The KV cache is updated in place (a slice assignment at the cursor, and
+the cursor advanced in the caller's dicts) to save the copy JAX's
+``dynamic_update_slice`` makes; the cursor is a host int, so decode needs
+no device-to-host sync per step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..device import DeviceLike, resolve_device
+from ..ops.attention import attention
+from ..ops.rmsnorm import rmsnorm
+from ..ops.rope import apply_rope, rope_frequencies
+from .quant import matmul as _mm
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128_256
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    ffn_hidden: int = 14_336
+    max_seq_len: int = 8192
+    rope_theta: float = 500_000.0
+    #: Llama-3.1 long-context RoPE remap: (factor, low_freq_factor,
+    #: high_freq_factor, original_max_position_embeddings) or None
+    rope_scaling: Optional[tuple] = None
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    tie_embeddings: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @property
+    def param_count(self) -> int:
+        emb = self.vocab_size * self.dim
+        attn = self.dim * self.dim + 2 * self.dim * (self.n_kv_heads * self.head_dim) + self.dim * self.dim
+        mlp = 3 * self.dim * self.ffn_hidden
+        norms = 2 * self.dim
+        out = 0 if self.tie_embeddings else self.vocab_size * self.dim
+        return emb + self.n_layers * (attn + mlp + norms) + self.dim + out
+
+
+def llama3_8b() -> LlamaConfig:
+    """Llama-3-8B (the BASELINE flagship)."""
+    return LlamaConfig()
+
+
+def llama3_1b() -> LlamaConfig:
+    """The JAX package's ~1B config, same widths."""
+    return LlamaConfig(
+        dim=2048, n_layers=16, n_heads=16, n_kv_heads=8, ffn_hidden=5632,
+        max_seq_len=4096,
+    )
+
+
+def llama_tiny(vocab_size: int = 512, max_seq_len: int = 256) -> LlamaConfig:
+    """Tiny config for tests."""
+    return LlamaConfig(
+        vocab_size=vocab_size,
+        dim=128,
+        n_layers=2,
+        n_heads=4,
+        n_kv_heads=2,
+        ffn_hidden=256,
+        max_seq_len=max_seq_len,
+        dtype=torch.float32,
+    )
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator,
+                device: DeviceLike = None) -> dict[str, Any]:
+    """Random weights from ``generator`` (which must live on ``device``),
+    in the JAX package's tree layout:
+
+      embed.weight [V, D]
+      layers[i].{attn_norm,mlp_norm}.weight [D]
+      layers[i].attn.{wq [D, Hq*Dh], wk [D, Hkv*Dh], wv [D, Hkv*Dh], wo [Hq*Dh, D]}
+      layers[i].mlp.{w_gate [D, F], w_up [D, F], w_down [F, D]}
+      final_norm.weight [D]
+      lm_head.weight [D, V] (absent when tie_embeddings)
+
+    The numbers differ from JAX's (another generator); parity tests carry
+    JAX's weights over with :func:`models.bridge.params_from_numpy`.
+    """
+    device = resolve_device(device)
+    std = 1.0 / math.sqrt(cfg.dim)
+
+    def dense(shape, scale=std):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        return (w * scale).to(cfg.dtype)
+
+    def ones():
+        return torch.ones((cfg.dim,), dtype=cfg.dtype, device=device)
+
+    params: dict[str, Any] = {
+        "embed": {"weight": dense((cfg.vocab_size, cfg.dim), 1.0 / math.sqrt(cfg.dim))},
+        "layers": [],
+        "final_norm": {"weight": ones()},
+    }
+    kv_dim = cfg.n_kv_heads * cfg.head_dim
+    out_std = std / math.sqrt(2 * cfg.n_layers)
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "attn_norm": {"weight": ones()},
+            "attn": {
+                "wq": dense((cfg.dim, cfg.dim)),
+                "wk": dense((cfg.dim, kv_dim)),
+                "wv": dense((cfg.dim, kv_dim)),
+                "wo": dense((cfg.dim, cfg.dim), out_std),
+            },
+            "mlp_norm": {"weight": ones()},
+            "mlp": {
+                "w_gate": dense((cfg.dim, cfg.ffn_hidden)),
+                "w_up": dense((cfg.dim, cfg.ffn_hidden)),
+                "w_down": dense((cfg.ffn_hidden, cfg.dim), out_std),
+            },
+        })
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"weight": dense((cfg.dim, cfg.vocab_size))}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=8)
+def _freqs_table(head_dim: int, max_seq_len: int, theta: float,
+                 scaling: Optional[tuple], device: torch.device) -> torch.Tensor:
+    """One RoPE table per (config, device), built once; read-only."""
+    return rope_frequencies(head_dim, max_seq_len, theta, scaling, device=device)
+
+
+def _attention_block(
+    layer: dict[str, Any],
+    x: torch.Tensor,
+    freqs: torch.Tensor,
+    cfg: LlamaConfig,
+    cache: Optional[dict[str, Any]],
+    positions: Optional[torch.Tensor],
+) -> torch.Tensor:
+    b, s, _ = x.shape
+    h = rmsnorm(x, layer["attn_norm"]["weight"], cfg.norm_eps)
+    q = _mm(h, layer["attn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = _mm(h, layer["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = _mm(h, layer["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q, freqs, positions)
+    k = apply_rope(k, freqs, positions)
+
+    if cache is not None:
+        # write k/v at the cursor and advance it (in place), attend over
+        # the valid prefix
+        cursor = cache["cursor"]
+        end = cursor + s
+        if end > cache["k"].shape[1]:
+            raise ValueError(f"cache write [{cursor}, {end}) exceeds capacity {cache['k'].shape[1]}")
+        cache["k"][:, cursor:end] = k.to(cache["k"].dtype)
+        cache["v"][:, cursor:end] = v.to(cache["v"].dtype)
+        cache["cursor"] = end
+        out = _cached_attention(q, cache["k"], cache["v"], end, cfg)
+    else:
+        out = attention(q, k, v, causal=True)
+    out = out.reshape(b, s, cfg.dim)
+    return x + _mm(out, layer["attn"]["wo"])
+
+
+def _cached_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                      valid_len: int, cfg: LlamaConfig) -> torch.Tensor:
+    """Attention over the first ``valid_len`` cache rows.
+
+    JAX masks ``k_pos <= q_pos & k_pos < valid_len`` over the whole cache;
+    every masked key gets probability exactly 0 there, so this is causal
+    attention over the cache sliced to ``valid_len`` with the queries at
+    ``valid_len - s ...``: one flash-kernel launch on a card."""
+    s = q.shape[1]
+    return attention(q, k_all[:, :valid_len], v_all[:, :valid_len],
+                     causal=True, q_offset=valid_len - s)
+
+
+def _mlp_block(layer: dict[str, Any], x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    h = rmsnorm(x, layer["mlp_norm"]["weight"], cfg.norm_eps)
+    gate = F.silu(_mm(h, layer["mlp"]["w_gate"]).float())
+    up = _mm(h, layer["mlp"]["w_up"]).float()
+    return x + _mm((gate * up).to(cfg.dtype), layer["mlp"]["w_down"])
+
+
+def forward(
+    params: dict[str, Any],
+    tokens: torch.Tensor,
+    cfg: LlamaConfig,
+    cache: Optional[list[dict[str, Any]]] = None,
+    positions: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, Optional[list[dict[str, Any]]]]:
+    """Token ids [B, S] -> fp32 logits [B, S, V] (+ the cache).
+
+    Unlike the JAX forward, this one consumes ``cache``: each layer's k/v
+    rows are written and its cursor advanced in place, and the same list
+    is returned. A caller that needs the cache as it was must copy it
+    first."""
+    freqs = _freqs_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
+                         cfg.rope_scaling, tokens.device)
+    x = params["embed"]["weight"][tokens].to(cfg.dtype)
+    for i, layer in enumerate(params["layers"]):
+        layer_cache = cache[i] if cache is not None else None
+        x = _attention_block(layer, x, freqs, cfg, layer_cache, positions)
+        x = _mlp_block(layer, x, cfg)
+    x = rmsnorm(x, params["final_norm"]["weight"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["weight"].T.to(cfg.dtype)
+    else:
+        logits = _mm(x, params["lm_head"]["weight"])
+    return logits.float(), cache
+
+
+# ---------------------------------------------------------------------------
+# KV cache + generation
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: LlamaConfig, batch: int, capacity: Optional[int] = None,
+               device: DeviceLike = None) -> list[dict[str, Any]]:
+    cap = capacity or cfg.max_seq_len
+    device = resolve_device(device)
+    shape = (batch, cap, cfg.n_kv_heads, cfg.head_dim)
+    return [
+        {
+            "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "cursor": 0,
+        }
+        for _ in range(cfg.n_layers)
+    ]
+
+
+@torch.no_grad()
+def greedy_generate(
+    params: dict[str, Any],
+    prompt: torch.Tensor,
+    cfg: LlamaConfig,
+    max_new_tokens: int = 32,
+    cache_capacity: Optional[int] = None,
+) -> torch.Tensor:
+    """Greedy decode with a KV cache: one prefill, then one forward per
+    token, 1 + ``max_new_tokens`` forwards in all (the JAX scan's count;
+    the last forward's token is dropped, as there). Tokens stay on the
+    prompt's device; nothing syncs with the host per step."""
+    b, prompt_len = prompt.shape
+    cap = cache_capacity or min(cfg.max_seq_len, prompt_len + max_new_tokens)
+    if prompt_len + max_new_tokens > cap:
+        raise ValueError(
+            f"prompt_len({prompt_len}) + max_new_tokens({max_new_tokens}) "
+            f"exceeds cache capacity {cap}"
+        )
+    device = prompt.device
+    cache = init_cache(cfg, b, cap, device=device)
+
+    positions = torch.arange(prompt_len, device=device).expand(b, prompt_len)
+    logits, _ = forward(params, prompt, cfg, cache=cache, positions=positions)
+    tok = logits[:, -1:, :].argmax(dim=-1)
+    pos = torch.full((b, 1), prompt_len, dtype=torch.long, device=device)
+    out = []
+    for _ in range(max_new_tokens):
+        out.append(tok)
+        logits, _ = forward(params, tok, cfg, cache=cache, positions=pos)
+        tok = logits[:, -1:, :].argmax(dim=-1)
+        pos = pos + 1
+    return torch.cat(out, dim=1)  # [B, max_new_tokens]

@@ -1,0 +1,16 @@
+"""Hot ops: hand-written CUDA kernels with plain PyTorch versions."""
+
+from .attention import attention, attention_reference, flash_attention_cuda
+from .rmsnorm import rmsnorm, rmsnorm_cuda, rmsnorm_reference
+from .rope import apply_rope, rope_frequencies
+
+__all__ = [
+    "attention",
+    "attention_reference",
+    "flash_attention_cuda",
+    "rmsnorm",
+    "rmsnorm_cuda",
+    "rmsnorm_reference",
+    "apply_rope",
+    "rope_frequencies",
+]
