@@ -158,6 +158,17 @@ def _freqs_table(head_dim: int, max_seq_len: int, theta: float,
     return rope_frequencies(head_dim, max_seq_len, theta, scaling, device=device)
 
 
+def _qkv(layer: dict[str, Any], x: torch.Tensor, freqs: torch.Tensor, cfg: LlamaConfig,
+         positions: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention norm, the q/k/v projections [B, S, H, Dh] and RoPE."""
+    b, s, _ = x.shape
+    h = rmsnorm(x, layer["attn_norm"]["weight"], cfg.norm_eps)
+    q = _mm(h, layer["attn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = _mm(h, layer["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = _mm(h, layer["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return apply_rope(q, freqs, positions), apply_rope(k, freqs, positions), v
+
+
 def _attention_block(
     layer: dict[str, Any],
     x: torch.Tensor,
@@ -167,13 +178,7 @@ def _attention_block(
     positions: Optional[torch.Tensor],
 ) -> torch.Tensor:
     b, s, _ = x.shape
-    h = rmsnorm(x, layer["attn_norm"]["weight"], cfg.norm_eps)
-    q = _mm(h, layer["attn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = _mm(h, layer["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = _mm(h, layer["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    q = apply_rope(q, freqs, positions)
-    k = apply_rope(k, freqs, positions)
-
+    q, k, v = _qkv(layer, x, freqs, cfg, positions)
     if cache is not None:
         # write k/v at the cursor and advance it (in place), attend over
         # the valid prefix
@@ -231,12 +236,17 @@ def forward(
         layer_cache = cache[i] if cache is not None else None
         x = _attention_block(layer, x, freqs, cfg, layer_cache, positions)
         x = _mlp_block(layer, x, cfg)
+    return _logits(params, x, cfg), cache
+
+
+def _logits(params: dict[str, Any], x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """The final norm and the LM head: fp32 logits [B, S, V]."""
     x = rmsnorm(x, params["final_norm"]["weight"], cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["weight"].T.to(cfg.dtype)
     else:
         logits = _mm(x, params["lm_head"]["weight"])
-    return logits.float(), cache
+    return logits.float()
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Hot ops: hand-written CUDA kernels with plain PyTorch versions."""
 
 from .attention import attention, attention_reference, flash_attention_cuda
+from .paged_attention import paged_attention, paged_attention_cuda, paged_attention_reference
 from .rmsnorm import rmsnorm, rmsnorm_cuda, rmsnorm_reference
 from .rope import apply_rope, rope_frequencies
 
@@ -8,6 +9,9 @@ __all__ = [
     "attention",
     "attention_reference",
     "flash_attention_cuda",
+    "paged_attention",
+    "paged_attention_cuda",
+    "paged_attention_reference",
     "rmsnorm",
     "rmsnorm_cuda",
     "rmsnorm_reference",

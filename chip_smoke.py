@@ -8,19 +8,28 @@ Phases, each fatal on failure (exit 1, and no result line):
 1. the card: its name and power limit (nvidia-smi); no card, no run;
 2. build every kernel in bobrapet_tpu_torch/csrc with nvcc for sm_90a;
 3. each kernel against its plain PyTorch version on the card, in bf16 at
-   the main path's shapes plus a ragged and an fp32 case: max abs error
-   against a stated tolerance, and the times (CUDA events, median of 50
-   launches, L2 flushed before each) of the kernel, the plain version and
-   one PyTorch library call for the same function (a yardstick only; the
-   port never calls it), beside the least time the card could take;
-4. the main path: Llama-3-8B at full width and depth (bf16, random
+   the main paths' shapes plus ragged, fp32 and narrow-head cases: max
+   abs error against a stated tolerance, and the times (CUDA events,
+   median of 50 launches, L2 flushed before each) of the kernel, the
+   plain version and one PyTorch library call for the same function (a
+   yardstick only; the port never calls it), beside the least time the
+   card could take;
+4. the greedy path: Llama-3-8B at full width and depth (bf16, random
    weights from --seed) serves three requests through greedy_generate,
    each a batch of 8 prompts of 128 tokens with 64 new tokens; the
    kernels' launch counts, set to 0 just before, must show that every
    norm and every attention of the run went through the kernels;
-5. a 2-layer model at the 8B widths, the same seeded weights on the card
-   (kernels) and on the CPU (plain versions): prefill logits must agree;
-6. one JSON line of kernels, the card line, and last
+5. the serving path on the same weights: the continuous-batching engine
+   (8 slots over a paged cache of 256 blocks of 16) streams 16 requests
+   (prompts of 8-36 tokens, budgets of 32-64, 785 new tokens) with the
+   dispatch-ahead tick off and on, a warm drain each, then measured
+   drains in turns (off, on, on, off); every request gets exactly its
+   budget, every drain the same tokens, and the launch counts of all
+   three kernels are exact in each drain;
+6. a 2-layer model at the 8B widths, the same seeded weights on the card
+   (kernels) and on the CPU (plain versions): bf16 prefill logits must
+   agree, and in fp32 the serving engine must give identical tokens;
+7. one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
@@ -43,6 +52,23 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 REQUESTS, BATCH, PROMPT, NEW_TOKENS = 3, 8, 128, 64
 DECODE_KV = 160  # a mid-request decode step: the cache holds 129..192 rows
+
+# The serving path: BASELINE config 6's traffic (bench.py:627-653), 16
+# requests with staggered budgets streaming through 8 slots, no eos.
+SERVE_REQUESTS = 16
+SERVE_PAGING = dict(max_slots=8, block_size=16, num_blocks=256, max_blocks_per_seq=8,
+                    prefix_caching=False)
+# one decode tick's paged attention: the inactive lane (length 1, an
+# all-scratch table row) and live lanes at block edges and inside blocks
+PAGED_LENS = (1, 9, 16, 17, 50, 64, 100, 128)
+
+
+def serve_prompt_len(i: int) -> int:
+    return 8 + (i % 5) * 7
+
+
+def serve_budget(i: int) -> int:
+    return 32 + (i * 13) % 33
 
 # bf16: both sides compute in fp32 from the same bf16 inputs and round
 # once, summing in another order, so a value may take the neighbouring
@@ -201,6 +227,56 @@ def flash_case(torch, F, ops, flush, name, b, sq, sk, hq, hkv, d, dtype, q_offse
     }
 
 
+def paged_case(torch, F, ops, flush, name, hq, hkv, d, dtype, gen, dev, block=16,
+               n_blocks=256, mb=8, lens=PAGED_LENS):
+    """One decode tick's paged attention: q [S, Hq, D] over one layer's
+    pools [N, B, Hkv, D] through tables of distinct random live blocks."""
+    slots = len(lens)
+    q = torch.randn((slots, hq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((n_blocks, block, hkv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((n_blocks, block, hkv, d), generator=gen, device=dev).to(dtype)
+    ids = (torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1).tolist()
+    tables = torch.zeros((slots, mb), dtype=torch.int32)
+    pages = 0
+    for s, n in enumerate(lens):
+        used = -(-n // block)
+        pages += used
+        if s > 0:  # lane 0 stays all scratch: the inactive slot
+            tables[s, :used] = torch.tensor(ids[:used], dtype=torch.int32)
+            ids = ids[used:]
+    tables = tables.to(dev)
+    seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    dn = str(dtype).split(".")[-1]
+    args = (q, k, v, tables, seq_lens)
+    err = compare(torch, "attention", name, ops.paged_attention_cuda(*args),
+                  ops.paged_attention_reference(*args), dn)
+    es = q.element_size()
+    valid = sum(lens)
+    # each valid K/V row, q and the output once, and the table entries of
+    # the covered pages and the lengths
+    nbytes = (2 * valid * hkv * d + 2 * q.numel()) * es + 4 * (pages + slots)
+    b_ms, b_by = bound(nbytes, 4 * d * valid * hq, dn)
+    # yardstick: SDPA over the cache already gathered through the tables
+    # (the gather is excluded from its time; no PyTorch call reads KV
+    # through a block table)
+    cap = mb * block
+    kg = k[tables.long()].reshape(slots, cap, hkv, d).transpose(1, 2)
+    vg = v[tables.long()].reshape(slots, cap, hkv, d).transpose(1, 2)
+    mask = (torch.arange(cap, device=dev)[None, :] < seq_lens[:, None].long())[:, None, None, :]
+    qt = q[:, :, None, :]
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kg, vg, attn_mask=mask, enable_gqa=True)
+    return {
+        "case": name, "q": [slots, hq, d], "pool": [n_blocks, block, hkv, d],
+        "tables": [slots, mb], "seq_lens": list(lens), "dtype": dn, "max_abs_err": err,
+        "ms": time_ms(torch, lambda: ops.paged_attention_cuda(*args), flush),
+        "plain_ms": time_ms(torch, lambda: ops.paged_attention_reference(*args), flush),
+        "library_ms": time_ms(torch, lib, flush),
+        "library": "scaled_dot_product_attention over the gathered cache, gather excluded",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
 def request_split(torch, llama, params, prompt, cfg, dev, steps: int = 16,
                   profiled: int = 4) -> dict:
     """Prefill ms, decode step ms (host clock, synchronised), and the
@@ -256,6 +332,193 @@ def request_split(torch, llama, params, prompt, cfg, dev, steps: int = 16,
     }
 
 
+def serve_prompts(torch, cfg, seed: int, dev) -> list:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randint(0, cfg.vocab_size, (serve_prompt_len(i),), generator=gen,
+                          device=dev).tolist() for i in range(SERVE_REQUESTS)]
+
+
+def p50(values) -> float:
+    values = sorted(values)
+    return values[len(values) // 2]
+
+
+def zero_counts(ops) -> None:
+    for fn in (ops.rmsnorm_cuda, ops.flash_attention_cuda, ops.paged_attention_cuda):
+        fn.launches = 0
+
+
+def read_counts(ops) -> dict:
+    return {"rmsnorm": ops.rmsnorm_cuda.launches,
+            "flash_attention": ops.flash_attention_cuda.launches,
+            "paged_attention": ops.paged_attention_cuda.launches}
+
+
+def serve_drain(torch, ops, eng, prompts) -> dict:
+    """One measured drain of the config-6 traffic: the counts set to 0
+    just before, read just after; every request must end with exactly
+    its budget of in-range tokens."""
+    budgets = [serve_budget(i) for i in range(SERVE_REQUESTS)]
+    eng.reset_phase_stats()
+    torch.cuda.synchronize()
+    zero_counts(ops)
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
+    eng.run()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    launches = read_counts(ops)
+    by_rid = {r.rid: r for r in eng.finished}
+    reqs = [by_rid.get(rid) for rid in rids]
+    for req, budget in zip(reqs, budgets):
+        if req is None or len(req.output) != budget or min(req.output) < 0 \
+                or max(req.output) >= eng.cfg.vocab_size:
+            fail(f"serving: a request did not end with its budget of {budget} in-range tokens")
+    ticks = eng.phase_counts["device_steps"]
+    prefills = SERVE_REQUESTS  # 8 slots x 7 blocks never exhaust 255 blocks: no preemption
+    expected = {"rmsnorm": (prefills + ticks) * (2 * eng.cfg.n_layers + 1),
+                "flash_attention": prefills * eng.cfg.n_layers,
+                "paged_attention": ticks * eng.cfg.n_layers}
+    print(f"  serving (pipeline_decode={eng.pipeline_decode}) launches {launches}, "
+          f"expected {expected}", flush=True)
+    if launches != expected:
+        fail("the serving path did not run every norm and attention through the kernels")
+    tokens = sum(budgets)
+    ph = eng.phase_seconds
+    return {
+        "pipeline_decode": eng.pipeline_decode, "requests": SERVE_REQUESTS,
+        "new_tokens": tokens, "drain_s": drain_s, "tok_per_s": tokens / drain_s,
+        "ticks": ticks, "prefills": prefills,
+        "decode_tick_ms": (ph["decode_device"] + ph["host_sync"]) / ticks * 1e3,
+        "tick_enqueue_ms": ph["decode_device"] / ticks * 1e3,
+        "prefill_ms": ph["prefill"] / prefills * 1e3,
+        "host_sync_share": ph["host_sync"] / drain_s,
+        "ttft_ms_p50": p50(r.ttft_seconds for r in reqs) * 1e3,
+        "tpot_ms_p50": p50(r.tpot_seconds for r in reqs) * 1e3,
+        "launches": launches, "outputs": [r.output for r in reqs],
+    }
+
+
+def tick_profile(torch, eng, prompts, steps: int = 8, profiled: int = 4) -> dict:
+    """Steady decode ticks of a full engine: host ms per step() over
+    ``steps`` (synchronised), and the device's busy share of a step from
+    torch.profiler's kernel time over ``profiled`` more steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts[:eng.pcfg.max_slots]:
+        eng.submit(p, 64)
+    for _ in range(3):  # admission + the first ticks
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.run()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / profiled
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "step_ms": step_ms,
+        # None: the profiler saw no device time here ("not measured")
+        "step_device_ms": device_ms or None,
+        "device_busy_share": (device_ms / step_ms) if device_ms else None,
+        "kernels_per_step": sum(e.count for e in kernels) / profiled,
+        "top_kernels": [
+            {"name": e.key[:70], "ms_per_step": e.self_device_time_total / 1e3 / profiled,
+             "calls_per_step": e.count / profiled} for e in top],
+    }
+
+
+def serving_phase(torch, ops, serving, params, cfg, seed: int, dev, card: str) -> dict:
+    """The continuous-batching engine at full width, with the
+    dispatch-ahead tick off and on: one warm drain each, then measured
+    drains in turns (off, on, on, off) so that host-clock drift between
+    the two modes cancels, then a profiled stretch of steady ticks."""
+    warm = serve_prompts(torch, cfg, seed + 10, dev)
+    prompts = serve_prompts(torch, cfg, seed + 11, dev)
+    torch.cuda.reset_peak_memory_stats()
+    engines = {}
+    for pipeline in (False, True):
+        eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**SERVE_PAGING),
+                                    pipeline_decode=pipeline, decode_horizon=1,
+                                    dispatch_depth=1)
+        for i, p in enumerate(warm):
+            eng.submit(p, serve_budget(i))
+        eng.run()
+        engines[pipeline] = eng
+    drains = {False: [], True: []}
+    for pipeline in (False, True, True, False):
+        drains[pipeline].append(serve_drain(torch, ops, engines[pipeline], prompts))
+    outputs = [d.pop("outputs") for runs in drains.values() for d in runs]
+    if any(o != outputs[0] for o in outputs):
+        fail("serving: the dispatch-ahead tick changed the tokens")
+    out = {"model": "llama3_8b", "dtype": "bfloat16", "paging": SERVE_PAGING,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card,
+           "identical_tokens": True, "order": "off, on, on, off"}
+    for pipeline, eng in engines.items():
+        runs = drains[pipeline]
+        out["pipelined" if pipeline else "synchronous"] = {
+            "drains": runs,
+            "launches": {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]},
+            "profile": tick_profile(torch, eng, warm),
+        }
+    return out
+
+
+def engine_cross_check(torch, ops, llama, serving, cfg, seed: int, dev) -> dict:
+    """fp32, 2 layers at the 8B widths (TF32 off): the same seeded
+    weights served by the engine on the card (kernels) and on the CPU
+    (plain versions) must give identical tokens."""
+    cfg3 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    params = llama.init_params(cfg3, torch.Generator(device=dev).manual_seed(seed + 4), dev)
+    params_cpu = tree_to(params, "cpu")
+    gen = torch.Generator().manual_seed(seed + 5)
+    prompts = [torch.randint(0, cfg3.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 12, 17, 30)]
+    pcfg = serving.PagedConfig(max_slots=4, block_size=16, num_blocks=32, max_blocks_per_seq=4,
+                               prefix_caching=False)
+    outs, launches = {}, 0
+    t0 = time.perf_counter()
+    for side, tree in (("card", params), ("cpu", params_cpu)):
+        eng = serving.ServingEngine(tree, cfg3, pcfg, pipeline_decode=True, decode_horizon=1,
+                                    dispatch_depth=1)
+        for p in prompts:
+            eng.submit(p, 8)
+        start = ops.paged_attention_cuda.launches
+        eng.run()
+        outs[side] = [r.output for r in sorted(eng.finished, key=lambda r: r.rid)]
+        if side == "card":
+            launches = ops.paged_attention_cuda.launches - start
+            if launches != eng.phase_counts["device_steps"] * cfg3.n_layers:
+                fail("engine cross-check did not run the paged kernel on every tick")
+    del params
+    result = {"requests": len(prompts), "new_tokens": 8, "identical_tokens":
+              outs["card"] == outs["cpu"], "card_paged_launches": launches,
+              "seconds": time.perf_counter() - t0}
+    if not result["identical_tokens"]:
+        for p, a, b in zip(prompts, outs["card"], outs["cpu"]):
+            if a != b:
+                j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+                with torch.no_grad():
+                    logits, _ = llama.forward(params_cpu, torch.tensor([p + b[:j]]), cfg3)
+                top = logits[0, -1].topk(2).values
+                result["first_divergence"] = {"prompt_len": len(p), "token": j,
+                                              "card": a[j], "cpu": b[j],
+                                              "top_two_gap": float(top[0] - top[1])}
+                break
+    print("engine (2 layers, 8B widths, fp32, card vs CPU): " + json.dumps(result), flush=True)
+    if not result["identical_tokens"]:
+        fail("the engine on the card and on the CPU gave different tokens")
+    return result
+
+
 def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
@@ -285,7 +548,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     try:
-        from bobrapet_tpu_torch import ops
+        from bobrapet_tpu_torch import ops, serving
         from bobrapet_tpu_torch.kernels import build as kbuild
         from bobrapet_tpu_torch.models import llama, tree_bytes
     except ImportError as e:
@@ -322,13 +585,19 @@ def main() -> None:
         flash_case(torch, F, ops, flush, "flash prefill fp32", 2, PROMPT, PROMPT, hq, hkv, hd,
                    f32, 0, gen, dev),
     ]
-    for c in rms_cases + flash_cases:
+    paged_cases = [
+        paged_case(torch, F, ops, flush, "paged decode", hq, hkv, hd, bf16, gen, dev),
+        paged_case(torch, F, ops, flush, "paged decode fp32", hq, hkv, hd, f32, gen, dev),
+        paged_case(torch, F, ops, flush, "paged decode D=32", 4, 2, 32, bf16, gen, dev,
+                   block=8, n_blocks=64, lens=(1, 8, 9, 17, 24, 31, 32, 2), mb=4),
+    ]
+    for c in rms_cases + flash_cases + paged_cases:
         print(f"  {c['case']}: kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
               f"library {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
               f"({c['bound_by']})", flush=True)
     del flush
 
-    # ---- 4. the main path: Llama-3-8B, three requests
+    # ---- 4. the greedy path: Llama-3-8B, three requests
     cfg = llama.llama3_8b()
     t0 = time.perf_counter()
     params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
@@ -340,21 +609,19 @@ def main() -> None:
                             generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.rmsnorm_cuda.launches = 0
-    ops.flash_attention_cuda.launches = 0
+    zero_counts(ops)
     outputs, seconds = [], []
     for r in range(REQUESTS):
         t0 = time.perf_counter()
         outputs.append(llama.greedy_generate(params, prompts[r], cfg, max_new_tokens=NEW_TOKENS))
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-    launches = {"rmsnorm": ops.rmsnorm_cuda.launches,
-                "flash_attention": ops.flash_attention_cuda.launches}
+    launches = read_counts(ops)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     forwards = 1 + NEW_TOKENS
     expected = {"rmsnorm": REQUESTS * forwards * (2 * cfg.n_layers + 1),
-                "flash_attention": REQUESTS * forwards * cfg.n_layers}
-    print(f"main path launches {launches}, expected {expected}", flush=True)
+                "flash_attention": REQUESTS * forwards * cfg.n_layers, "paged_attention": 0}
+    print(f"greedy path launches {launches}, expected {expected}", flush=True)
     if launches != expected:
         fail("the main path did not run every norm and attention through the kernels")
     for toks in outputs:
@@ -373,10 +640,17 @@ def main() -> None:
         "decode_step_bound_ms": decode_bound_ms, "weight_bytes": weight_bytes,
         "peak_memory_gb": peak_gb, "launches": launches, "card": card,
     }
-    print("main path: " + json.dumps(main), flush=True)
-    del params
+    print("greedy path: " + json.dumps(main), flush=True)
 
-    # ---- 5. whole path, card vs CPU
+    # ---- 5. the serving path on the same weights
+    served = serving_phase(torch, ops, serving, params, cfg, args.seed, dev, card)
+    print("serving path: " + json.dumps(served), flush=True)
+    del params
+    launches_by_path = {"greedy": launches,
+                        "serving_synchronous": served["synchronous"]["launches"],
+                        "serving_pipelined": served["pipelined"]["launches"]}
+
+    # ---- 6. whole path and engine, card vs CPU
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     params2 = llama.init_params(cfg2, torch.Generator(device=dev).manual_seed(args.seed + 2), dev)
     toks = torch.randint(0, cfg2.vocab_size, (2, 16), device=dev,
@@ -407,14 +681,18 @@ def main() -> None:
         fail("non-finite logits on the card")
     if whole["max_abs_err"] > LOGIT_MAX_ERR or whole["mean_abs_err"] > LOGIT_MEAN_ERR:
         fail("card and CPU logits disagree")
+    del params_cpu, gpu_logits
+    engine_cross_check(torch, ops, llama, serving, cfg, args.seed, dev)
 
-    # ---- 6. result
+    # ---- 7. result
     def entry(name, source, replaces, cases, main_case):
         top = next(c for c in cases if c["case"] == main_case)
         main_errs = [c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16"]
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max(main_errs),
+            "launches": sum(path[name] for path in launches_by_path.values()),
+            "launches_by_path": {k: path[name] for k, path in launches_by_path.items()},
+            "max_abs_err": max(main_errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"], "cases": cases,
         }
@@ -424,6 +702,8 @@ def main() -> None:
               "bobrapet_tpu/ops/rmsnorm.py:33", rms_cases, "rmsnorm decode"),
         entry("flash_attention", "bobrapet_tpu_torch/csrc/flash_attention.cu",
               "bobrapet_tpu/ops/attention.py:117", flash_cases, "flash decode"),
+        entry("paged_attention", "bobrapet_tpu_torch/csrc/paged_attention.cu",
+              "bobrapet_tpu/serving/engine.py:3106", paged_cases, "paged decode"),
     ], "build_s": build_s}
     print(json.dumps(kernels), flush=True)
     print(f"card: {card}", flush=True)

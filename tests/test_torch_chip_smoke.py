@@ -47,6 +47,32 @@ def test_bounds_of_the_main_path_shapes(smoke):
     assert smoke.bound(1e6, 1e9, "float32")[1] == "operations"
 
 
+def test_paged_bound_of_the_main_case(smoke):
+    # q [8,32,128] + out, 385 valid K/V rows of [8,128], bf16; 28 table
+    # entries and 8 lengths
+    lens = smoke.PAGED_LENS
+    assert sum(lens) == 385 and sum(-(-n // 16) for n in lens) == 28
+    nbytes = (2 * 385 * 8 * 128 + 2 * 8 * 32 * 128) * 2 + 4 * (28 + 8)
+    assert round(nbytes / 1e6, 2) == 1.71
+    ms, by = smoke.bound(nbytes, 4 * 128 * 385 * 32, "bfloat16")
+    assert by == "bytes" and round(ms * 1e3, 2) == 0.51
+
+
+def test_serving_traffic_is_config_6(smoke):
+    lens = [smoke.serve_prompt_len(i) for i in range(smoke.SERVE_REQUESTS)]
+    budgets = [smoke.serve_budget(i) for i in range(smoke.SERVE_REQUESTS)]
+    assert smoke.SERVE_REQUESTS == 16 and sum(budgets) == 785
+    assert (min(lens), max(lens), min(budgets), max(budgets)) == (8, 36, 32, 64)
+    paging = smoke.SERVE_PAGING
+    block, cap = paging["block_size"], paging["block_size"] * paging["max_blocks_per_seq"]
+    assert max(n + b for n, b in zip(lens, budgets)) <= cap
+    # every slot at its longest never exhausts the pool: no preemption,
+    # so exactly one prefill per request
+    most = max(-(-(n + b) // block) for n, b in zip(lens, budgets))
+    assert paging["max_slots"] * most <= paging["num_blocks"] - 1
+    assert paging["prefix_caching"] is False
+
+
 def test_tolerances_cover_every_kernel_and_type(smoke):
     assert set(smoke.TOL) == {(k, t) for k in ("attention", "rmsnorm")
                               for t in ("bfloat16", "float32")}

@@ -15,6 +15,8 @@ from bobrapet_tpu_torch import resolve_device
 from bobrapet_tpu_torch.ops import (
     attention,
     flash_attention_cuda,
+    paged_attention,
+    paged_attention_cuda,
     rmsnorm,
     rmsnorm_cuda,
 )
@@ -31,7 +33,7 @@ def _forbidden(name: str) -> bool:
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, bobrapet_tpu_torch, bobrapet_tpu_torch.kernels.build, "
-        "bobrapet_tpu_torch.models.bridge\n"
+        "bobrapet_tpu_torch.models.bridge, bobrapet_tpu_torch.serving\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -40,6 +42,7 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     loaded = out.stdout.split()
     assert "bobrapet_tpu_torch.models.llama" in loaded
+    assert "bobrapet_tpu_torch.serving.engine" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -91,6 +94,25 @@ def test_attention_refuses_a_meta_tensor(fn):
         fn(q, kv, kv)
 
 
+@pytest.mark.parametrize("fn", [paged_attention, paged_attention_cuda])
+def test_paged_attention_refuses_a_meta_tensor(fn):
+    q, pool = _meta(2, 4, 32), _meta(8, 4, 2, 32)
+    tables, lens = torch.zeros(2, 3, dtype=torch.int32), torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fn(q, pool, pool, tables, lens)
+
+
+def test_engine_without_device_needs_the_card():
+    from bobrapet_tpu_torch.serving.paged_cache import PagedConfig, init_pools
+    from bobrapet_tpu_torch.models import llama_tiny
+
+    if torch.cuda.is_available():
+        assert init_pools(llama_tiny(), PagedConfig(num_blocks=4))["k"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            init_pools(llama_tiny(), PagedConfig(num_blocks=4))
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.ones(2, 32)
     with pytest.raises(ValueError):
@@ -98,3 +120,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q, kv = torch.ones(1, 4, 2, 32), torch.ones(1, 4, 1, 32)
     with pytest.raises(ValueError):
         flash_attention_cuda(q, kv, kv)
+    q, pool = torch.ones(2, 4, 32), torch.ones(8, 4, 2, 32)
+    tables, lens = torch.zeros(2, 3, dtype=torch.int32), torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        paged_attention_cuda(q, pool, pool, tables, lens)

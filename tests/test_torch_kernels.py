@@ -24,9 +24,13 @@ from bobrapet_tpu_torch.ops import (
     attention,
     attention_reference,
     flash_attention_cuda,
+    paged_attention,
+    paged_attention_cuda,
+    paged_attention_reference,
     rmsnorm_cuda,
     rmsnorm_reference,
 )
+from bobrapet_tpu_torch.serving import PagedConfig, ServingEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -143,6 +147,104 @@ def test_tiny_model_on_the_card_matches_the_cpu(cuda):
     assert rmsnorm_cuda.launches == (2 * cfg.n_layers + 1) * forwards
     ref = llama.greedy_generate(params, prompt, cfg, max_new_tokens=6)
     assert torch.equal(out.cpu(), ref)
+
+
+PAGED_CASES = [
+    # slots, hq, hkv, d, block, blocks in the pool, blocks per table, seq_lens
+    (8, 32, 8, 128, 16, 256, 8, (1, 9, 16, 17, 50, 64, 100, 128)),  # chip_smoke's main case
+    (4, 8, 2, 32, 8, 40, 4, (1, 8, 9, 32)),                          # llama_tiny widths
+    (3, 4, 4, 128, 4, 20, 5, (1, 4, 5)),                              # group 1
+    (2, 16, 1, 32, 16, 6, 2, (32, 17)),                               # group 16, the most
+]
+
+
+def _paged_inputs(case, dtype, cuda, seed=0):
+    slots, hq, hkv, d, block, n_blocks, mb, lens = case
+    q = _randn((slots, hq, d), dtype, cuda, seed)
+    k = _randn((n_blocks, block, hkv, d), dtype, cuda, seed + 1)
+    v = _randn((n_blocks, block, hkv, d), dtype, cuda, seed + 2)
+    g = torch.Generator().manual_seed(seed)
+    ids = (torch.randperm(n_blocks - 1, generator=g) + 1).tolist()
+    tables = torch.zeros((slots, mb), dtype=torch.int32)
+    for s, n in enumerate(lens):
+        if s == 0:
+            continue  # an inactive lane: length 1, all scratch
+        used = -(-n // block)
+        tables[s, :used] = torch.tensor(ids[:used], dtype=torch.int32)
+        ids = ids[used:]
+    return q, k, v, tables.to(cuda), torch.tensor(lens, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=str)
+def test_paged_kernel_matches_plain(cuda, dtype, case):
+    q, k, v, tables, lens = _paged_inputs(case, dtype, cuda)
+    before = paged_attention_cuda.launches
+    out = paged_attention_cuda(q, k, v, tables, lens)
+    torch.cuda.synchronize()
+    assert paged_attention_cuda.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    _close(out, paged_attention_reference(q, k, v, tables, lens), dtype, 2.0 ** -7, 1e-3, 2e-4)
+    assert torch.equal(paged_attention(q, k, v, tables, lens), out)
+
+
+def test_paged_kernel_reads_a_layer_of_the_pools_in_place(cuda):
+    q, k, v, tables, lens = _paged_inputs(PAGED_CASES[1], torch.bfloat16, cuda)
+    pools = torch.stack([torch.zeros_like(k), k]), torch.stack([torch.zeros_like(v), v])
+    out = paged_attention_cuda(q, pools[0][1], pools[1][1], tables, lens)
+    assert torch.equal(out, paged_attention_cuda(q, k, v, tables, lens))
+
+
+def test_paged_kernel_zero_length_and_masked_keys(cuda):
+    q, k, v, tables, lens = _paged_inputs(PAGED_CASES[1], torch.float32, cuda)
+    lens[0] = 0
+    out = paged_attention_cuda(q, k, v, tables, lens)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    # keys past seq_len in a covered page, and pages past the covered
+    # ones, do not move the output
+    v2 = v.clone()
+    blk = int(tables[2, 1])  # seq_len 9 at block 8: one key in this page
+    v2[blk, 1:] = float("nan")
+    tables2 = tables.clone()
+    tables2[2, 2:] = 10 ** 6  # never read
+    assert torch.equal(paged_attention_cuda(q, k, v2, tables2, lens), out)
+
+
+def test_paged_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, tables, lens = _paged_inputs(PAGED_CASES[1], torch.float32, cuda)
+    with pytest.raises(TypeError):
+        paged_attention_cuda(q, k, v, tables.long(), lens)
+    with pytest.raises(TypeError):
+        paged_attention_cuda(q, k, v, tables, lens.long())
+    with pytest.raises(TypeError):
+        paged_attention_cuda(q.half(), k.half(), v.half(), tables, lens)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_attention_cuda(q[..., :16].contiguous(), k[..., :16].contiguous(),
+                             v[..., :16].contiguous(), tables, lens)
+    with pytest.raises(ValueError):
+        paged_attention_cuda(q, k, v, tables.cpu(), lens)
+
+
+def test_tiny_engine_on_the_card_matches_the_cpu(cuda):
+    cfg = llama.llama_tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    pcfg = PagedConfig(max_slots=3, block_size=8, num_blocks=24, max_blocks_per_seq=4,
+                       prefix_caching=False)
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in (5, 12, 9, 3)]
+    outs = {}
+    for name, tree in (("cpu", params), ("card", _to(params, cuda))):
+        for pipeline in (False, True):
+            eng = ServingEngine(tree, cfg, pcfg, pipeline_decode=pipeline,
+                                decode_horizon=1, dispatch_depth=1)
+            for p in prompts:
+                eng.submit(p, 10)
+            paged_attention_cuda.launches = 0
+            eng.run()
+            ticks = eng.phase_counts["device_steps"]
+            assert paged_attention_cuda.launches == (ticks * cfg.n_layers if name == "card" else 0)
+            outs[name, pipeline] = {r.rid: r.output for r in eng.finished}
+    assert outs["card", False] == outs["card", True] == outs["cpu", False] == outs["cpu", True]
 
 
 def _to(tree, device):
