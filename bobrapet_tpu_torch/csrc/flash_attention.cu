@@ -3,30 +3,52 @@
 // Replaces: bobrapet_tpu/ops/attention.py:flash_attention (_flash_kernel).
 // Beyond the Pallas kernel it takes a q_offset (query i sits at position
 // q_offset + i, as attention_reference defines it) and ragged Sq / Sk, so
-// the same kernel carries the model's cached prefill and every decode step
-// (models/llama.py:_cached_attention slices the cache to its valid length
-// and calls it with q_offset = valid_len - Sq).
+// the same entry point carries the model's prefill, the engine's bucketed
+// prefill and every greedy decode step (models/llama.py:_cached_attention
+// slices the cache to its valid length and calls it with
+// q_offset = valid_len - Sq).
 //
 // Bound on the card: bytes at the model's shapes. Prefill (q [8,128,32,128],
 // k/v [8,128,8,128], bf16) moves 21.0 MB against 1.08 GFLOP of causal
-// work, 6.3 us at 3.35 TB/s against 1.1 us at 989 TFLOP/s; a decode step
-// (Sq = 1) is bytes by far more.
+// work: 6.3 us at 3.35 TB/s against 1.1 us at 989 TFLOP/s. A decode step
+// (q [8,1,32,128] over k/v [8,160,8,128]) moves 5.4 MB: 1.6 us.
 //
-// Design (simple and right first; wgmma/TMA and packing the GQA group into
-// one q tile are later work): one block of 128 threads per (q tile of 16
-// rows, query head, batch). The q tile is scaled in fp32 and kept in
-// shared memory; k/v tiles of 32 keys are staged in shared memory as fp32
-// and read by all 16 rows, so device memory sees each k/v row once per
-// q tile. Each query head finds its kv head as hq / group: no repeat is
-// materialised. Scores: lane j of each warp owns key j of the tile and 4
-// of the 16 rows, so the row max and sum are warp shuffles. m, l and the
-// output accumulator are fp32; masked keys get -1e30 as in the reference,
-// keys past Sk get -inf, and k tiles wholly past the causal bound are
-// never loaded. Products are scalar FMAs. The K tile is padded by one
-// column so the 32 lanes hit 32 banks.
+// Three kernels, chosen by the caller (ops/attention.py:flash_route):
+//
+// * bf16, rows = Sq * group > 16: the rows kernel. Packed GQA rows: row r
+//   of kv head h is (query r / group, q head h * group + r % group), and a
+//   group's heads are adjacent, so one K/V tile in shared memory serves
+//   the whole group (K/V leave device memory once per 64 packed rows, not
+//   once per q head). A block of 4 warps holds 64 packed rows, 16 per
+//   warp; grid (ceil(rows / 64), Hkv, B), the row blocks with the most
+//   keys first. The q tile and K/V tiles of 32 keys stay bf16 in shared
+//   memory (XOR-swizzled, read by ldmatrix), K/V in a three-stage
+//   cp.async ring, two tiles loading while one is in use; 64 KB a block
+//   at D = 128, so three blocks share an SM and hide each other's
+//   latency. S = Q K^T and P V run on the tensor cores with the next
+//   fragments loaded ahead of each product (attention_core.cuh). Masks
+//   only on a warp's edge tiles: keys past Sk get -inf, causally masked
+//   keys -1e30 as in the reference; a warp skips the tiles past its
+//   causal bound, and the block loads no tile past its last row's. The
+//   output goes through shared memory, so device memory sees whole
+//   16-byte chunks.
+// * bf16, rows <= 16 (a decode step): attention_core.cuh's decode core
+//   with the dense policy. The rows fill one m16 tile, the keys are split
+//   across a cluster of C blocks (C from Sk, on the host) and combined
+//   through distributed shared memory: one launch, deterministic.
+// * fp32: the scalar kernel below, exact in fp32 (the tensor cores would
+//   run fp32 as TF32, outside the 2e-4 tolerance): one block of 128
+//   threads per (16 query rows, q head, batch); k/v tiles of 32 keys
+//   staged in shared memory as fp32 with a padded K tile; scores by lane
+//   (one key each), row max and sum by warp shuffles; scalar FMAs.
+//
+// Every route takes free batch and sequence strides, so a sliced cache
+// goes in without a copy; the bf16 routes need 16-byte aligned rows
+// (pointers 16-byte aligned, strides multiples of 8 elements).
 
 #include <math.h>
 
+#include "attention_core.cuh"
 #include "common.cuh"
 
 namespace bobra {
@@ -140,21 +162,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   }
 }
 
-template <typename T>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int b, int sq, int sk,
-                 int hq, int group, int d, long long q_sb, long long q_ss, long long k_sb,
-                 long long k_ss, long long v_sb, long long v_ss, long long o_sb, long long o_ss,
-                 int causal, int q_offset, float scale, cudaStream_t st) {
+int launch_flash_f32(const float* q, const float* k, const float* v, float* o, int b, int sq,
+                     int sk, int hq, int group, int d, long long q_sb, long long q_ss,
+                     long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+                     long long o_sb, long long o_ss, int causal, int q_offset, float scale,
+                     cudaStream_t st) {
   const dim3 grid((sq + kBlockM - 1) / kBlockM, hq, b);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
-#define BOBRA_FLASH(DD)                                                                   \
-  flash_attention_kernel<T, DD><<<grid, kThreads, 0, st>>>(qp, kp, vp, op, sq, sk, group,  \
-                                                          q_sb, q_ss, k_sb, k_ss, v_sb,     \
-                                                          v_ss, o_sb, o_ss, causal,         \
-                                                          q_offset, scale)
+#define BOBRA_FLASH(DD)                                                                       \
+  flash_attention_kernel<float, DD><<<grid, kThreads, 0, st>>>(q, k, v, o, sq, sk, group,      \
+                                                              q_sb, q_ss, k_sb, k_ss, v_sb,     \
+                                                              v_ss, o_sb, o_ss, causal,         \
+                                                              q_offset, scale)
   switch (d) {
     case 32: BOBRA_FLASH(32); break;   // llama_tiny
     case 128: BOBRA_FLASH(128); break;  // llama3_1b, llama3_8b
@@ -164,18 +182,212 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int b, in
   return 0;
 }
 
+namespace attn {
+
+constexpr int kRowBlock = 64;  // packed rows per block of the rows kernel (16 per warp)
+constexpr int kRowKeys = 32;   // keys per tile of the rows kernel
+constexpr int kStages = 3;     // tiles of its cp.async ring: two in flight, one in use
+// blocks of the rows kernel an SM holds: 64 KB of shared memory and at
+// most 168 registers a thread each (four would spill)
+constexpr int kRowMinBlocks = 3;
+
+template <int D>
+__host__ __device__ constexpr int rows_smem_bytes() {
+  return tile_bytes<D>(kRowBlock) + kStages * 2 * tile_bytes<D>(kRowKeys);
+}
+
+// bf16, 64 packed rows of one (kv head, batch) per block: see the note at
+// the top of this file. Small blocks (64 KB of shared memory at D = 128, q
+// fragments read per k-step) so that several fit an SM and one block's
+// loads overlap another's math; the row blocks with the most keys start
+// first. A three-stage ring needs one block barrier per tile.
+template <int D>
+__global__ void __launch_bounds__(kThreads, kRowMinBlocks)
+flash_rows_kernel(const DensePolicy<D> P) {
+  constexpr int kChunks = D / 8;
+  constexpr int kTile = tile_bytes<D>(kRowKeys);
+  constexpr int kNT = kRowKeys / 8;  // score n-tiles of a warp: the whole key tile
+  constexpr int kNO = D / 8;         // accumulator n-tiles
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* q_s = smem;
+  unsigned char* ring = smem + tile_bytes<D>(kRowBlock);
+
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kRowBlock, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rows = P.rows();
+  const int last_row = min(rows, row0 + kRowBlock) - 1;
+  // keys that any row of the block sees unmasked
+  const int kv_len = P.causal ? min(P.sk, P.q_offset + last_row / P.group + 1) : P.sk;
+  const int n_tiles = (kv_len + kRowKeys - 1) / kRowKeys;
+
+  for (int e = tid; e < kRowBlock * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = e % kChunks;
+    const bool ok = row0 + r < rows;
+    cp_async16(smem_u32(q_s) + tile_offset<D>(r, c), (ok ? P.q_row(b, h, row0 + r) : P.q) + c * 8,
+               ok);
+  }
+  // keys past kv_len are zeros (every row masks them); one commit per call
+  auto load_tile = [&](int t) {
+    if (t < n_tiles) {
+      unsigned char* st = ring + (t % kStages) * 2 * kTile;
+      const int key0 = t * kRowKeys;
+      for (int e = tid; e < kRowKeys * kChunks; e += kThreads) {
+        const int j = e / kChunks, c = e % kChunks, key = key0 + j;
+        const bool ok = key < kv_len;
+        const bf16* kr = P.q;
+        const bf16* vr = P.q;
+        if (ok) P.kv_rows(b, h, key, nullptr, 0, kr, vr);
+        const uint32_t off = tile_offset<D>(j, c);
+        cp_async16(smem_u32(st) + off, kr + c * 8, ok);
+        cp_async16(smem_u32(st + kTile) + off, vr + c * 8, ok);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) load_tile(t);
+
+  // this warp's 16 rows
+  const int wrow0 = row0 + warp * 16;
+  const bool has_rows = wrow0 < rows;
+  const int wlast = min(rows - 1, wrow0 + 15);
+  const int w_kv_end = P.causal ? min(kv_len, P.q_offset + wlast / P.group + 1) : kv_len;
+  const int w_first_limit = P.key_limit(wrow0);
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int limit[2] = {P.key_limit(wrow0 + g), P.key_limit(wrow0 + g + 8)};
+
+  float o[kNO][4];
+#pragma unroll
+  for (int j = 0; j < kNO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    // tile t (and, with tile 0, q) is in shared memory, and every warp is
+    // done with tile t - 1, whose stage the next load takes
+    __syncthreads();
+    load_tile(t + kStages - 1);
+    const unsigned char* st = ring + (t % kStages) * 2 * kTile;
+    const int key0 = t * kRowKeys;
+    if (has_rows && key0 < w_kv_end) {
+      float s[kNT][4];
+      scores<D, kNT>(s, smem_u32(q_s), warp * 16, smem_u32(st), 0, lane);
+      // masks only where a key may be past Sk or past a row's causal bound
+      const bool edge = key0 + kRowKeys > P.sk || key0 + kRowKeys - 1 > w_first_limit;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * P.scale_log2;
+          if (edge) {
+            const int key = key0 + 8 * j + t2 + (e & 1);
+            if (key >= P.sk) {
+              x = -INFINITY;
+            } else if (key > limit[e >> 1]) {
+              x = kMasked;
+            }
+          }
+          s[j][e] = x;
+        }
+      }
+      online_softmax(s, m, l, o);
+      accumulate_pv<D, kNT>(o, s, smem_u32(st + kTile), 0, lane);
+    }
+  }
+  cp_async_wait<0>();
+  quad_sum(l);
+
+  // the output tile goes through q's shared memory, so that device memory
+  // sees whole 16-byte chunks of each packed row
+  __syncthreads();  // every warp is done reading q
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = warp * 16 + g + 8 * hh;
+    const float inv = 1.f / l[hh];
+#pragma unroll
+    for (int j = 0; j < kNO; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(q_s + tile_offset<D>(r, j) + (lane & 3) * 4) =
+          __floats2bfloat162_rn(o[j][2 * hh] * inv, o[j][2 * hh + 1] * inv);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < kRowBlock * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = e % kChunks;
+    if (row0 + r < rows) {
+      *reinterpret_cast<uint4*>(P.o_row(b, h, row0 + r) + c * 8) =
+          *reinterpret_cast<const uint4*>(q_s + tile_offset<D>(r, c));
+    }
+  }
+}
+
+template <int D>
+int launch_rows(const DensePolicy<D>& P, int hkv, int batch, cudaStream_t st) {
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(flash_rows_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               rows_smem_bytes<D>());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  const dim3 grid((P.sq * P.group + kRowBlock - 1) / kRowBlock, hkv, batch);
+  flash_rows_kernel<D><<<grid, kThreads, rows_smem_bytes<D>(), st>>>(P);
+  return 0;
+}
+
+template <int D>
+int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int b, int sq, int sk,
+                      int hkv, int group, long long q_sb, long long q_ss, long long k_sb,
+                      long long k_ss, long long v_sb, long long v_ss, long long o_sb,
+                      long long o_ss, int causal, int q_offset, float scale, int splits,
+                      cudaStream_t st) {
+  DensePolicy<D> P;
+  P.q = static_cast<const bf16*>(q);
+  P.k = static_cast<const bf16*>(k);
+  P.v = static_cast<const bf16*>(v);
+  P.o = static_cast<bf16*>(o);
+  P.sq = sq;
+  P.sk = sk;
+  P.group = group;
+  P.causal = causal;
+  P.q_offset = q_offset;
+  P.q_sb = q_sb;
+  P.q_ss = q_ss;
+  P.k_sb = k_sb;
+  P.k_ss = k_ss;
+  P.v_sb = v_sb;
+  P.v_ss = v_ss;
+  P.o_sb = o_sb;
+  P.o_ss = o_ss;
+  P.scale_log2 = scale * kLog2e;
+  if (splits == 0) return launch_rows<D>(P, hkv, b, st);
+  if (static_cast<long long>(sq) * group > kDecodeRows || splits < 1 || splits > kMaxSplits) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_decode(P, sq * group, splits, split_chunk(sk, splits), hkv, b, 0, st);
+}
+
+}  // namespace attn
 }  // namespace bobra
 
 // q [b, sq, hq, d], k/v [b, sk, hq/group, d], o like q. The last axis is
 // contiguous and heads are packed (head stride d); batch and sequence
 // strides are given in elements, so a sliced KV cache needs no copy.
-// Returns the cudaError_t of the launch.
+// splits: 0 for the rows kernel (bf16) or the scalar kernel (fp32); 1, 2,
+// 4 or 8 for the bf16 decode kernel (sq * group <= 16), its keys split
+// across a cluster of that many blocks. In bf16 every pointer must be
+// 16-byte aligned and every stride a multiple of 8. Returns the
+// cudaError_t of the launch.
 extern "C" int bobra_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      int b, int sq, int sk, int hq, int group, int d,
                                      long long q_sb, long long q_ss, long long k_sb,
                                      long long k_ss, long long v_sb, long long v_ss,
                                      long long o_sb, long long o_ss, int causal, int q_offset,
-                                     float scale, int dtype, void* stream) {
+                                     float scale, int splits, int dtype, void* stream) {
   using namespace bobra;
   if (b <= 0 || sq <= 0 || sk <= 0 || hq <= 0 || group <= 0 || hq % group != 0 ||
       q_offset < 0 || b > 65535 || hq > 65535) {
@@ -183,17 +395,33 @@ extern "C" int bobra_flash_attention(const void* q, const void* k, const void* v
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err;
-  switch (dtype) {
-    case kFloat32:
-      err = launch_flash<float>(q, k, v, o, b, sq, sk, hq, group, d, q_sb, q_ss, k_sb, k_ss,
-                                v_sb, v_ss, o_sb, o_ss, causal, q_offset, scale, st);
-      break;
-    case kBFloat16:
-      err = launch_flash<__nv_bfloat16>(q, k, v, o, b, sq, sk, hq, group, d, q_sb, q_ss, k_sb,
-                                        k_ss, v_sb, v_ss, o_sb, o_ss, causal, q_offset, scale,
-                                        st);
-      break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kFloat32) {
+    if (splits != 0) return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_flash_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                           static_cast<const float*>(v), static_cast<float*>(o), b, sq, sk, hq,
+                           group, d, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal,
+                           q_offset, scale, st);
+  } else if (dtype == kBFloat16) {
+    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+    const long long strides = q_sb | q_ss | k_sb | k_ss | v_sb | v_ss | o_sb | o_ss;
+    if (ptrs % 16 != 0 || strides % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int hkv = hq / group;
+    switch (d) {
+      case 32:
+        err = attn::launch_flash_bf16<32>(q, k, v, o, b, sq, sk, hkv, group, q_sb, q_ss, k_sb,
+                                          k_ss, v_sb, v_ss, o_sb, o_ss, causal, q_offset, scale,
+                                          splits, st);
+        break;
+      case 128:
+        err = attn::launch_flash_bf16<128>(q, k, v, o, b, sq, sk, hkv, group, q_sb, q_ss, k_sb,
+                                           k_ss, v_sb, v_ss, o_sb, o_ss, causal, q_offset, scale,
+                                           splits, st);
+        break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());

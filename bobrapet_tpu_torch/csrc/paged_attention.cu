@@ -3,10 +3,12 @@
 // Replaces: bobrapet_tpu/serving/engine.py:_paged_attention_pallas, which calls
 // jax.experimental's TPU paged_attention kernel (paged_attention_kernel.py:376).
 // It computes what the engine runs by default, engine.py:_paged_attention (the
-// einsum route): q scaled by 1/sqrt(D) in fp32 BEFORE the dot (the Pallas route
-// passes q unscaled and applies no scale), keys at positions >= seq_len masked,
-// softmax in fp32, the output cast once to q's type. seq_len == 0 gives a zero
-// output; a seq_len past the table's capacity counts as the capacity.
+// einsum route): scores scaled by 1/sqrt(D) in fp32 (the Pallas route passes q
+// unscaled and applies no scale), keys at positions >= seq_len masked, softmax
+// in fp32, the output cast once to q's type. seq_len == 0 gives a zero
+// output; a seq_len past the table's capacity counts as the capacity; an
+// out-of-range block id in a covered page makes the row NaN rather than read
+// outside the pool; table entries past the covered pages are never read.
 //
 // Layout: the port's pool [N, B, Hkv, D] of one layer, read from the layer's
 // base pointer with no transpose (the TPU kernel wants [Hkv, N, B, D] and the
@@ -18,24 +20,30 @@
 // does 4 flops per element of it per q head of the group (group 4 at the 8B
 // widths: ~4 flops/byte in bf16, far below the ~295 the H100 needs to be
 // compute bound). chip_smoke.py's main case (8 slots, Hq 32, Hkv 8, D 128,
-// 385 valid tokens, bf16) moves 1.71 MB: 0.51 us at 3.35 TB/s.
+// 385 valid tokens, bf16) moves 1.71 MB: 0.51 us at 3.35 TB/s, below what a
+// launch costs.
 //
-// Design (simple and right first; splitting pages across blocks with a
-// combine pass, and wgmma/TMA, are later work): one block of 128 threads per
-// (kv head, sequence), holding the whole GQA group of q rows, as the TPU
-// kernel's grid does, so each K/V row is read from device memory once per
-// group and never repeated. Only the ceil(seq_len / 32) key tiles that hold
-// data are walked: a tile of 32 keys is staged in shared memory as fp32 with
-// 16-byte loads, each lane scores one key against the group's rows (warp w
-// owns rows w, w+4, ...; the row max and sum are warp shuffles), keys past
-// seq_len get -inf and so probability exactly 0, and table entries past the
-// covered pages are never read. m, l and the output accumulator are fp32;
-// an out-of-range block id in a covered page makes the row NaN rather than
-// read outside the pool.
+// Two kernels, chosen by dtype:
+//
+// * bf16: attention_core.cuh's decode core with the paged policy. The GQA
+//   group's q rows fill one m16 tile of the tensor cores; a sequence's keys
+//   are split across a thread-block cluster of C blocks (C from the table's
+//   capacity, on the host: the wrapper never reads tables or lengths), grid
+//   (C, Hkv, slots). Each block loads its slice of the table row once, then
+//   puts its pages' K/V cp.async copies in flight (64-key tiles, bf16,
+//   XOR-swizzled; all of a block's tiles up to four) before any math; its
+//   4 warps split each tile, combine in shared memory, and push their
+//   state into rank 0, which combines the cluster: one launch, no atomics,
+//   deterministic.
+// * fp32: the scalar kernel below, exact in fp32 (the tensor cores would
+//   run fp32 as TF32): one block of 128 threads per (kv head, sequence)
+//   holding the group's rows, 32-key tiles staged as fp32 in shared memory,
+//   one key per lane, scalar FMAs.
 
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_core.cuh"
 #include "common.cuh"
 
 namespace bobra {
@@ -178,19 +186,15 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T>
-int launch_paged(const void* q, const void* k_pool, const void* v_pool, const int* tables,
-                 const int* seq_lens, void* o, int slots, int hkv, int group, int d,
-                 int block_size, int max_blocks, int num_blocks, float scale, cudaStream_t st) {
+int launch_paged_f32(const float* q, const float* k_pool, const float* v_pool, const int* tables,
+                     const int* seq_lens, float* o, int slots, int hkv, int group, int d,
+                     int block_size, int max_blocks, int num_blocks, float scale,
+                     cudaStream_t st) {
   const dim3 grid(hkv, slots);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k_pool);
-  const T* vp = static_cast<const T*>(v_pool);
-  T* op = static_cast<T*>(o);
-#define BOBRA_PAGED(DD)                                                                     \
-  paged_attention_kernel<T, DD><<<grid, kPagedThreads, 0, st>>>(qp, kp, vp, tables, seq_lens, \
-                                                               op, hkv, group, block_size,   \
-                                                               max_blocks, num_blocks, scale)
+#define BOBRA_PAGED(DD)                                                                        \
+  paged_attention_kernel<float, DD><<<grid, kPagedThreads, 0, st>>>(                           \
+      q, k_pool, v_pool, tables, seq_lens, o, hkv, group, block_size, max_blocks, num_blocks,   \
+      scale)
   switch (d) {
     case 32: BOBRA_PAGED(32); break;    // llama_tiny
     case 128: BOBRA_PAGED(128); break;  // llama3_1b, llama3_8b
@@ -200,37 +204,77 @@ int launch_paged(const void* q, const void* k_pool, const void* v_pool, const in
   return 0;
 }
 
+namespace attn {
+
+template <int D>
+int launch_paged_bf16(const void* q, const void* k_pool, const void* v_pool, const int* tables,
+                      const int* seq_lens, void* o, int slots, int hkv, int group,
+                      int block_size, int max_blocks, int num_blocks, float scale, int splits,
+                      cudaStream_t st) {
+  PagedPolicy<D> P;
+  P.q = static_cast<const bf16*>(q);
+  P.k_pool = static_cast<const bf16*>(k_pool);
+  P.v_pool = static_cast<const bf16*>(v_pool);
+  P.o = static_cast<bf16*>(o);
+  P.tables = tables;
+  P.seq_lens = seq_lens;
+  P.hkv = hkv;
+  P.group = group;
+  P.block_size = block_size;
+  P.max_blocks = max_blocks;
+  P.num_blocks = num_blocks;
+  P.scale_log2 = scale * kLog2e;
+  if (splits < 1 || splits > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
+  const int capacity = max_blocks * block_size;
+  return launch_decode(P, group, splits, split_chunk(capacity, splits), hkv, slots,
+                       paged_table_entries(capacity, splits, block_size), st);
+}
+
+}  // namespace attn
 }  // namespace bobra
 
 // q, o: [slots, hkv * group, d]; k_pool, v_pool: [num_blocks, block_size, hkv, d],
-// all contiguous and of one type, the pools 16-byte aligned; tables: int32
-// [slots, max_blocks]; seq_lens: int32 [slots]. Returns the cudaError_t of the
-// launch.
+// all contiguous and of one type, the pools (and in bf16 q and o) 16-byte
+// aligned; tables: int32 [slots, max_blocks]; seq_lens: int32 [slots]. splits: 0 for fp32 (the
+// scalar kernel); 1, 2, 4 or 8 for bf16, the blocks of the cluster that
+// split a sequence's keys. Returns the cudaError_t of the launch.
 extern "C" int bobra_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                      const void* tables, const void* seq_lens, void* o,
                                      int slots, int hkv, int group, int d, int block_size,
-                                     int max_blocks, int num_blocks, float scale, int dtype,
-                                     void* stream) {
+                                     int max_blocks, int num_blocks, float scale, int splits,
+                                     int dtype, void* stream) {
   using namespace bobra;
+  const uintptr_t pools = reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool);
+  const uintptr_t rows = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(o);
   if (slots <= 0 || slots > 65535 || hkv <= 0 || hkv > 65535 || group <= 0 ||
       group > kMaxGroup || block_size <= 0 || max_blocks <= 0 || num_blocks <= 0 ||
-      (reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool)) % 16 != 0) {
+      static_cast<long long>(max_blocks) * block_size > 0x7fffffff || pools % 16 != 0 ||
+      (dtype == kBFloat16 && rows % 16 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tp = static_cast<const int*>(tables);
   const int* lp = static_cast<const int*>(seq_lens);
   int err;
-  switch (dtype) {
-    case kFloat32:
-      err = launch_paged<float>(q, k_pool, v_pool, tp, lp, o, slots, hkv, group, d, block_size,
-                                max_blocks, num_blocks, scale, st);
-      break;
-    case kBFloat16:
-      err = launch_paged<__nv_bfloat16>(q, k_pool, v_pool, tp, lp, o, slots, hkv, group, d,
-                                        block_size, max_blocks, num_blocks, scale, st);
-      break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kFloat32) {
+    if (splits != 0) return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_paged_f32(static_cast<const float*>(q), static_cast<const float*>(k_pool),
+                           static_cast<const float*>(v_pool), tp, lp, static_cast<float*>(o),
+                           slots, hkv, group, d, block_size, max_blocks, num_blocks, scale, st);
+  } else if (dtype == kBFloat16) {
+    switch (d) {
+      case 32:
+        err = attn::launch_paged_bf16<32>(q, k_pool, v_pool, tp, lp, o, slots, hkv, group,
+                                          block_size, max_blocks, num_blocks, scale, splits, st);
+        break;
+      case 128:
+        err = attn::launch_paged_bf16<128>(q, k_pool, v_pool, tp, lp, o, slots, hkv, group,
+                                           block_size, max_blocks, num_blocks, scale, splits, st);
+        break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());

@@ -40,7 +40,7 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _functions: dict[str, ctypes._CFuncPtr] = {}
-#: nvcc's output of the build this process loaded ("" when reused)
+#: nvcc's output of the build this process loaded (read back when reused)
 build_log = ""
 
 
@@ -75,6 +75,8 @@ def build() -> Path:
     out_dir = BUILD_ROOT / source_hash()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
+        log = out_dir / "build.log"
+        build_log = log.read_text() if log.exists() else ""
         return lib_path
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -4,7 +4,9 @@ Counterpart of ``bobrapet_tpu/ops/attention.py``. The kernel
 (``csrc/flash_attention.cu``) replaces ``flash_attention`` and goes
 further than the Pallas kernel: it takes ``q_offset`` and ragged lengths,
 so it also carries cached prefill and decode, which the JAX model runs in
-XLA (``models/llama.py:_cached_attention``).
+XLA (``models/llama.py:_cached_attention``). :func:`flash_route` and
+:func:`kv_splits` decide, on the host and from shapes alone, which of its
+kernels a call takes and how a decode's keys are split.
 """
 
 from __future__ import annotations
@@ -21,14 +23,49 @@ NEG_INF = -1e30
 #: head widths the kernel is instantiated for: those of the presets
 #: (llama_tiny 32; llama3_1b and llama3_8b 128)
 KERNEL_HEAD_DIMS = (32, 128)
+#: packed rows (queries x GQA group) that the decode kernel holds: one
+#: m16 tile of the tensor cores
+DECODE_ROWS = 16
+#: keys of one shared-memory tile, and the most blocks of a thread-block
+#: cluster that split one decode's keys
+SPLIT_KEYS, MAX_SPLITS = 64, 8
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 4                      # q, k, v, o
     + [ctypes.c_int] * 6                       # b, sq, sk, hq, group, d
     + [ctypes.c_longlong] * 8                  # batch/seq strides of q, k, v, o
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int]  # causal, q_offset, scale, dtype
-    + [ctypes.c_void_p]                        # stream
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_float]  # causal, q_offset, scale
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # splits, dtype, stream
 )
+
+
+def kv_splits(size: int) -> int:
+    """Blocks of one thread-block cluster that share a decode's keys: the
+    next power of two of ``size`` / 64, between 1 and 8. ``size`` is a
+    static bound (Sk, or a block table's capacity), so the host never
+    reads a length from the card."""
+    tiles = max(1, -(-size // SPLIT_KEYS))
+    return min(1 << (tiles - 1).bit_length(), MAX_SPLITS)
+
+
+def flash_route(sq: int, group: int, dtype: torch.dtype) -> str:
+    """The kernel of ``csrc/flash_attention.cu`` that a call takes:
+    ``"scalar"`` for fp32 (exact; the tensor cores would run it as TF32),
+    ``"decode"`` for bf16 with at most 16 packed rows (Sq x group: one
+    tile, keys split across a cluster), ``"rows"`` for bf16 otherwise (64
+    packed rows per block)."""
+    if dtype == torch.float32:
+        return "scalar"
+    return "decode" if sq * group <= DECODE_ROWS else "rows"
+
+
+def check_aligned(name: str, t: torch.Tensor, strides: tuple) -> None:
+    """The bf16 kernels copy rows with 16-byte cp.async: the tensor's
+    address and the given strides must be multiples of 16 bytes."""
+    if t.data_ptr() % 16 or any(st * t.element_size() % 16 for st in strides):
+        raise ValueError(
+            f"{name} needs a 16-byte aligned address and strides of whole 16-byte "
+            f"chunks in bf16, got address {t.data_ptr():#x} and strides {t.stride()}")
 
 
 def attention_reference(
@@ -85,9 +122,12 @@ def flash_attention_cuda(
     scaled by 1/sqrt(D).
 
     Batch and sequence strides are free (a KV cache sliced to its valid
-    length goes in without a copy); heads must be packed. Raises on what
-    the kernel does not take, including a tensor that is not on a card;
-    it never computes the plain version instead."""
+    length goes in without a copy); heads must be packed, and in bf16 the
+    addresses and strides 16-byte aligned. The route (:func:`flash_route`)
+    and a decode's split (:func:`kv_splits` of Sk) are chosen here from
+    shapes; one launch per call. Raises on what the kernel does not take,
+    including a tensor that is not on a card; it never computes the plain
+    version instead."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(
             f"flash_attention_cuda needs q, k, v on one CUDA device, got "
@@ -110,6 +150,11 @@ def flash_attention_cuda(
         raise ValueError("flash_attention_cuda: empty input")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_heads_packed(name, t)
+    route = flash_route(sq, hq // hkv, q.dtype)
+    if route != "scalar":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_aligned(f"flash_attention_cuda: {name}", t, (t.stride(0), t.stride(1)))
+    splits = kv_splits(sk) if route == "decode" else 0
     scale = 1.0 / math.sqrt(d)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     fn = kernel_function("bobra_flash_attention", _ARGTYPES)
@@ -118,7 +163,7 @@ def flash_attention_cuda(
                  b, sq, sk, hq, hq // hkv, d,
                  q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-                 int(bool(causal)), int(q_offset), float(scale),
+                 int(bool(causal)), int(q_offset), float(scale), splits,
                  KERNEL_DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     check_launch("flash_attention", err)
     flash_attention_cuda.launches += 1

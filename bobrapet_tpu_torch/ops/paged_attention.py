@@ -21,15 +21,15 @@ import math
 import torch
 
 from ..kernels import KERNEL_DTYPES, check_launch, kernel_function
-from .attention import KERNEL_HEAD_DIMS, NEG_INF
+from .attention import DECODE_ROWS, KERNEL_HEAD_DIMS, NEG_INF, check_aligned, kv_splits
 
-#: q heads per kv head the kernel holds in one block
-MAX_GROUP = 16
+#: q heads per kv head the kernel holds in one block (one tile of rows)
+MAX_GROUP = DECODE_ROWS
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 6                      # q, k_pool, v_pool, tables, seq_lens, o
     + [ctypes.c_int] * 7                       # slots, hkv, group, d, block_size, max_blocks, num_blocks
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, dtype, stream
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # scale, splits, dtype, stream
 )
 
 
@@ -85,9 +85,11 @@ def paged_attention_cuda(
     q: [S, Hq, D] and pools [N, B, Hkv, D], fp32 or bf16 of one type,
     contiguous; int32 ``block_tables [S, MB]`` and ``seq_lens [S]``, all
     on one CUDA device. The tables and lengths stay on the device: the
-    wrapper never reads them, so a decode tick gets no host sync. Raises
-    on what the kernel does not take, including a tensor that is not on
-    a card; it never computes the plain version instead."""
+    wrapper never reads them, so a decode tick gets no host sync; in bf16
+    a sequence's keys are split across a cluster of :func:`kv_splits` of
+    the table's capacity blocks, one launch per call. Raises on what the
+    kernel does not take, including a tensor that is not on a card; it
+    never computes the plain version instead."""
     tensors = (q, k_pool, v_pool, block_tables, seq_lens)
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError(
@@ -118,15 +120,18 @@ def paged_attention_cuda(
         raise ValueError("paged_attention_cuda needs contiguous q, pools, tables and lengths")
     if (k_pool.data_ptr() | v_pool.data_ptr()) % 16:
         raise ValueError("paged_attention_cuda needs 16-byte aligned pools")
+    if q.dtype == torch.bfloat16:
+        check_aligned("paged_attention_cuda: q", q, ())
     out = torch.empty_like(q)
     if s == 0 or block_tables.shape[1] == 0:
         return out.zero_()
+    splits = kv_splits(block_tables.shape[1] * block_size) if q.dtype == torch.bfloat16 else 0
     fn = kernel_function("bobra_paged_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
                  seq_lens.data_ptr(), out.data_ptr(), s, hkv, hq // hkv, d, block_size,
-                 block_tables.shape[1], n_blocks, 1.0 / math.sqrt(d), KERNEL_DTYPES[q.dtype],
-                 torch.cuda.current_stream().cuda_stream)
+                 block_tables.shape[1], n_blocks, 1.0 / math.sqrt(d), splits,
+                 KERNEL_DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     check_launch("paged_attention", err)
     paged_attention_cuda.launches += 1
     return out

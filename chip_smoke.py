@@ -6,10 +6,14 @@
 Phases, each fatal on failure (exit 1, and no result line):
 
 1. the card: its name and power limit (nvidia-smi); no card, no run;
-2. build every kernel in bobrapet_tpu_torch/csrc with nvcc for sm_90a;
+2. build every kernel in bobrapet_tpu_torch/csrc with nvcc for sm_90a,
+   and print each kernel instance's ptxas line (registers, static shared
+   memory, spills); a spill in a tensor-core attention kernel fails the run;
 3. each kernel against its plain PyTorch version on the card, in bf16 at
-   the main paths' shapes plus ragged, fp32 and narrow-head cases: max
-   abs error against a stated tolerance, and the times (CUDA events,
+   the main paths' shapes (greedy prefill and decode, the engine's
+   largest prefill bucket, an engine decode tick) plus long-cache decodes
+   (dense over 2048 rows, paged up to 1024), ragged, fp32 and narrow-head
+   cases: max abs error against a stated tolerance, and the times (CUDA events,
    median of 50 launches, L2 flushed before each) of the kernel, the
    plain version and one PyTorch library call for the same function (a
    yardstick only; the port never calls it), beside the least time the
@@ -40,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -61,6 +66,11 @@ SERVE_PAGING = dict(max_slots=8, block_size=16, num_blocks=256, max_blocks_per_s
 # one decode tick's paged attention: the inactive lane (length 1, an
 # all-scratch table row) and live lanes at block edges and inside blocks
 PAGED_LENS = (1, 9, 16, 17, 50, 64, 100, 128)
+# long caches: a greedy decode over 2048 rows, and a tick whose tables
+# hold 64 pages of 16 (capacity 1024) with lanes up to full
+LONG_KV = 2048
+LONG_KV_PAGES, LONG_PAGED_BLOCKS = 64, 520
+LONG_PAGED_LENS = (1, 100, 255, 256, 511, 700, 1000, 1024)
 
 
 def serve_prompt_len(i: int) -> int:
@@ -93,6 +103,40 @@ TOL = {
 # (cuBLAS vs the CPU), so 1-ulp flips carry through two layers into
 # logits of magnitude ~5; a kernel fault shows as errors of order 1.
 LOGIT_MAX_ERR, LOGIT_MEAN_ERR = 0.25, 0.02
+
+
+def ptxas_instances(log: str) -> list[dict]:
+    """Each kernel instance in nvcc's ``-Xptxas -v`` output: its (mangled)
+    name, registers, static shared memory and spill bytes."""
+    out: list[dict] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            out.append({"name": m.group(1), "registers": None, "smem_bytes": 0,
+                        "spill_stores": 0, "spill_loads": 0})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[-1]["spill_stores"], out[-1]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[-1]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def demangle(names: list[str]) -> list[str]:
+    """C++ names through c++filt where the machine has it (for printing)."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return names
+    lines = out.stdout.splitlines()
+    return lines if out.returncode == 0 and len(lines) == len(names) else names
 
 
 def fail(msg: str) -> None:
@@ -326,10 +370,30 @@ def request_split(torch, llama, params, prompt, cfg, dev, steps: int = 16,
         "decode_step_device_ms": device_ms or None,
         "decode_device_busy_share": (device_ms / step_ms) if device_ms else None,
         "decode_kernels_per_step": sum(e.count for e in kernels) / profiled,
+        "decode_port_kernels": port_kernel_shares(kernels, profiled),
         "decode_top_kernels": [
             {"name": e.key[:70], "ms_per_step": e.self_device_time_total / 1e3 / profiled,
              "calls_per_step": e.count / profiled} for e in top],
     }
+
+
+# the port's kernels by the names the profiler gives their instances
+PORT_KERNELS = (("paged_attention", ("PagedPolicy", "paged_attention_kernel")),
+                ("flash_attention", ("flash_rows_kernel", "DensePolicy", "flash_attention_kernel")),
+                ("rmsnorm", ("rmsnorm_kernel",)))
+
+
+def port_kernel_shares(kernels, steps: int) -> dict:
+    """Device ms and calls per step of each port kernel, from the
+    profiler's per-kernel averages over ``steps`` steps."""
+    out = {name: {"ms_per_step": 0.0, "calls_per_step": 0.0} for name, _ in PORT_KERNELS}
+    for e in kernels:
+        for name, marks in PORT_KERNELS:
+            if any(mark in e.key for mark in marks):
+                out[name]["ms_per_step"] += e.self_device_time_total / 1e3 / steps
+                out[name]["calls_per_step"] += e.count / steps
+                break
+    return out
 
 
 def serve_prompts(torch, cfg, seed: int, dev) -> list:
@@ -430,6 +494,7 @@ def tick_profile(torch, eng, prompts, steps: int = 8, profiled: int = 4) -> dict
         "step_device_ms": device_ms or None,
         "device_busy_share": (device_ms / step_ms) if device_ms else None,
         "kernels_per_step": sum(e.count for e in kernels) / profiled,
+        "port_kernels": port_kernel_shares(kernels, profiled),
         "top_kernels": [
             {"name": e.key[:70], "ms_per_step": e.self_device_time_total / 1e3 / profiled,
              "calls_per_step": e.count / profiled} for e in top],
@@ -559,9 +624,18 @@ def main() -> None:
     kbuild.library()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s, sources {[p.name for p in kbuild.sources()]}", flush=True)
-    for line in kbuild.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print(f"  {line.strip()}")
+    instances = ptxas_instances(kbuild.build_log)
+    for inst, name in zip(instances, demangle([i["name"] for i in instances])):
+        inst["name"] = name
+        print(f"  ptxas {name}: {inst['registers']} registers, {inst['smem_bytes']} bytes "
+              f"static smem, spill stores {inst['spill_stores']} B, spill loads "
+              f"{inst['spill_loads']} B", flush=True)
+    if kbuild.build_log and not instances:
+        fail("the build log shows no ptxas line")
+    # the tensor-core attention kernels (namespace bobra::attn) must not
+    # spill; the older scalar kernels are reported as they are
+    if any("attn" in i["name"] and (i["spill_stores"] or i["spill_loads"]) for i in instances):
+        fail("a tensor-core attention kernel spills registers")
 
     # ---- 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -580,6 +654,10 @@ def main() -> None:
                    bf16, 0, gen, dev),
         flash_case(torch, F, ops, flush, "flash decode", BATCH, 1, DECODE_KV, hq, hkv, hd,
                    bf16, DECODE_KV - 1, gen, dev),
+        flash_case(torch, F, ops, flush, "flash engine prefill", 1, 64, 64, hq, hkv, hd, bf16,
+                   0, gen, dev),
+        flash_case(torch, F, ops, flush, "flash long decode", BATCH, 1, LONG_KV, hq, hkv, hd,
+                   bf16, LONG_KV - 1, gen, dev),
         flash_case(torch, F, ops, flush, "flash ragged", 2, 100, 100, hq, hkv, hd, bf16, 0,
                    gen, dev),
         flash_case(torch, F, ops, flush, "flash prefill fp32", 2, PROMPT, PROMPT, hq, hkv, hd,
@@ -587,6 +665,8 @@ def main() -> None:
     ]
     paged_cases = [
         paged_case(torch, F, ops, flush, "paged decode", hq, hkv, hd, bf16, gen, dev),
+        paged_case(torch, F, ops, flush, "paged long decode", hq, hkv, hd, bf16, gen, dev,
+                   n_blocks=LONG_PAGED_BLOCKS, mb=LONG_KV_PAGES, lens=LONG_PAGED_LENS),
         paged_case(torch, F, ops, flush, "paged decode fp32", hq, hkv, hd, f32, gen, dev),
         paged_case(torch, F, ops, flush, "paged decode D=32", 4, 2, 32, bf16, gen, dev,
                    block=8, n_blocks=64, lens=(1, 8, 9, 17, 24, 31, 32, 2), mb=4),

@@ -88,3 +88,55 @@ def test_refuses_to_report_alone(tmp_path):
     assert not lines or not lines[-1].startswith("{")
     with pytest.raises(json.JSONDecodeError):
         json.loads(lines[-1] if lines else "")
+
+
+PTXAS_LOG = """== flash_attention.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN5bobra4attn17flash_rows_kernelILi128EEEvNS0_11DensePolicyIXT_EEE' for 'sm_90a'
+ptxas info    : Function properties for _ZN5bobra4attn17flash_rows_kernelILi128EEEvNS0_11DensePolicyIXT_EEE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 416 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN5bobra22flash_attention_kernelIfLi32EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN5bobra22flash_attention_kernelIfLi32EEEvPKT_
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 22784 bytes smem, 456 bytes cmem[0]
+"""
+
+
+def test_ptxas_instances_reads_registers_smem_and_spills(smoke):
+    rows, scalar = smoke.ptxas_instances(PTXAS_LOG)
+    assert rows == {"name": "_ZN5bobra4attn17flash_rows_kernelILi128EEEvNS0_11DensePolicyIXT_EEE",
+                    "registers": 168, "smem_bytes": 0, "spill_stores": 0, "spill_loads": 0}
+    assert (scalar["registers"], scalar["smem_bytes"]) == (90, 22784)
+    assert (scalar["spill_stores"], scalar["spill_loads"]) == (4, 8)
+    assert smoke.ptxas_instances("== rmsnorm.cu\n") == []
+
+
+def test_long_cache_cases_split_across_whole_clusters(smoke):
+    from bobrapet_tpu_torch.ops.attention import kv_splits
+
+    assert kv_splits(smoke.LONG_KV) == 8
+    cap = 16 * smoke.LONG_KV_PAGES
+    assert cap == 1024 and max(smoke.LONG_PAGED_LENS) == cap and kv_splits(cap) == 8
+    # the live lanes' pages fit the pool beside the scratch block
+    pages = sum(-(-n // 16) for n in smoke.LONG_PAGED_LENS[1:])
+    assert pages <= smoke.LONG_PAGED_BLOCKS - 1
+
+
+def test_port_kernel_shares_sorts_instances_by_kernel(smoke):
+    from types import SimpleNamespace as E
+
+    events = [
+        E(key="void bobra::attn::decode_attention_kernel<bobra::attn::PagedPolicy<128> >(...)",
+          self_device_time_total=400.0, count=64),
+        E(key="void bobra::attn::decode_attention_kernel<bobra::attn::DensePolicy<128> >(...)",
+          self_device_time_total=200.0, count=64),
+        E(key="void bobra::attn::flash_rows_kernel<128>(...)", self_device_time_total=100.0, count=2),
+        E(key="void bobra::rmsnorm_kernel<__nv_bfloat16, false>(...)", self_device_time_total=60.0,
+          count=130),
+        E(key="nvjet_tst_192x8_64x8_4x1_v_bz_NNT", self_device_time_total=9000.0, count=128),
+    ]
+    shares = smoke.port_kernel_shares(events, 2)
+    assert shares == {"paged_attention": {"ms_per_step": pytest.approx(0.2), "calls_per_step": 32.0},
+                      "flash_attention": {"ms_per_step": pytest.approx(0.15), "calls_per_step": 33.0},
+                      "rmsnorm": {"ms_per_step": pytest.approx(0.03), "calls_per_step": 65.0}}

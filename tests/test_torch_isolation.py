@@ -22,7 +22,8 @@ from bobrapet_tpu_torch.ops import (
 )
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "bobrapet_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "bobrapet_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "attention_sweep.py"]
 
 
 def _forbidden(name: str) -> bool:

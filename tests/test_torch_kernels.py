@@ -83,13 +83,25 @@ def _bit_share(a, b):
 
 
 FLASH_CASES = [
-    # b, sq, sk, hq, hkv, d, causal, q_offset
+    # b, sq, sk, hq, hkv, d, causal, q_offset; packed rows = sq * hq / hkv
     (8, 128, 128, 32, 8, 128, True, 0),     # the model's prefill
-    (8, 1, 160, 32, 8, 128, True, 159),     # a decode step
+    (8, 1, 160, 32, 8, 128, True, 159),     # a decode step: 4 rows, 4 blocks a cluster
     (2, 100, 100, 8, 2, 128, True, 0),      # ragged
     (2, 7, 45, 4, 4, 128, True, 38),        # ragged chunk after a prefix
     (2, 64, 96, 4, 1, 32, False, 0),        # non-causal, group 4
     (1, 33, 33, 2, 2, 32, True, 0),
+    (1, 64, 64, 32, 8, 128, True, 0),       # the engine's largest prefill bucket
+    (2, 15, 63, 1, 1, 128, True, 48),       # 15 rows, group 1, Sk 63
+    (2, 2, 64, 16, 2, 128, True, 62),       # 16 rows, group 8, Sk 64: one block
+    (1, 17, 65, 4, 4, 32, True, 48),        # 17 rows: the rows kernel, Sk 65
+    (2, 4, 65, 32, 2, 128, True, 61),       # 64 rows, group 16
+    (1, 65, 100, 2, 2, 128, False, 0),      # 65 rows, non-causal
+    (2, 8, 80, 4, 2, 32, True, 72),         # 16 rows, group 2
+    (2, 1, 2048, 32, 8, 128, True, 2047),   # long decode: 8 blocks, 4 tiles each
+    (1, 1, 2048, 16, 1, 32, True, 2047),    # group 16 over a long cache
+    (3, 1, 64, 8, 1, 128, True, 63),        # group 8, Sk 64: one block
+    (1, 64, 200, 32, 8, 128, True, 136),    # a chunk after a cached prefix
+    (2, 1, 1, 4, 1, 32, True, 0),           # one key
 ]
 
 
@@ -119,6 +131,17 @@ def test_flash_kernel_reads_a_sliced_cache_in_place(cuda):
     assert torch.equal(out, packed)
 
 
+@pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[1], FLASH_CASES[13]], ids=str)
+def test_flash_kernel_gives_the_same_bits_twice(cuda, case):
+    # the decode kernel combines its cluster in a fixed order: no atomics
+    b, sq, sk, hq, hkv, d, causal, q_offset = case
+    q = _randn((b, sq, hq, d), torch.bfloat16, cuda, 8)
+    k = _randn((b, sk, hkv, d), torch.bfloat16, cuda, 9)
+    v = _randn((b, sk, hkv, d), torch.bfloat16, cuda, 10)
+    first = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+    assert torch.equal(first, flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset))
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 4, 2, 48, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -132,6 +155,15 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         attention(q, q, q, sm_scale=0.3)
     with pytest.raises(TypeError):
         flash_attention_cuda(q.half(), q.half(), q.half())
+    # bf16 rows are copied 16 bytes at a time
+    kv = torch.zeros(1, 4, 2, 33, dtype=torch.bfloat16, device=cuda)[..., 1:]
+    qb = torch.zeros(1, 4, 2, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="packed heads"):
+        flash_attention_cuda(qb, kv, kv)
+    flat = torch.zeros(4 * 2 * 32 + 4, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[4:].view(1, 4, 2, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(qb, shifted, shifted)
 
 
 def test_tiny_model_on_the_card_matches_the_cpu(cuda):
@@ -155,6 +187,10 @@ PAGED_CASES = [
     (4, 8, 2, 32, 8, 40, 4, (1, 8, 9, 32)),                          # llama_tiny widths
     (3, 4, 4, 128, 4, 20, 5, (1, 4, 5)),                              # group 1
     (2, 16, 1, 32, 16, 6, 2, (32, 17)),                               # group 16, the most
+    # capacity 1024: 8 blocks a cluster, 2 tiles each
+    (8, 32, 8, 128, 16, 520, 64, (1, 100, 255, 256, 511, 700, 1000, 1024)),
+    (4, 16, 2, 128, 16, 40, 8, (3, 64, 65, 128)),                     # group 8
+    (3, 4, 2, 32, 16, 20, 4, (1, 33, 63)),                            # group 2
 ]
 
 
@@ -195,8 +231,9 @@ def test_paged_kernel_reads_a_layer_of_the_pools_in_place(cuda):
     assert torch.equal(out, paged_attention_cuda(q, k, v, tables, lens))
 
 
-def test_paged_kernel_zero_length_and_masked_keys(cuda):
-    q, k, v, tables, lens = _paged_inputs(PAGED_CASES[1], torch.float32, cuda)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_kernel_zero_length_and_masked_keys(cuda, dtype):
+    q, k, v, tables, lens = _paged_inputs(PAGED_CASES[1], dtype, cuda)
     lens[0] = 0
     out = paged_attention_cuda(q, k, v, tables, lens)
     assert torch.equal(out[0], torch.zeros_like(out[0]))
@@ -208,6 +245,29 @@ def test_paged_kernel_zero_length_and_masked_keys(cuda):
     tables2 = tables.clone()
     tables2[2, 2:] = 10 ** 6  # never read
     assert torch.equal(paged_attention_cuda(q, k, v2, tables2, lens), out)
+
+
+def test_paged_kernel_bad_page_gives_nan_and_long_lengths_count_as_capacity(cuda):
+    q, k, v, tables, lens = _paged_inputs(PAGED_CASES[1], torch.bfloat16, cuda)
+    out = paged_attention_cuda(q, k, v, tables, lens)
+    bad = tables.clone()
+    bad[2, 0] = 10 ** 6  # a covered page outside the pool
+    out_bad = paged_attention_cuda(q, k, v, bad, lens)
+    assert bool(torch.isnan(out_bad[2].float()).all())
+    assert torch.equal(out_bad[3], out[3])
+    long = lens.clone()
+    long[3] = 10 ** 6  # past the table's capacity of 4 blocks of 8
+    cap = lens.clone()
+    cap[3] = 32
+    assert torch.equal(paged_attention_cuda(q, k, v, tables, long),
+                       paged_attention_cuda(q, k, v, tables, cap))
+
+
+@pytest.mark.parametrize("case", [PAGED_CASES[0], PAGED_CASES[4]], ids=str)
+def test_paged_kernel_gives_the_same_bits_twice(cuda, case):
+    q, k, v, tables, lens = _paged_inputs(case, torch.bfloat16, cuda, seed=3)
+    first = paged_attention_cuda(q, k, v, tables, lens)
+    assert torch.equal(first, paged_attention_cuda(q, k, v, tables, lens))
 
 
 def test_paged_kernel_refuses_what_it_does_not_take(cuda):
