@@ -1,5 +1,5 @@
 // Shared helpers of the port's kernels: element types, conversions and
-// warp/block reductions. Plain CUDA, no PyTorch headers, so nvcc builds a
+// warp reductions. Plain CUDA, no PyTorch headers, so nvcc builds a
 // source in seconds.
 #pragma once
 
@@ -30,21 +30,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-// Sum over the whole block; every thread gets the total. blockDim.x must
-// be a multiple of 32 and at most 1024.
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float partial[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) partial[warp] = v;
-  __syncthreads();
-  const int n_warps = blockDim.x >> 5;
-  v = lane < n_warps ? partial[lane] : 0.f;
-  v = warp_sum(v);
-  __syncthreads();  // partial[] may be reused by a later call
   return v;
 }
 

@@ -3,9 +3,13 @@
 Counterpart of ``bobrapet_tpu/models/llama.py``: the same config presets,
 the same parameter tree (nested dicts and lists of tensors, so the bridge
 carries JAX weights over one to one), the same forward arithmetic and
-rounding points. Every norm goes through :func:`ops.rmsnorm` and every
-attention, prefill and decode, through :func:`ops.attention`; on a card
-both launch the port's CUDA kernels, on the CPU their plain versions.
+rounding points. Every attention, prefill and decode, goes through
+:func:`ops.attention`. The layer loop carries the residual stream ``x``
+and the pending delta of the block before (``x + delta`` not yet taken):
+every norm but the first is :func:`ops.add_rmsnorm`, which takes that add
+and the norm in one step, and the first is :func:`ops.rmsnorm`. On a card
+these launch the port's CUDA kernels, on the CPU their plain versions,
+which take the same two torch ops as ``x = x + delta`` then the norm.
 
 The KV cache is updated in place (a slice assignment at the cursor, and
 the cursor advanced in the caller's dicts) to save the copy JAX's
@@ -25,7 +29,7 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import attention
-from ..ops.rmsnorm import rmsnorm
+from ..ops.rmsnorm import add_rmsnorm, rmsnorm
 from ..ops.rope import apply_rope, rope_frequencies
 from .quant import matmul as _mm
 
@@ -158,27 +162,43 @@ def _freqs_table(head_dim: int, max_seq_len: int, theta: float,
     return rope_frequencies(head_dim, max_seq_len, theta, scaling, device=device)
 
 
-def _qkv(layer: dict[str, Any], x: torch.Tensor, freqs: torch.Tensor, cfg: LlamaConfig,
-         positions: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The attention norm, the q/k/v projections [B, S, H, Dh] and RoPE."""
+def _norm(x: torch.Tensor, delta: Optional[torch.Tensor], weight: torch.Tensor,
+          cfg: LlamaConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(x + delta, its norm)``; with no pending delta (layer 0's attention
+    norm) ``(x, the norm of x)``."""
+    if delta is None:
+        return x, rmsnorm(x, weight, cfg.norm_eps)
+    return add_rmsnorm(x, delta, weight, cfg.norm_eps)
+
+
+def _qkv(layer: dict[str, Any], x: torch.Tensor, delta: Optional[torch.Tensor],
+         freqs: torch.Tensor, cfg: LlamaConfig, positions: Optional[torch.Tensor],
+         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention norm over ``x + delta``, the q/k/v projections
+    [B, S, H, Dh] and RoPE. Returns ``(x + delta, q, k, v)``: the residual
+    stream with the pending delta added."""
     b, s, _ = x.shape
-    h = rmsnorm(x, layer["attn_norm"]["weight"], cfg.norm_eps)
+    x, h = _norm(x, delta, layer["attn_norm"]["weight"], cfg)
     q = _mm(h, layer["attn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = _mm(h, layer["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = _mm(h, layer["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    return apply_rope(q, freqs, positions), apply_rope(k, freqs, positions), v
+    return x, apply_rope(q, freqs, positions), apply_rope(k, freqs, positions), v
 
 
 def _attention_block(
     layer: dict[str, Any],
     x: torch.Tensor,
+    delta: Optional[torch.Tensor],
     freqs: torch.Tensor,
     cfg: LlamaConfig,
     cache: Optional[dict[str, Any]],
     positions: Optional[torch.Tensor],
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(x + delta, the block's own delta)``: the output
+    projection is not yet added to the residual stream; the next norm
+    adds it."""
     b, s, _ = x.shape
-    q, k, v = _qkv(layer, x, freqs, cfg, positions)
+    x, q, k, v = _qkv(layer, x, delta, freqs, cfg, positions)
     if cache is not None:
         # write k/v at the cursor and advance it (in place), attend over
         # the valid prefix
@@ -193,7 +213,7 @@ def _attention_block(
     else:
         out = attention(q, k, v, causal=True)
     out = out.reshape(b, s, cfg.dim)
-    return x + _mm(out, layer["attn"]["wo"])
+    return x, _mm(out, layer["attn"]["wo"])
 
 
 def _cached_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
@@ -209,11 +229,15 @@ def _cached_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
                      causal=True, q_offset=valid_len - s)
 
 
-def _mlp_block(layer: dict[str, Any], x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    h = rmsnorm(x, layer["mlp_norm"]["weight"], cfg.norm_eps)
+def _mlp_block(layer: dict[str, Any], x: torch.Tensor, delta: torch.Tensor,
+               cfg: LlamaConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MLP norm over ``x + delta`` and the MLP. Returns ``(x + delta,
+    the MLP's delta)``: its output is not yet added to the residual
+    stream; the next norm adds it."""
+    x, h = add_rmsnorm(x, delta, layer["mlp_norm"]["weight"], cfg.norm_eps)
     gate = F.silu(_mm(h, layer["mlp"]["w_gate"]).float())
     up = _mm(h, layer["mlp"]["w_up"]).float()
-    return x + _mm((gate * up).to(cfg.dtype), layer["mlp"]["w_down"])
+    return x, _mm((gate * up).to(cfg.dtype), layer["mlp"]["w_down"])
 
 
 def forward(
@@ -232,16 +256,19 @@ def forward(
     freqs = _freqs_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                          cfg.rope_scaling, tokens.device)
     x = params["embed"]["weight"][tokens].to(cfg.dtype)
+    delta = None
     for i, layer in enumerate(params["layers"]):
         layer_cache = cache[i] if cache is not None else None
-        x = _attention_block(layer, x, freqs, cfg, layer_cache, positions)
-        x = _mlp_block(layer, x, cfg)
-    return _logits(params, x, cfg), cache
+        x, delta = _attention_block(layer, x, delta, freqs, cfg, layer_cache, positions)
+        x, delta = _mlp_block(layer, x, delta, cfg)
+    return _logits(params, x, delta, cfg), cache
 
 
-def _logits(params: dict[str, Any], x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """The final norm and the LM head: fp32 logits [B, S, V]."""
-    x = rmsnorm(x, params["final_norm"]["weight"], cfg.norm_eps)
+def _logits(params: dict[str, Any], x: torch.Tensor, delta: torch.Tensor,
+            cfg: LlamaConfig) -> torch.Tensor:
+    """The final norm over ``x + delta`` (the last block's pending delta)
+    and the LM head: fp32 logits [B, S, V]."""
+    _, x = add_rmsnorm(x, delta, params["final_norm"]["weight"], cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["weight"].T.to(cfg.dtype)
     else:

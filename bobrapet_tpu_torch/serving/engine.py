@@ -21,8 +21,9 @@ request, and leaves the instant it finishes.
   memory without blocking, and each tick's tokens come back through a
   pinned buffer behind an event, so nothing else waits on the card.
 
-On a card every norm, the prefill attention and the decode attention
-launch the port's kernels; on the CPU their plain versions run.
+On a card every norm (each but the first fused with the residual add
+before it), the prefill attention and the decode attention launch the
+port's kernels; on the CPU their plain versions run.
 """
 
 from __future__ import annotations
@@ -591,14 +592,15 @@ def _decode_step(params: dict[str, Any], pools: dict[str, torch.Tensor],
     write_block = torch.where(active, row, SCRATCH_BLOCK)
     write_off = torch.where(active, positions % pcfg.block_size, 0)
 
+    delta = None  # the pending residual delta, added by the next norm
     for layer_i, layer in enumerate(params["layers"]):
-        q, k, v = _qkv(layer, x, freqs, cfg, positions[:, None])
+        x, q, k, v = _qkv(layer, x, delta, freqs, cfg, positions[:, None])
         pools = _write_layer(pools, layer_i, k, v, write_block, write_off)
         out = _paged_attention(q, pools, block_tables, seq_lens, layer_i, cfg)
-        x = x + _mm(out.reshape(S, 1, cfg.dim), layer["attn"]["wo"])
-        x = _mlp_block(layer, x, cfg)
+        delta = _mm(out.reshape(S, 1, cfg.dim), layer["attn"]["wo"])
+        x, delta = _mlp_block(layer, x, delta, cfg)
 
-    logits = _logits(params, x, cfg)[:, 0]  # [S, V]
+    logits = _logits(params, x, delta, cfg)[:, 0]  # [S, V]
     return pools, logits.argmax(dim=-1).to(torch.int32)
 
 

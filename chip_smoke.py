@@ -8,21 +8,26 @@ Phases, each fatal on failure (exit 1, and no result line):
 1. the card: its name and power limit (nvidia-smi); no card, no run;
 2. build every kernel in bobrapet_tpu_torch/csrc with nvcc for sm_90a,
    and print each kernel instance's ptxas line (registers, static shared
-   memory, spills); a spill in a tensor-core attention kernel fails the run;
+   memory, spills); a spill in a tensor-core attention kernel or in an
+   RMSNorm instance fails the run;
 3. each kernel against its plain PyTorch version on the card, in bf16 at
-   the main paths' shapes (greedy prefill and decode, the engine's
-   largest prefill bucket, an engine decode tick) plus long-cache decodes
-   (dense over 2048 rows, paged up to 1024), ragged, fp32 and narrow-head
-   cases: max abs error against a stated tolerance, and the times (CUDA events,
-   median of 50 launches, L2 flushed before each) of the kernel, the
-   plain version and one PyTorch library call for the same function (a
-   yardstick only; the port never calls it), beside the least time the
-   card could take;
+   the main paths' shapes (greedy prefill and decode, RMSNorm alone and
+   fused with the residual add, the engine's largest prefill bucket, an
+   engine decode tick) plus long-cache decodes (dense over 2048 rows,
+   paged up to 1024), ragged, fp32 and narrow-head cases: max abs error
+   against a stated tolerance, and the times (CUDA events, median of 50
+   launches, L2 flushed before each) of the kernel, the plain version and
+   one PyTorch library call for the same function (a yardstick only; the
+   port never calls it), beside the least time the card could take (for
+   RMSNorm also its time with the L2 left warm, and a PyTorch copy that
+   moves the same bytes under the flushed timer); then the host's
+   microseconds per call of each kernel wrapper against torch.add;
 4. the greedy path: Llama-3-8B at full width and depth (bf16, random
    weights from --seed) serves three requests through greedy_generate,
    each a batch of 8 prompts of 128 tokens with 64 new tokens; the
    kernels' launch counts, set to 0 just before, must show that every
-   norm and every attention of the run went through the kernels;
+   norm and every attention of the run went through the kernels, and
+   every norm but the first of a forward through the add mode;
 5. the serving path on the same weights: the continuous-batching engine
    (8 slots over a paged cache of 256 blocks of 16) streams 16 requests
    (prompts of 8-36 tokens, budgets of 32-64, 785 new tokens) with the
@@ -201,16 +206,50 @@ def bit_share(torch, a, b) -> float:
     return float((a.view(torch.int16) == b.view(torch.int16)).float().mean())
 
 
-def rmsnorm_case(torch, F, ops, flush, name, rows, d, dtype, gen, dev):
+def rmsnorm_bytes(rows: int, d: int, es: int, add: bool) -> int:
+    """x (and delta) read once, y (and s) written once, the weight once."""
+    return (4 if add else 2) * rows * d * es + d * es
+
+
+def rmsnorm_flops(rows: int, d: int, add: bool) -> int:
+    """Square and sum, scale, weight product per element (and the add)."""
+    return (5 if add else 4) * rows * d
+
+
+def rmsnorm_case(torch, F, ops, flush, name, rows, d, dtype, gen, dev, add=False):
+    """The plain mode, or (``add``) the add mode: ``s`` must be the card's
+    own ``x + delta`` bit for bit, and ``y`` the plain norm of it. Beside
+    the kernel's time: the same with nothing flushed (the L2 left warm),
+    and under the flushed timer one PyTorch copy that moves the kernel's
+    bytes without the weight (``x.clone()``; ``torch.cat((x, delta))``)."""
     x = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
     w = (torch.randn((d,), generator=gen, device=dev) * 0.1 + 1.0).to(dtype)
     dn = str(dtype).split(".")[-1]
-    out, ref = ops.rmsnorm_cuda(x, w, 1e-5), ops.rmsnorm_reference(x, w, 1e-5)
+    extra = {}
+    if add:
+        delta = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+        s, out = ops.add_rmsnorm_cuda(x, delta, w, 1e-5)
+        normed = x + delta
+        if not torch.equal(s, normed):
+            fail(f"{name}: s is not bit-identical to the card's x + delta")
+        print(f"  {name}: s bit-identical to the card's x + delta", flush=True)
+        kernel = lambda: ops.add_rmsnorm_cuda(x, delta, w, 1e-5)  # noqa: E731
+        plain = lambda: ops.add_rmsnorm_reference(x, delta, w, 1e-5)  # noqa: E731
+        library = lambda: F.rms_norm(x + delta, (d,), w, 1e-5)  # noqa: E731
+        copy = lambda: torch.cat((x, delta))  # noqa: E731
+        extra = {"s_bit_identical": True, "library": "x + delta, then F.rms_norm (two calls)"}
+    else:
+        out, normed = ops.rmsnorm_cuda(x, w, 1e-5), x
+        kernel = lambda: ops.rmsnorm_cuda(x, w, 1e-5)  # noqa: E731
+        plain = lambda: ops.rmsnorm_reference(x, w, 1e-5)  # noqa: E731
+        library = lambda: F.rms_norm(x, (d,), w, 1e-5)  # noqa: E731
+        copy = x.clone
+    ref = ops.rmsnorm_reference(normed, w, 1e-5)
     err = compare(torch, "rmsnorm", name, out, ref, dn)
     shares = {}
     if dtype == torch.bfloat16:
         # the TPU kernel's rounding: the weight product in fp32, one cast
-        xf = x.float()
+        xf = normed.float()
         tpu = (xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-5) * w.float()).to(dtype)
         shares = {"bit_identical_share": bit_share(torch, out, ref),
                   "tpu_rounding_share": bit_share(torch, out, tpu)}
@@ -219,15 +258,67 @@ def rmsnorm_case(torch, F, ops, flush, name, rows, d, dtype, gen, dev):
               f"to the TPU kernel's rounding on {shares['tpu_rounding_share']:.6f}", flush=True)
         if shares["bit_identical_share"] < RMSNORM_BIT_SHARE:
             fail(f"{name}: kernel does not round like the plain version")
-    es = x.element_size()
-    b_ms, b_by = bound(2 * x.numel() * es + d * es, 4 * x.numel(), dn)
+    b_ms, b_by = bound(rmsnorm_bytes(rows, d, x.element_size(), add), rmsnorm_flops(rows, d, add),
+                       dn)
     return {
-        "case": name, "shape": [rows, d], "dtype": dn, "max_abs_err": err, **shares,
-        "ms": time_ms(torch, lambda: ops.rmsnorm_cuda(x, w, 1e-5), flush),
-        "plain_ms": time_ms(torch, lambda: ops.rmsnorm_reference(x, w, 1e-5), flush),
-        "library_ms": time_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-5), flush),
+        "case": name, "mode": "add" if add else "plain", "shape": [rows, d], "dtype": dn,
+        "max_abs_err": err, **shares, **extra,
+        "ms": time_ms(torch, kernel, flush),
+        "warm_ms": time_ms(torch, kernel, torch.empty(16, dtype=torch.uint8, device=dev)),
+        "copy_same_bytes_ms": time_ms(torch, copy, flush),
+        "plain_ms": time_ms(torch, plain, flush),
+        "library_ms": time_ms(torch, library, flush),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+
+
+def host_us_per_call(torch, fn, calls: int = 200, repeats: int = 5) -> float:
+    """Host microseconds per call of ``fn`` (the enqueue, not the device's
+    work), over ``calls`` calls started with the stream idle; the median
+    of ``repeats``."""
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return sorted(runs)[len(runs) // 2]
+
+
+def wrapper_host_costs(torch, ops, gen, dev) -> dict:
+    """Each kernel wrapper's host cost per call at its decode shape, beside
+    torch.add on its first tensor (one eager PyTorch launch)."""
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    x, delta, w = randn(BATCH, 4096), randn(BATCH, 4096), randn(4096)
+    q = randn(BATCH, 1, 32, 128)
+    k, v = randn(BATCH, DECODE_KV, 8, 128), randn(BATCH, DECODE_KV, 8, 128)
+    pq, pool = randn(8, 32, 128), randn(256, 16, 8, 128)
+    tables = torch.arange(1, 65, dtype=torch.int32, device=dev).reshape(8, 8)
+    lens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    calls = {
+        "rmsnorm_cuda": (lambda: ops.rmsnorm_cuda(x, w, 1e-5), x),
+        "add_rmsnorm_cuda": (lambda: ops.add_rmsnorm_cuda(x, delta, w, 1e-5), x),
+        "flash_attention_cuda": (lambda: ops.flash_attention_cuda(
+            q, k, v, causal=True, q_offset=DECODE_KV - 1), q),
+        "paged_attention_cuda": (lambda: ops.paged_attention_cuda(
+            pq, pool, pool, tables, lens), pq),
+    }
+    out = {}
+    for name, (fn, first) in calls.items():
+        out[name] = {"wrapper_us": host_us_per_call(torch, fn),
+                     "torch_add_us": host_us_per_call(torch, lambda: torch.add(first, first))}
+    # the two calls the add mode replaced on the model's path
+    out["add_rmsnorm_cuda"]["add_then_rmsnorm_cuda_us"] = host_us_per_call(
+        torch, lambda: ops.rmsnorm_cuda(x + delta, w, 1e-5))
+    print(f"  host us per call (200 calls, stream idle at the start): {json.dumps(out)}",
+          flush=True)
+    return out
 
 
 def attention_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
@@ -366,6 +457,7 @@ def request_split(torch, llama, params, prompt, cfg, dev, steps: int = 16,
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return {
         "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+        "decode_elementwise": elementwise_share(kernels, profiled),
         # None: the profiler saw no device time here ("not measured")
         "decode_step_device_ms": device_ms or None,
         "decode_device_busy_share": (device_ms / step_ms) if device_ms else None,
@@ -396,6 +488,14 @@ def port_kernel_shares(kernels, steps: int) -> dict:
     return out
 
 
+def elementwise_share(kernels, steps: int) -> dict:
+    """Device ms and calls per step of PyTorch's elementwise kernels (adds,
+    casts, copies, activations: names with ``elementwise_kernel``)."""
+    hits = [e for e in kernels if "elementwise_kernel" in e.key]
+    return {"ms_per_step": sum(e.self_device_time_total for e in hits) / 1e3 / steps,
+            "calls_per_step": sum(e.count for e in hits) / steps}
+
+
 def serve_prompts(torch, cfg, seed: int, dev) -> list:
     gen = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randint(0, cfg.vocab_size, (serve_prompt_len(i),), generator=gen,
@@ -408,14 +508,28 @@ def p50(values) -> float:
 
 
 def zero_counts(ops) -> None:
-    for fn in (ops.rmsnorm_cuda, ops.flash_attention_cuda, ops.paged_attention_cuda):
+    for fn in (ops.rmsnorm_cuda, ops.add_rmsnorm_cuda, ops.flash_attention_cuda,
+               ops.paged_attention_cuda):
         fn.launches = 0
 
 
 def read_counts(ops) -> dict:
     return {"rmsnorm": ops.rmsnorm_cuda.launches,
+            "add_rmsnorm": ops.add_rmsnorm_cuda.launches,
             "flash_attention": ops.flash_attention_cuda.launches,
             "paged_attention": ops.paged_attention_cuda.launches}
+
+
+def norm_launches(forwards: int, n_layers: int) -> dict:
+    """RMSNorm launches of ``forwards`` model forwards: 2L + 1 each, of
+    which 2L (every norm after a residual add) in the add mode."""
+    return {"rmsnorm": forwards * (2 * n_layers + 1), "add_rmsnorm": forwards * 2 * n_layers}
+
+
+def spills_in(instances: list, mark: str) -> list:
+    """Names of the kernel instances with ``mark`` in their name that spill."""
+    return [i["name"] for i in instances
+            if mark in i["name"] and (i["spill_stores"] or i["spill_loads"])]
 
 
 def serve_drain(torch, ops, eng, prompts) -> dict:
@@ -440,7 +554,7 @@ def serve_drain(torch, ops, eng, prompts) -> dict:
             fail(f"serving: a request did not end with its budget of {budget} in-range tokens")
     ticks = eng.phase_counts["device_steps"]
     prefills = SERVE_REQUESTS  # 8 slots x 7 blocks never exhaust 255 blocks: no preemption
-    expected = {"rmsnorm": (prefills + ticks) * (2 * eng.cfg.n_layers + 1),
+    expected = {**norm_launches(prefills + ticks, eng.cfg.n_layers),
                 "flash_attention": prefills * eng.cfg.n_layers,
                 "paged_attention": ticks * eng.cfg.n_layers}
     print(f"  serving (pipeline_decode={eng.pipeline_decode}) launches {launches}, "
@@ -490,6 +604,7 @@ def tick_profile(torch, eng, prompts, steps: int = 8, profiled: int = 4) -> dict
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return {
         "step_ms": step_ms,
+        "elementwise": elementwise_share(kernels, profiled),
         # None: the profiler saw no device time here ("not measured")
         "step_device_ms": device_ms or None,
         "device_busy_share": (device_ms / step_ms) if device_ms else None,
@@ -632,10 +747,13 @@ def main() -> None:
               f"{inst['spill_loads']} B", flush=True)
     if kbuild.build_log and not instances:
         fail("the build log shows no ptxas line")
-    # the tensor-core attention kernels (namespace bobra::attn) must not
-    # spill; the older scalar kernels are reported as they are
-    if any("attn" in i["name"] and (i["spill_stores"] or i["spill_loads"]) for i in instances):
+    # the tensor-core attention kernels (namespace bobra::attn) and the
+    # RMSNorm instances (the row held in registers) must not spill; the
+    # older scalar attention kernels are reported as they are
+    if spills_in(instances, "attn"):
         fail("a tensor-core attention kernel spills registers")
+    if spills_in(instances, "rmsnorm_kernel"):
+        fail(f"an RMSNorm instance spills registers: {spills_in(instances, 'rmsnorm_kernel')}")
 
     # ---- 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -648,6 +766,12 @@ def main() -> None:
         rmsnorm_case(torch, F, ops, flush, "rmsnorm decode", BATCH, d, bf16, gen, dev),
         rmsnorm_case(torch, F, ops, flush, "rmsnorm prefill fp32", BATCH * PROMPT, d, f32,
                      gen, dev),
+        rmsnorm_case(torch, F, ops, flush, "add_rmsnorm prefill", BATCH * PROMPT, d, bf16, gen,
+                     dev, add=True),
+        rmsnorm_case(torch, F, ops, flush, "add_rmsnorm decode", BATCH, d, bf16, gen, dev,
+                     add=True),
+        rmsnorm_case(torch, F, ops, flush, "add_rmsnorm prefill fp32", BATCH * PROMPT, d, f32,
+                     gen, dev, add=True),
     ]
     flash_cases = [
         flash_case(torch, F, ops, flush, "flash prefill", BATCH, PROMPT, PROMPT, hq, hkv, hd,
@@ -672,9 +796,10 @@ def main() -> None:
                    block=8, n_blocks=64, lens=(1, 8, 9, 17, 24, 31, 32, 2), mb=4),
     ]
     for c in rms_cases + flash_cases + paged_cases:
-        print(f"  {c['case']}: kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
-              f"library {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+        print(f"  {c['case']}: kernel {c['ms']:.5f} ms, plain {c['plain_ms']:.5f} ms, "
+              f"library {c['library_ms']:.5f} ms, bound {c['bound_ms']:.6f} ms "
               f"({c['bound_by']})", flush=True)
+    host_costs = wrapper_host_costs(torch, ops, gen, dev)
     del flush
 
     # ---- 4. the greedy path: Llama-3-8B, three requests
@@ -699,7 +824,7 @@ def main() -> None:
     launches = read_counts(ops)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     forwards = 1 + NEW_TOKENS
-    expected = {"rmsnorm": REQUESTS * forwards * (2 * cfg.n_layers + 1),
+    expected = {**norm_launches(REQUESTS * forwards, cfg.n_layers),
                 "flash_attention": REQUESTS * forwards * cfg.n_layers, "paged_attention": 0}
     print(f"greedy path launches {launches}, expected {expected}", flush=True)
     if launches != expected:
@@ -777,14 +902,16 @@ def main() -> None:
             "bound_by": top["bound_by"], "library_ms": top["library_ms"], "cases": cases,
         }
 
+    rms_entry = entry("rmsnorm", "bobrapet_tpu_torch/csrc/rmsnorm.cu",
+                      "bobrapet_tpu/ops/rmsnorm.py:33", rms_cases, "rmsnorm decode")
+    rms_entry["launches_add_mode"] = sum(path["add_rmsnorm"] for path in launches_by_path.values())
     kernels = {"kernels": [
-        entry("rmsnorm", "bobrapet_tpu_torch/csrc/rmsnorm.cu",
-              "bobrapet_tpu/ops/rmsnorm.py:33", rms_cases, "rmsnorm decode"),
+        rms_entry,
         entry("flash_attention", "bobrapet_tpu_torch/csrc/flash_attention.cu",
               "bobrapet_tpu/ops/attention.py:117", flash_cases, "flash decode"),
         entry("paged_attention", "bobrapet_tpu_torch/csrc/paged_attention.cu",
               "bobrapet_tpu/serving/engine.py:3106", paged_cases, "paged decode"),
-    ], "build_s": build_s}
+    ], "build_s": build_s, "host_us_per_call": host_costs}
     print(json.dumps(kernels), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,11 +16,15 @@ the kernel must also match the plain version bit for bit on at least 99%
 of elements: only the fp32 sum order differs.
 """
 
+import importlib
+
 import pytest
 import torch
 
+from bobrapet_tpu_torch.kernels import kernel_function
 from bobrapet_tpu_torch.models import llama
 from bobrapet_tpu_torch.ops import (
+    add_rmsnorm_cuda,
     attention,
     attention_reference,
     flash_attention_cuda,
@@ -32,6 +36,7 @@ from bobrapet_tpu_torch.ops import (
 )
 from bobrapet_tpu_torch.serving import PagedConfig, ServingEngine
 
+norm_ops = importlib.import_module("bobrapet_tpu_torch.ops.rmsnorm")
 pytestmark = pytest.mark.gpu
 
 
@@ -313,3 +318,107 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm's add mode: s = x + delta (rounded once), y = rmsnorm(s)
+# ---------------------------------------------------------------------------
+
+
+NORM_SHAPES = [(1024, 4096), (8, 4096), (3, 7, 128), (5, 100), (2, 99), (4, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+def test_add_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
+    x = _randn(shape, dtype, cuda, 0) * 3
+    delta = _randn(shape, dtype, cuda, 11)
+    w = (_randn(shape[-1:], torch.float32, cuda, 1) * 0.1 + 1.0).to(dtype)
+    before, before_add = rmsnorm_cuda.launches, add_rmsnorm_cuda.launches
+    s, y = add_rmsnorm_cuda(x, delta, w, 1e-5)
+    torch.cuda.synchronize()
+    # one launch of the one kernel, counted in both counts
+    assert (rmsnorm_cuda.launches, add_rmsnorm_cuda.launches) == (before + 1, before_add + 1)
+    assert s.shape == y.shape == x.shape and s.dtype == y.dtype == dtype
+    assert torch.equal(s, x + delta)  # the card's own add, bit for bit
+    ref = rmsnorm_reference(s, w, 1e-5)
+    _close(y, ref, dtype, 2.0 ** -6, 1e-6, 1e-5)
+    if dtype == torch.bfloat16:
+        assert _bit_share(y, ref) >= 0.99
+
+
+@pytest.mark.parametrize("add", [False, True])
+@pytest.mark.parametrize("shape", [(1024, 4096), (8, 4096), (3, 7, 128)])
+def test_rmsnorm_kernel_gives_the_same_bits_twice(cuda, add, shape):
+    x = _randn(shape, torch.bfloat16, cuda, 12)
+    delta = _randn(shape, torch.bfloat16, cuda, 13)
+    w = _randn(shape[-1:], torch.bfloat16, cuda, 14)
+    if add:
+        first, again = add_rmsnorm_cuda(x, delta, w), add_rmsnorm_cuda(x, delta, w)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    else:
+        assert torch.equal(rmsnorm_cuda(x, w), rmsnorm_cuda(x, w))
+
+
+@pytest.mark.parametrize("add", [False, True])
+@pytest.mark.parametrize("d", [4096, 2048, 128])
+def test_rmsnorm_kernel_unaligned_rows_take_the_generic_loop(cuda, add, d):
+    # a view 2 bytes past a 16-byte boundary, at a width that has a
+    # one-pass instance: no 16-byte loads, so the C entry takes the loop
+    flat = _randn((8 * d + 1,), torch.bfloat16, cuda, 18)
+    x = flat[1:].view(8, d)
+    assert x.data_ptr() % 16 != 0
+    w = _randn((d,), torch.bfloat16, cuda, 19)
+    if add:
+        delta = _randn((8, d), torch.bfloat16, cuda, 20)
+        s, y = add_rmsnorm_cuda(x, delta, w)
+        assert torch.equal(s, x + delta)
+        ref = rmsnorm_reference(x + delta, w)
+    else:
+        y, ref = rmsnorm_cuda(x, w), rmsnorm_reference(x, w)
+    _close(y, ref, torch.bfloat16, 2.0 ** -6, 1e-6, 1e-5)
+    assert _bit_share(y, ref) >= 0.99
+
+
+def test_rmsnorm_c_entry_refuses_overlapping_pointers(cuda):
+    fn = kernel_function("bobra_rmsnorm", norm_ops._ARGTYPES)
+    x, delta, out = (_randn((8, 4096), torch.bfloat16, cuda, i) for i in (21, 22, 23))
+    s, w = torch.empty_like(x), _randn((4096,), torch.bfloat16, cuda, 24)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(x_, d_, s_, o_):
+        return fn(x_, d_, w.data_ptr(), s_, o_, 8, 4096, 1e-5, 1, stream)
+
+    p = {n: t.data_ptr() for n, t in (("x", x), ("delta", delta), ("s", s), ("out", out))}
+    assert call(p["x"], p["delta"], p["s"], p["out"]) == 0
+    assert call(p["x"], p["delta"], p["x"], p["out"]) != 0      # x as sum_out
+    assert call(p["x"], p["delta"], p["s"], p["delta"]) != 0    # delta as out
+    assert call(p["x"], p["delta"], p["s"], p["x"] + 2) != 0    # overlapping rows
+    assert call(p["x"], None, p["s"], p["out"]) != 0            # sum_out without delta
+    assert call(p["x"], None, None, p["out"]) == 0              # the plain mode
+    torch.cuda.synchronize()
+
+
+def test_add_rmsnorm_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(4, 128, device=cuda)
+    w = torch.ones(128, device=cuda)
+    with pytest.raises(TypeError):
+        add_rmsnorm_cuda(x, x.to(torch.bfloat16), w)
+    with pytest.raises(ValueError, match="alias"):
+        add_rmsnorm_cuda(x, x, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        add_rmsnorm_cuda(x, torch.zeros(128, 4, device=cuda).T, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        add_rmsnorm_cuda(x, x.cpu(), w)
+
+
+def test_tiny_model_fuses_every_norm_after_a_residual_add(cuda):
+    cfg = llama.llama_tiny()
+    params = _to(llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu"), cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(1))
+    rmsnorm_cuda.launches = add_rmsnorm_cuda.launches = 0
+    llama.greedy_generate(params, prompt.to(cuda), cfg, max_new_tokens=6)
+    torch.cuda.synchronize()
+    forwards = 1 + 6
+    assert rmsnorm_cuda.launches == (2 * cfg.n_layers + 1) * forwards
+    assert add_rmsnorm_cuda.launches == 2 * cfg.n_layers * forwards
