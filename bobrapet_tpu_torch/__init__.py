@@ -8,7 +8,7 @@ card unless the caller passes ``device="cpu"``, which takes the kernels'
 plain PyTorch versions.
 """
 
-from . import models, ops, serving
+from . import graphs, models, ops, serving
 from .device import resolve_device
 
-__all__ = ["models", "ops", "resolve_device", "serving"]
+__all__ = ["graphs", "models", "ops", "resolve_device", "serving"]

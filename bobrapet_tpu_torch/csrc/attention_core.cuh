@@ -291,8 +291,10 @@ struct DensePolicy {
   __device__ int rows() const { return sq * group; }
   // keys any row may see
   __device__ int keys(int /*b*/) const { return causal ? min(sk, q_offset + sq) : sk; }
-  // the last key row r sees unmasked
-  __device__ int key_limit(int r) const { return causal ? q_offset + r / group : 0x7fffffff; }
+  // the last key row r of batch row b sees unmasked
+  __device__ int key_limit(int /*b*/, int r) const {
+    return causal ? q_offset + r / group : 0x7fffffff;
+  }
   __device__ long long head_off(int h, int r) const {
     return static_cast<long long>(h * group + r % group) * kD;
   }
@@ -308,6 +310,21 @@ struct DensePolicy {
     vr = v + b * v_sb + key * v_ss + static_cast<long long>(h) * kD;
     return true;
   }
+};
+
+// Cached, dense with device lengths: the layout of DensePolicy over a
+// cache of sk = capacity rows, and lens [B] int32 on the device, the valid
+// rows of each batch row. Query i of batch row b sits at lens[b] - sq + i:
+// keys at or past lens[b] get probability 0 and keys past the query are
+// masked, the mask of the JAX model's _cached_attention over the whole
+// cache. The host passes no length, so a CUDA graph can replay the call
+// while the lengths move.
+template <int D_>
+struct CachedPolicy : DensePolicy<D_> {
+  const int* lens;
+
+  __device__ int keys(int b) const { return max(0, min(this->sk, lens[b])); }
+  __device__ int key_limit(int b, int r) const { return lens[b] - this->sq + r / this->group; }
 };
 
 // Paged: q, o [S, Hkv * group, D]; pools [N, B, Hkv, D] of one layer read
@@ -329,7 +346,7 @@ struct PagedPolicy {
   __device__ int rows() const { return group; }
   // a length past the table's capacity counts as the capacity
   __device__ int keys(int s) const { return min(max(seq_lens[s], 0), max_blocks * block_size); }
-  __device__ int key_limit(int) const { return 0x7fffffff; }
+  __device__ int key_limit(int, int) const { return 0x7fffffff; }
   __device__ const bf16* q_row(int s, int h, int r) const {
     return q + (static_cast<long long>(s) * hkv * group + h * group + r) * kD;
   }
@@ -489,7 +506,7 @@ decode_attention_kernel(const Policy P, const DecodeLayout L) {
   for (int j = 0; j < kNO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int limit[2] = {P.key_limit(g), P.key_limit(g + 8)};
+  const int limit[2] = {P.key_limit(seq, g), P.key_limit(seq, g + 8)};
 
   for (int t = 0; t < n_tiles; ++t) {
     switch (L.stages) {

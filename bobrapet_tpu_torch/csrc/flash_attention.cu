@@ -45,6 +45,16 @@
 // Every route takes free batch and sequence strides, so a sliced cache
 // goes in without a copy; the bf16 routes need 16-byte aligned rows
 // (pointers 16-byte aligned, strides multiples of 8 elements).
+//
+// A second entry point, bobra_cached_attention, reads each batch row's
+// valid length from an int32 array on the device instead of taking Sk and
+// q_offset from the host: the mask of the JAX model's _cached_attention
+// over the whole cache (models/llama.py), keys at or past lens[b] at
+// probability 0, query i at lens[b] - Sq + i. Nothing of the launch then
+// changes from one greedy step to the next, so a CUDA graph replays it.
+// bf16 takes the decode core with the cached policy (the split from the
+// cache's capacity, never from a length), fp32 the scalar kernel reading
+// the same array. Its bound is the decode's: the valid K/V rows, once.
 
 #include <math.h>
 
@@ -65,7 +75,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
                        T* __restrict__ o, int sq, int sk, int group,
                        long long q_sb, long long q_ss, long long k_sb, long long k_ss,
                        long long v_sb, long long v_ss, long long o_sb, long long o_ss,
-                       int causal, int q_offset, float scale) {
+                       int causal, int q_offset, float scale, const int* __restrict__ lens) {
   static_assert(kThreads % D == 0 && kBlockM % (kThreads / D) == 0, "unsupported head dim");
   constexpr int kRowsPerWarp = kBlockM / kWarps;        // score phase
   constexpr int kRowStride = kThreads / D;              // output phase
@@ -87,6 +97,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   const T* kb = k + b * k_sb + static_cast<long long>(hq / group) * D;
   const T* vb = v + b * v_sb + static_cast<long long>(hq / group) * D;
   T* ob = o + b * o_sb + static_cast<long long>(hq) * D;
+  // device lengths (causal): the queries sit at the last sq valid rows
+  if (lens != nullptr) q_offset = lens[b] - sq;
 
   for (int e = tid; e < kBlockM * D; e += kThreads) {
     const int r = e / D, c = e % D, qi = row0 + r;
@@ -166,13 +178,13 @@ int launch_flash_f32(const float* q, const float* k, const float* v, float* o, i
                      int sk, int hq, int group, int d, long long q_sb, long long q_ss,
                      long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                      long long o_sb, long long o_ss, int causal, int q_offset, float scale,
-                     cudaStream_t st) {
+                     const int* lens, cudaStream_t st) {
   const dim3 grid((sq + kBlockM - 1) / kBlockM, hq, b);
 #define BOBRA_FLASH(DD)                                                                       \
   flash_attention_kernel<float, DD><<<grid, kThreads, 0, st>>>(q, k, v, o, sq, sk, group,      \
                                                               q_sb, q_ss, k_sb, k_ss, v_sb,     \
                                                               v_ss, o_sb, o_ss, causal,         \
-                                                              q_offset, scale)
+                                                              q_offset, scale, lens)
   switch (d) {
     case 32: BOBRA_FLASH(32); break;   // llama_tiny
     case 128: BOBRA_FLASH(128); break;  // llama3_1b, llama3_8b
@@ -253,9 +265,9 @@ flash_rows_kernel(const DensePolicy<D> P) {
   const bool has_rows = wrow0 < rows;
   const int wlast = min(rows - 1, wrow0 + 15);
   const int w_kv_end = P.causal ? min(kv_len, P.q_offset + wlast / P.group + 1) : kv_len;
-  const int w_first_limit = P.key_limit(wrow0);
+  const int w_first_limit = P.key_limit(b, wrow0);
   const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int limit[2] = {P.key_limit(wrow0 + g), P.key_limit(wrow0 + g + 8)};
+  const int limit[2] = {P.key_limit(b, wrow0 + g), P.key_limit(b, wrow0 + g + 8)};
 
   float o[kNO][4];
 #pragma unroll
@@ -371,6 +383,38 @@ int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int 
   return launch_decode(P, sq * group, splits, split_chunk(sk, splits), hkv, b, 0, st);
 }
 
+// the decode core over a whole cache of `cap` rows with device lengths
+template <int D>
+int launch_cached_bf16(const void* q, const void* k, const void* v, void* o, const int* lens,
+                       int b, int sq, int cap, int hkv, int group, long long q_sb, long long q_ss,
+                       long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+                       long long o_sb, long long o_ss, float scale, int splits, cudaStream_t st) {
+  if (static_cast<long long>(sq) * group > kDecodeRows || splits < 1 || splits > kMaxSplits) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CachedPolicy<D> P;
+  P.q = static_cast<const bf16*>(q);
+  P.k = static_cast<const bf16*>(k);
+  P.v = static_cast<const bf16*>(v);
+  P.o = static_cast<bf16*>(o);
+  P.sq = sq;
+  P.sk = cap;
+  P.group = group;
+  P.causal = 1;
+  P.q_offset = 0;
+  P.q_sb = q_sb;
+  P.q_ss = q_ss;
+  P.k_sb = k_sb;
+  P.k_ss = k_ss;
+  P.v_sb = v_sb;
+  P.v_ss = v_ss;
+  P.o_sb = o_sb;
+  P.o_ss = o_ss;
+  P.scale_log2 = scale * kLog2e;
+  P.lens = lens;
+  return launch_decode(P, sq * group, splits, split_chunk(cap, splits), hkv, b, 0, st);
+}
+
 }  // namespace attn
 }  // namespace bobra
 
@@ -400,7 +444,7 @@ extern "C" int bobra_flash_attention(const void* q, const void* k, const void* v
     err = launch_flash_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                            static_cast<const float*>(v), static_cast<float*>(o), b, sq, sk, hq,
                            group, d, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal,
-                           q_offset, scale, st);
+                           q_offset, scale, nullptr, st);
   } else if (dtype == kBFloat16) {
     const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                            reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
@@ -417,6 +461,57 @@ extern "C" int bobra_flash_attention(const void* q, const void* k, const void* v
         err = attn::launch_flash_bf16<128>(q, k, v, o, b, sq, sk, hkv, group, q_sb, q_ss, k_sb,
                                            k_ss, v_sb, v_ss, o_sb, o_ss, causal, q_offset, scale,
                                            splits, st);
+        break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cached attention of a decode step: q [b, sq, hq, d] over a whole
+// cache k/v [b, cap, hq/group, d] (heads packed, batch and sequence
+// strides free), lens [b] int32 on the device. Row b's queries sit at
+// lens[b] - sq ..., keys at or past lens[b] are not read. splits: 1, 2, 4
+// or 8 in bf16 (sq * group <= 16: the decode core, its keys split across
+// a cluster of that many blocks), 0 in fp32 (the scalar kernel). Returns
+// the cudaError_t of the launch.
+extern "C" int bobra_cached_attention(const void* q, const void* k, const void* v, void* o,
+                                      const void* lens, int b, int sq, int cap, int hq,
+                                      int group, int d, long long q_sb, long long q_ss,
+                                      long long k_sb, long long k_ss, long long v_sb,
+                                      long long v_ss, long long o_sb, long long o_ss, float scale,
+                                      int splits, int dtype, void* stream) {
+  using namespace bobra;
+  if (lens == nullptr || b <= 0 || sq <= 0 || cap <= 0 || hq <= 0 || group <= 0 ||
+      hq % group != 0 || b > 65535 || hq > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lens);
+  int err;
+  if (dtype == kFloat32) {
+    if (splits != 0) return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_flash_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                           static_cast<const float*>(v), static_cast<float*>(o), b, sq, cap, hq,
+                           group, d, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, 1, 0, scale,
+                           len, st);
+  } else if (dtype == kBFloat16) {
+    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+    const long long strides = q_sb | q_ss | k_sb | k_ss | v_sb | v_ss | o_sb | o_ss;
+    if (ptrs % 16 != 0 || strides % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int hkv = hq / group;
+    switch (d) {
+      case 32:
+        err = attn::launch_cached_bf16<32>(q, k, v, o, len, b, sq, cap, hkv, group, q_sb, q_ss,
+                                           k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, scale, splits, st);
+        break;
+      case 128:
+        err = attn::launch_cached_bf16<128>(q, k, v, o, len, b, sq, cap, hkv, group, q_sb, q_ss,
+                                            k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, scale, splits, st);
         break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }

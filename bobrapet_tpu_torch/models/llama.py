@@ -11,10 +11,17 @@ and the norm in one step, and the first is :func:`ops.rmsnorm`. On a card
 these launch the port's CUDA kernels, on the CPU their plain versions,
 which take the same two torch ops as ``x = x + delta`` then the norm.
 
-The KV cache is updated in place (a slice assignment at the cursor, and
-the cursor advanced in the caller's dicts) to save the copy JAX's
-``dynamic_update_slice`` makes; the cursor is a host int, so decode needs
-no device-to-host sync per step.
+The KV cache is updated in place, to save the copy JAX's
+``dynamic_update_slice`` makes, and its cursor is advanced in the
+caller's dicts. The cursor is a host int (a slice assignment at the
+cursor, attention over the valid prefix: the prefill) or, after
+:func:`device_cursor`, one int32 tensor [B] on the card shared by every
+layer (an index write at each row's cursor, attention over the whole
+capacity with device lengths, :func:`ops.cached_attention`): then no
+launch of a decode step depends on a host value, and
+:class:`GreedyDecoder` replays the step as one CUDA graph
+(:mod:`bobrapet_tpu_torch.graphs`), the counterpart of the JAX loop's
+``lax.scan``.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
-from ..ops.attention import attention
+from ..graphs import GraphedStep
+from ..ops.attention import attention, cached_attention
 from ..ops.rmsnorm import add_rmsnorm, rmsnorm
 from ..ops.rope import apply_rope, rope_frequencies
 from .quant import matmul as _mm
@@ -193,13 +201,23 @@ def _attention_block(
     cfg: LlamaConfig,
     cache: Optional[dict[str, Any]],
     positions: Optional[torch.Tensor],
+    rows: Optional[tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(x + delta, the block's own delta)``: the output
     projection is not yet added to the residual stream; the next norm
-    adds it."""
+    adds it. ``rows`` (a cache with a device cursor): the batch and cache
+    row of every new token and each row's valid length after the write,
+    from :func:`_device_rows`."""
     b, s, _ = x.shape
     x, q, k, v = _qkv(layer, x, delta, freqs, cfg, positions)
-    if cache is not None:
+    if rows is not None:
+        # write k/v at each batch row's device cursor, attend over the
+        # whole capacity up to each row's length
+        batch, at, lens = rows
+        cache["k"][batch, at] = k.to(cache["k"].dtype)
+        cache["v"][batch, at] = v.to(cache["v"].dtype)
+        out = cached_attention(q, cache["k"], cache["v"], lens)
+    elif cache is not None:
         # write k/v at the cursor and advance it (in place), attend over
         # the valid prefix
         cursor = cache["cursor"]
@@ -252,16 +270,38 @@ def forward(
     Unlike the JAX forward, this one consumes ``cache``: each layer's k/v
     rows are written and its cursor advanced in place, and the same list
     is returned. A caller that needs the cache as it was must copy it
-    first."""
+    first. With a device cursor (:func:`device_cursor`) the call reads no
+    host value of the cache, so it can be captured in a CUDA graph."""
     freqs = _freqs_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                          cfg.rope_scaling, tokens.device)
     x = params["embed"]["weight"][tokens].to(cfg.dtype)
+    cursor = cache[0]["cursor"] if cache is not None else None
+    rows = _device_rows(cache, tokens.shape[1]) if isinstance(cursor, torch.Tensor) else None
     delta = None
     for i, layer in enumerate(params["layers"]):
         layer_cache = cache[i] if cache is not None else None
-        x, delta = _attention_block(layer, x, delta, freqs, cfg, layer_cache, positions)
+        x, delta = _attention_block(layer, x, delta, freqs, cfg, layer_cache, positions, rows)
         x, delta = _mlp_block(layer, x, delta, cfg)
+    if rows is not None:
+        cursor.add_(tokens.shape[1])  # the one tensor every layer holds
     return _logits(params, x, delta, cfg), cache
+
+
+def _device_rows(cache: list[dict[str, Any]], s: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """For a cache with a device cursor [B] and ``s`` new tokens a row:
+    the batch index [B, 1] and cache row [B, s] of every new token, and
+    each row's valid length after the write [B] (int32)."""
+    cursor = cache[0]["cursor"]
+    if any(c["cursor"] is not cursor for c in cache):
+        raise ValueError("a device cursor must be one tensor shared by every layer "
+                         "(models.llama.device_cursor)")
+    if cursor.dtype != torch.int32 or tuple(cursor.shape) != (cache[0]["k"].shape[0],):
+        raise ValueError(f"a device cursor is int32 [B], got {cursor.dtype} "
+                         f"{tuple(cursor.shape)}")
+    at = cursor.long()[:, None] + torch.arange(s, device=cursor.device)
+    batch = torch.arange(cursor.shape[0], device=cursor.device)[:, None]
+    return batch, at, cursor + s
 
 
 def _logits(params: dict[str, Any], x: torch.Tensor, delta: torch.Tensor,
@@ -296,6 +336,50 @@ def init_cache(cfg: LlamaConfig, batch: int, capacity: Optional[int] = None,
     ]
 
 
+def device_cursor(cache: list[dict[str, Any]]) -> torch.Tensor:
+    """Turn the cache's host cursor into one int32 tensor [B] on the
+    cache's device, shared by every layer; returns it. From then on the
+    forward writes and attends at each row's device cursor and advances
+    it in place (one launch a forward)."""
+    host = {c["cursor"] for c in cache}
+    if len(host) != 1 or not isinstance(next(iter(host)), int):
+        raise ValueError(f"device_cursor takes a cache with one host cursor, got {host}")
+    k = cache[0]["k"]
+    cursor = torch.full((k.shape[0],), host.pop(), dtype=torch.int32, device=k.device)
+    for c in cache:
+        c["cursor"] = cursor
+    return cursor
+
+
+class GreedyDecoder:
+    """The decode loop of :func:`greedy_generate` over a prefilled cache.
+
+    ``tok`` [B, 1] int32 holds the tokens to feed next and ``pos`` [B, 1]
+    their positions; :meth:`step` runs one forward of ``tok`` and writes
+    its argmax back into ``tok``, advancing ``pos`` and the cache's device
+    cursor, all in place. So every step is the same launches on the same
+    tensors: on a card (``cuda_graph``) the first step runs eagerly and is
+    captured, and every later one is a replay of that CUDA graph; on the
+    CPU, or with ``cuda_graph=False``, each step runs eagerly."""
+
+    def __init__(self, params: dict[str, Any], cfg: LlamaConfig, cache: list[dict[str, Any]],
+                 tok: torch.Tensor, pos: int, cuda_graph: bool = True):
+        self.params, self.cfg, self.cache = params, cfg, cache
+        device_cursor(cache)
+        self.tok = tok.to(torch.int32).reshape(-1, 1).contiguous()
+        self.pos = torch.full(self.tok.shape, pos, dtype=torch.long, device=tok.device)
+        self._step = GraphedStep(self._forward, self.tok, self.pos, enabled=cuda_graph)
+
+    @torch.no_grad()
+    def _forward(self, tok: torch.Tensor, pos: torch.Tensor) -> None:
+        logits, _ = forward(self.params, tok, self.cfg, cache=self.cache, positions=pos)
+        tok.copy_(logits[:, -1:, :].argmax(dim=-1))
+        pos.add_(1)
+
+    def step(self) -> None:
+        self._step()
+
+
 @torch.no_grad()
 def greedy_generate(
     params: dict[str, Any],
@@ -303,11 +387,16 @@ def greedy_generate(
     cfg: LlamaConfig,
     max_new_tokens: int = 32,
     cache_capacity: Optional[int] = None,
+    cuda_graph: bool = True,
 ) -> torch.Tensor:
     """Greedy decode with a KV cache: one prefill, then one forward per
     token, 1 + ``max_new_tokens`` forwards in all (the JAX scan's count;
-    the last forward's token is dropped, as there). Tokens stay on the
-    prompt's device; nothing syncs with the host per step."""
+    the last forward's token is dropped, as there). Returns int32 tokens
+    [B, max_new_tokens], as JAX does. The prefill runs eagerly with the
+    host cursor; the decode steps go through :class:`GreedyDecoder`, as
+    one CUDA graph replayed per step on a card unless ``cuda_graph`` is
+    False. Tokens stay on the prompt's device; nothing syncs with the
+    host per step."""
     b, prompt_len = prompt.shape
     cap = cache_capacity or min(cfg.max_seq_len, prompt_len + max_new_tokens)
     if prompt_len + max_new_tokens > cap:
@@ -320,12 +409,12 @@ def greedy_generate(
 
     positions = torch.arange(prompt_len, device=device).expand(b, prompt_len)
     logits, _ = forward(params, prompt, cfg, cache=cache, positions=positions)
-    tok = logits[:, -1:, :].argmax(dim=-1)
-    pos = torch.full((b, 1), prompt_len, dtype=torch.long, device=device)
-    out = []
-    for _ in range(max_new_tokens):
-        out.append(tok)
-        logits, _ = forward(params, tok, cfg, cache=cache, positions=pos)
-        tok = logits[:, -1:, :].argmax(dim=-1)
-        pos = pos + 1
-    return torch.cat(out, dim=1)  # [B, max_new_tokens]
+    out = torch.empty((b, max_new_tokens), dtype=torch.int32, device=device)
+    if max_new_tokens == 0:
+        return out
+    decoder = GreedyDecoder(params, cfg, cache, logits[:, -1:, :].argmax(dim=-1), prompt_len,
+                            cuda_graph=cuda_graph)
+    for i in range(max_new_tokens):
+        out[:, i:i + 1].copy_(decoder.tok)
+        decoder.step()
+    return out

@@ -1,6 +1,13 @@
 """Hot ops: hand-written CUDA kernels with plain PyTorch versions."""
 
-from .attention import attention, attention_reference, flash_attention_cuda
+from .attention import (
+    attention,
+    attention_reference,
+    cached_attention,
+    cached_attention_cuda,
+    cached_attention_reference,
+    flash_attention_cuda,
+)
 from .paged_attention import paged_attention, paged_attention_cuda, paged_attention_reference
 from .rmsnorm import (
     add_rmsnorm,
@@ -18,6 +25,9 @@ __all__ = [
     "add_rmsnorm_reference",
     "attention",
     "attention_reference",
+    "cached_attention",
+    "cached_attention_cuda",
+    "cached_attention_reference",
     "flash_attention_cuda",
     "paged_attention",
     "paged_attention_cuda",

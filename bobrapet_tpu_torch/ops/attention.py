@@ -7,6 +7,12 @@ so it also carries cached prefill and decode, which the JAX model runs in
 XLA (``models/llama.py:_cached_attention``). :func:`flash_route` and
 :func:`kv_splits` decide, on the host and from shapes alone, which of its
 kernels a call takes and how a decode's keys are split.
+
+:func:`cached_attention` is that XLA function itself: attention over a
+whole KV cache with each batch row's valid length in an int32 tensor on
+the device. Its kernel (the C entry ``bobra_cached_attention`` of the same
+source) takes no length from the host, so a CUDA graph can replay a
+greedy decode step while the lengths move.
 """
 
 from __future__ import annotations
@@ -35,6 +41,13 @@ _ARGTYPES = (
     + [ctypes.c_int] * 6                       # b, sq, sk, hq, group, d
     + [ctypes.c_longlong] * 8                  # batch/seq strides of q, k, v, o
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float]  # causal, q_offset, scale
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # splits, dtype, stream
+)
+_CACHED_ARGTYPES = (
+    [ctypes.c_void_p] * 5                      # q, k, v, o, lens
+    + [ctypes.c_int] * 6                       # b, sq, cap, hq, group, d
+    + [ctypes.c_longlong] * 8                  # batch/seq strides of q, k, v, o
+    + [ctypes.c_float]                         # scale
     + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # splits, dtype, stream
 )
 
@@ -172,6 +185,106 @@ def flash_attention_cuda(
 
 #: launches of the kernel since the count was last set to 0
 flash_attention_cuda.launches = 0
+
+
+def cached_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               lens: torch.Tensor) -> torch.Tensor:
+    """Plain attention over a whole cache with device lengths, in fp32: the
+    mask of the JAX model's ``_cached_attention``, row by row.
+
+    q: [B, Sq, Hq, D]; k/v: [B, cap, Hkv, D]; lens: [B] integer valid rows.
+    Query i of row b sits at ``lens[b] - Sq + i``; a key gets NEG_INF when
+    it is past the query or at or past ``lens[b]``. A query that sees no
+    key gives zeros, as the kernel defines it."""
+    _, sq, hq, d = q.shape
+    cap, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qf = q.float() * (1.0 / math.sqrt(d))
+    kf, vf = k.float(), v.float()
+    if group > 1:
+        kf = kf.repeat_interleave(group, dim=2)
+        vf = vf.repeat_interleave(group, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    n = lens.long()[:, None]                                            # [B, 1]
+    q_pos = n - sq + torch.arange(sq, device=q.device)[None, :]         # [B, Sq]
+    k_pos = torch.arange(cap, device=q.device)
+    mask = (k_pos[None, None, :] <= q_pos[:, :, None]) & (k_pos[None, None, :] < n[:, :, None])
+    scores = torch.where(mask[:, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
+    seen = mask.any(dim=-1)[:, :, None, None]                           # [B, Sq, 1, 1]
+    return torch.where(seen, out, 0.0).to(q.dtype)
+
+
+def cached_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lens: torch.Tensor) -> torch.Tensor:
+    """Launch ``bobra_cached_attention`` (``csrc/flash_attention.cu``): q
+    [B, Sq, Hq, D] over a whole cache k/v [B, cap, Hkv, D] with int32
+    ``lens [B]`` on the same card. The wrapper never reads ``lens``; in
+    bf16 (at most 16 packed rows: the decode core) the keys are split by
+    :func:`kv_splits` of the capacity, in fp32 the scalar kernel runs.
+    Batch and sequence strides are free, heads packed. Counts into its
+    own ``launches`` and into ``flash_attention_cuda.launches`` (a kernel
+    of the same source). Raises on what the kernel does not take; it never
+    computes the plain version instead."""
+    if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, lens)):
+        raise ValueError(
+            f"cached_attention_cuda needs q, k, v and lens on one CUDA device, got "
+            f"{q.device}, {k.device}, {v.device}, {lens.device}")
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"cached_attention_cuda takes float32 or bfloat16 q, k, v of one type, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if lens.dtype != torch.int32 or not lens.is_contiguous():
+        raise TypeError(f"cached_attention_cuda takes contiguous int32 lens, got {lens.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    _, cap, hkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv != 0:
+        raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
+    if tuple(lens.shape) != (b,):
+        raise ValueError(f"lens {tuple(lens.shape)} does not match {b} batch rows")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS}")
+    if b * sq * cap * hq == 0:
+        raise ValueError("cached_attention_cuda: empty input")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_heads_packed(name, t)
+    route = flash_route(sq, hq // hkv, q.dtype)
+    if route == "rows":
+        raise ValueError(
+            f"cached_attention_cuda takes at most {DECODE_ROWS} packed rows (Sq x group) in "
+            f"bf16, got {sq} x {hq // hkv}")
+    if route == "decode":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_aligned(f"cached_attention_cuda: {name}", t, (t.stride(0), t.stride(1)))
+    splits = kv_splits(cap) if route == "decode" else 0
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    fn = kernel_function("bobra_cached_attention", _CACHED_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lens.data_ptr(),
+                 b, sq, cap, hq, hq // hkv, d,
+                 q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                 v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+                 1.0 / math.sqrt(d), splits, KERNEL_DTYPES[q.dtype],
+                 torch.cuda.current_stream().cuda_stream)
+    check_launch("cached_attention", err)
+    cached_attention_cuda.launches += 1
+    flash_attention_cuda.launches += 1
+    return out
+
+
+#: launches of the device-length entry since the count was last set to 0
+cached_attention_cuda.launches = 0
+
+
+def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lens: torch.Tensor) -> torch.Tensor:
+    """Dispatch: the plain version for CPU tensors, the kernel otherwise."""
+    if q.device.type == "cpu":
+        return cached_attention_reference(q, k, v, lens)
+    return cached_attention_cuda(q, k, v, lens)
 
 
 def attention(

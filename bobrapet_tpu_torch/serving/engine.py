@@ -1,11 +1,11 @@
 """Continuous-batching serving engine over the paged KV cache.
 
-Counterpart of ``bobrapet_tpu/serving/engine.py``, first sub-slice: the
-classic single-step engine (``decode_horizon=1, dispatch_depth=1``),
-greedy, without prefix caching. Requests stream through a fixed set of
-slots: a request is admitted the moment a slot and enough KV blocks are
-free, decodes one token per engine step fused with every other live
-request, and leaves the instant it finishes.
+Counterpart of ``bobrapet_tpu/serving/engine.py``, sub-slices (a) and
+(b): the classic single-step engine and the fused decode horizon, at
+``dispatch_depth=1``, greedy, without prefix caching. Requests stream
+through a fixed set of slots: a request is admitted the moment a slot and
+enough KV blocks are free, decodes fused with every other live request,
+and leaves the instant it finishes.
 
 - One decode step for every slot: liveness is a mask, never a shape;
   inactive slots compute garbage that lands in the scratch block.
@@ -20,6 +20,16 @@ request, and leaves the instant it finishes.
   extra lane's token is dropped. Small host arrays go up from pinned
   memory without blocking, and each tick's tokens come back through a
   pinned buffer behind an event, so nothing else waits on the card.
+- ``decode_horizon`` H > 1: H greedy steps per engine tick with the lane
+  state (last token, length, liveness, emitted count, budget, eos, block
+  table) resident on the device; eos and budgets deactivate lanes there,
+  a dead lane writes the scratch block and emits -1. Each lane's table is
+  funded H tokens ahead first (without preemption: when that fails the
+  classic tick runs, which may preempt). Only the lanes the host changed
+  are patched before a horizon, and one copy brings back the tokens
+  ``[H, S]`` and the lane state after it. On a card the horizon is one
+  CUDA graph per H (:class:`~bobrapet_tpu_torch.graphs.GraphedStep`),
+  replayed once per tick: the JAX engine's ``lax.scan``.
 
 On a card every norm (each but the first fused with the residual add
 before it), the prefill attention and the decode attention launch the
@@ -29,6 +39,7 @@ port's kernels; on the CPU their plain versions run.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from collections import deque
 from typing import Any, Optional
@@ -45,6 +56,7 @@ from ..models.llama import (
     forward,
     init_cache,
 )
+from ..graphs import GraphedStep
 from ..models.quant import matmul as _mm
 from ..ops.paged_attention import paged_attention
 from .paged_cache import SCRATCH_BLOCK, BlockAllocator, PagedConfig, init_pools, write_prefill
@@ -52,23 +64,45 @@ from .paged_cache import SCRATCH_BLOCK, BlockAllocator, PagedConfig, init_pools,
 
 @dataclasses.dataclass
 class Request:
+    """The JAX engine's request, field for field and in its order. The port
+    serves greedy requests of the base model: ``temperature`` 0 and
+    ``adapter`` 0; ``tenant`` and ``trace`` are carried for a router."""
+
     rid: int
     prompt: list[int]
     max_new_tokens: int
+    temperature: float = 0.0
     eos_token: Optional[int] = None
+    #: multi-LoRA adapter index (0 = the base model)
+    adapter: int = 0
+    #: SLO attribution label ("" = unattributed)
+    tenant: str = ""
+    #: per-request trace context override ({traceId, spanId})
+    trace: Optional[dict] = None
     #: filled by the engine
     output: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
     preemptions: int = 0
+    #: retired by a prefill-role engine for a decode engine to continue
+    prefilled: bool = False
+    #: tokens already in ``output`` at submit (a KV-handoff continuation)
+    preseeded: int = 0
+    #: prefill-pool retirement to this engine's first new token (handoffs)
+    kv_handoff_s: Optional[float] = None
+    #: the user-visible TTFT carried across a handoff
+    ttft_carried_s: Optional[float] = None
     #: host perf_counter stamps: TTFT = first_token_at - submitted_at,
-    #: TPOT from first_token_at to finished_at
+    #: TPOT from first_token_at to finished_at; one wall-clock anchor
     submitted_at: float = 0.0
+    submitted_wall: float = 0.0
     admitted_at: Optional[float] = None
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
 
     @property
     def ttft_seconds(self) -> Optional[float]:
+        if self.ttft_carried_s is not None:
+            return self.ttft_carried_s
         if self.first_token_at is None or not self.submitted_at:
             return None
         return self.first_token_at - self.submitted_at
@@ -76,10 +110,12 @@ class Request:
     @property
     def tpot_seconds(self) -> Optional[float]:
         """Mean time per output token after the first (None until the
-        request finishes with >= 2 tokens)."""
-        if self.finished_at is None or self.first_token_at is None or len(self.output) < 2:
+        request finishes with >= 2 tokens of its own; preseeded tokens
+        came from another engine)."""
+        emitted = len(self.output) - self.preseeded
+        if self.finished_at is None or self.first_token_at is None or emitted < 2:
             return None
-        return (self.finished_at - self.first_token_at) / (len(self.output) - 1)
+        return (self.finished_at - self.first_token_at) / (emitted - 1)
 
 
 @dataclasses.dataclass
@@ -87,6 +123,12 @@ class _SlotState:
     request: Request
     blocks: list[int]
     seq_len: int  # tokens currently in the cache (prompt + generated)
+
+
+#: columns of the device lane state [S, LANE_TABLE + max_blocks_per_seq]
+#: int32: the four the horizon advances, then budget, eos, the block table
+LANE_LAST, LANE_SEQ, LANE_ACT, LANE_EMITTED, LANE_BUDGET, LANE_EOS, LANE_TABLE = range(7)
+LANE_FIELDS = ("last", "seq", "act", "emitted", "budget", "eos")
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -116,8 +158,8 @@ def _weights_device(tree: Any) -> torch.device:
 
 def _not_ported(what: str, instead: str, sub_slice: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: pass {instead} (it comes with ROADMAP Queue 1 "
-        f"item 6 sub-slice {sub_slice})")
+        f"{what} is not ported yet: pass {instead} (it comes with ROADMAP Queue 1, "
+        f"engine sub-slice {sub_slice})")
 
 
 class ServingEngine:
@@ -141,8 +183,6 @@ class ServingEngine:
         if role not in self.ROLES:
             raise ValueError(f"role must be one of {sorted(self.ROLES)}, got {role!r}")
         pcfg = pcfg or PagedConfig()
-        if decode_horizon > 1:
-            raise _not_ported("the fused decode horizon", "decode_horizon=1", "(b)")
         if dispatch_depth > 1:
             raise _not_ported("the depth-N dispatch pipeline", "dispatch_depth=1", "(c)")
         if pcfg.prefix_caching:
@@ -166,6 +206,9 @@ class ServingEngine:
         self.cfg = cfg
         self.pcfg = pcfg
         self.pipeline_decode = pipeline_decode
+        #: greedy steps per horizon; 1 = the classic single-step engine
+        self.decode_horizon = int(decode_horizon)
+        self.dispatch_depth = int(dispatch_depth)
         self.device = _weights_device(params)
         self.pools = init_pools(cfg, pcfg, self.device)
         self.allocator = BlockAllocator(pcfg.num_blocks)
@@ -177,16 +220,30 @@ class ServingEngine:
         self._next_rid = 0
         self._last_tokens = [0] * pcfg.max_slots
         self._pending_tick: Optional[dict] = None
-        self._tables_cache: Optional[torch.Tensor] = None
+        S, MB = pcfg.max_slots, pcfg.max_blocks_per_seq
+        #: the classic tick's block tables: one static buffer, rewritten in
+        #: place on a structural change (admission, growth, retire)
+        self._tables = torch.full((S, MB), SCRATCH_BLOCK, dtype=torch.int32, device=self.device)
         self._tables_key: Optional[tuple] = None
         self._lane_cache: Optional[tuple] = None
         self._lane_key: Optional[tuple] = None
+        #: the horizon's device lane state, one static int32 buffer
+        #: [S, LANE_TABLE + MB] (last, seq, act, emitted, budget, eos, then
+        #: the block table): patched lane by lane, advanced in place
+        self._dev = torch.zeros((S, LANE_TABLE + MB), dtype=torch.int32, device=self.device)
+        #: what the device holds per lane, as the host last wrote or read it
+        self._dev_mirror: list[Optional[dict]] = [None] * S
+        #: per horizon length: the graphed horizon, its output [H + 4, S]
+        #: and the pinned host buffer it is read back through
+        self._hz: dict[int, tuple[GraphedStep, torch.Tensor]] = {}
         #: host seconds per phase: ``prefill`` (forward + first-token
-        #: readback), ``decode_device`` (issuing decode ticks: every launch
-        #: is enqueued here), ``host_sync`` (waiting for a tick's tokens)
+        #: readback), ``decode_device`` (issuing decode ticks and horizons:
+        #: every launch or replay is enqueued here), ``host_sync`` (waiting
+        #: for their tokens)
         self.phase_seconds = {"prefill": 0.0, "decode_device": 0.0, "host_sync": 0.0}
-        #: ``device_steps`` counts decode ticks dispatched
-        self.phase_counts = {"host_syncs": 0, "device_steps": 0}
+        #: ``device_steps`` counts decode steps dispatched (H per horizon),
+        #: ``horizons`` the horizons
+        self.phase_counts = {"host_syncs": 0, "horizons": 0, "device_steps": 0}
 
     # -- public API --------------------------------------------------------
 
@@ -212,8 +269,9 @@ class ServingEngine:
                 "it comes with its own invariant in ROADMAP Queue 1 item 6")
         rid = self._next_rid
         self._next_rid += 1
-        self.pending.append(Request(rid, list(prompt), max_new_tokens, eos_token,
-                                    submitted_at=time.perf_counter()))
+        self.pending.append(Request(rid, list(prompt), max_new_tokens, temperature, eos_token,
+                                    submitted_at=time.perf_counter(),
+                                    submitted_wall=time.time()))
         return rid
 
     def run(self, max_steps: int = 100_000) -> list[Request]:
@@ -250,6 +308,13 @@ class ServingEngine:
         """True exactly when a requested drain has fully retired."""
         return self.draining and self.in_flight == 0
 
+    def set_decode_horizon(self, horizon: int) -> None:
+        """Live: takes effect at the next tick. One graph is kept per
+        horizon length, so flipping back and forth captures each once."""
+        if horizon < 1:
+            raise ValueError("decode_horizon must be >= 1")
+        self.decode_horizon = int(horizon)
+
     def reset_phase_stats(self) -> None:
         """Zero the per-phase counters (after a warm-up)."""
         for k in self.phase_seconds:
@@ -260,11 +325,12 @@ class ServingEngine:
     # -- scheduler ---------------------------------------------------------
 
     def step(self) -> list[int]:
-        """One engine tick. Steady decode state with ``pipeline_decode``:
-        dispatch tick N+1, then read back tick N. Otherwise: commit any
-        pending tick, then the settled sequence (admit -> retire finished
-        -> grow/preempt -> decode -> retire). Returns rids that finished."""
-        if self.pipeline_decode and self._steady_state():
+        """One engine tick. Steady decode state with ``pipeline_decode``
+        (and H = 1; a horizon subsumes it): dispatch tick N+1, then read
+        back tick N. Otherwise: commit any pending tick, then the settled
+        sequence (admit -> retire finished -> a horizon, or grow/preempt ->
+        decode -> retire). Returns rids that finished."""
+        if self.decode_horizon <= 1 and self.pipeline_decode and self._steady_state():
             prev = self._pending_tick
             self._pending_tick = None
             new_tick = self._dispatch_plain(prev)
@@ -314,6 +380,13 @@ class ServingEngine:
                 self._retire(i)
         if not any(self.slots):
             return done
+        if self.decode_horizon > 1:
+            hz = self._plain_horizon_decode(self.decode_horizon)
+            if hz is not None:
+                done.extend(hz)
+                return done
+            # lookahead unfundable without preemption: the classic tick,
+            # which may preempt
         self._ensure_growth()
         if not any(self.slots):
             return done
@@ -537,19 +610,148 @@ class ServingEngine:
         return int(torch.argmax(logits))
 
     def _block_tables(self) -> torch.Tensor:
-        """[S, max_blocks_per_seq] int32, scratch-padded; kept on the
-        device between structural changes (admission, growth, retire)."""
+        """[S, max_blocks_per_seq] int32, scratch-padded: the one static
+        buffer, rewritten in place (from pinned memory) only on a
+        structural change (admission, growth, retire)."""
         key = tuple(tuple(s.blocks) if s is not None else None for s in self.slots)
-        if self._tables_cache is not None and self._tables_key == key:
-            return self._tables_cache
-        t = np.full((self.pcfg.max_slots, self.pcfg.max_blocks_per_seq), SCRATCH_BLOCK,
-                    np.int32)
-        for i, slot in enumerate(self.slots):
-            if slot is not None:
-                t[i, :len(slot.blocks)] = slot.blocks
-        self._tables_key = key
-        self._tables_cache = self._upload(t, torch.int32)
-        return self._tables_cache
+        if self._tables_key != key:
+            t = np.full((self.pcfg.max_slots, self.pcfg.max_blocks_per_seq), SCRATCH_BLOCK,
+                        np.int32)
+            for i, slot in enumerate(self.slots):
+                if slot is not None:
+                    t[i, :len(slot.blocks)] = slot.blocks
+            self._tables.copy_(self._pinned(t), non_blocking=True)
+            self._tables_key = key
+        return self._tables
+
+    def _pinned(self, values: Any) -> torch.Tensor:
+        """A small int32 host array, in pinned memory when it goes to a card
+        (its copy then does not block, and the caching host allocator keeps
+        it until the copy has run)."""
+        t = torch.as_tensor(np.asarray(values, np.int32))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    # -- device-resident horizon -------------------------------------------
+
+    def _decoding_slots(self) -> list[tuple[int, _SlotState]]:
+        return [(i, s) for i, s in enumerate(self.slots) if s is not None]
+
+    def _fund_lookahead(self, slot: _SlotState, tokens_ahead: int) -> bool:
+        """Grow the slot's table to cover ``tokens_ahead`` more commits
+        without preemption; partial growth is kept (the blocks belong to
+        the slot either way). With ``tokens_ahead`` at most the budget
+        left, the per-sequence cap is out of reach (``submit`` bounds
+        prompt + budget by the capacity), so False means the pool is
+        exhausted: the caller takes the classic tick, the one place that
+        preempts."""
+        need = self.pcfg.blocks_for(slot.seq_len + tokens_ahead)
+        if need > self.pcfg.max_blocks_per_seq:
+            return False
+        while len(slot.blocks) < need:
+            got = self.allocator.alloc(1)
+            if got is None:
+                return False
+            slot.blocks.extend(got)
+        return True
+
+    def _sync_device_state(self) -> None:
+        """Reconcile the device lane state with the host scheduler: diff
+        each lane against the mirror of what the device holds and patch
+        only the lanes that changed. Catches every mutation path
+        (admission, retire, preempt, growth, classic ticks between
+        horizons) without invalidation hooks. A free lane keeps its last
+        values, inactive."""
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                req = s.request
+                want = {"last": int(self._last_tokens[i]), "seq": int(s.seq_len), "act": True,
+                        "emitted": len(req.output), "budget": int(req.max_new_tokens),
+                        "eos": -1 if req.eos_token is None else int(req.eos_token),
+                        "table": tuple(s.blocks)}
+            else:
+                prev = self._dev_mirror[i]
+                want = dict(prev) if prev is not None else {
+                    "last": 0, "seq": 1, "act": False, "emitted": 0, "budget": 0, "eos": -1,
+                    "table": ()}
+                want["act"] = False
+            if want != self._dev_mirror[i]:
+                self._patch_lane(i, want)
+                self._dev_mirror[i] = want
+
+    def _patch_lane(self, i: int, lane: dict) -> None:
+        """Write lane ``i`` of the device state in place: one copy of its
+        row from pinned memory, on the stream the horizon replays on."""
+        row = np.full(self._dev.shape[1], SCRATCH_BLOCK, np.int32)
+        row[:LANE_TABLE] = [int(lane[name]) for name in LANE_FIELDS]
+        row[LANE_TABLE:LANE_TABLE + len(lane["table"])] = lane["table"]
+        self._dev[i].copy_(self._pinned(row), non_blocking=True)
+
+    def _mirror_from_device(self, last_h, seq_h, act_h, em_h) -> None:
+        """After a horizon the device's lane values are authoritative: copy
+        them into the mirror, so the next sync patches only what the host
+        scheduler really changed."""
+        for i in range(self.pcfg.max_slots):
+            m = self._dev_mirror[i]
+            m["last"], m["seq"] = int(last_h[i]), int(seq_h[i])
+            m["act"], m["emitted"] = bool(act_h[i]), int(em_h[i])
+
+    def _horizon_step(self, horizon: int) -> tuple[GraphedStep, torch.Tensor]:
+        """The graphed horizon of this length and its pinned host buffer,
+        made on first use."""
+        hz = self._hz.get(horizon)
+        if hz is None:
+            out = torch.empty((horizon + LANE_BUDGET, self.pcfg.max_slots),
+                              dtype=torch.int32, device=self.device)
+            fn = functools.partial(_horizon_plain, self.params, self.pools, cfg=self.cfg,
+                                   pcfg=self.pcfg, H=horizon)
+            host = out if self.device.type == "cpu" else torch.empty(
+                out.shape, dtype=out.dtype, pin_memory=True)
+            hz = self._hz[horizon] = (GraphedStep(fn, self._dev, out), host)
+        return hz
+
+    def _plain_horizon_decode(self, horizon: int) -> Optional[list[int]]:
+        """Fund every decoding lane ``horizon`` tokens ahead (at most its
+        budget left), sync the lane state, run one horizon and commit its
+        tokens. None when the funding fails: the caller falls back to the
+        classic tick. Always the full horizon: a lane that ends early is
+        deactivated on the device and its later steps are no-ops."""
+        acts = self._decoding_slots()
+        for _, s in acts:
+            rem = s.request.max_new_tokens - len(s.request.output)
+            if not self._fund_lookahead(s, min(horizon, rem)):
+                return None
+        self._sync_device_state()
+        step, host = self._horizon_step(horizon)
+        t0 = time.perf_counter()
+        out = step()
+        ready = None
+        if host is not out:
+            host.copy_(out, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        self.phase_seconds["decode_device"] += time.perf_counter() - t0
+        self.phase_counts["horizons"] += 1
+        self.phase_counts["device_steps"] += horizon
+        t0 = time.perf_counter()
+        if ready is not None:
+            ready.synchronize()
+        got = host.numpy()
+        toks_h, (last_h, seq_h, act_h, em_h) = got[:horizon], got[horizon:]
+        self.phase_seconds["host_sync"] += time.perf_counter() - t0
+        self.phase_counts["host_syncs"] += 1
+        done: list[int] = []
+        for i, s in acts:
+            req = s.request
+            for t in range(int(em_h[i]) - self._dev_mirror[i]["emitted"]):
+                s.seq_len += 1
+                self._record(i, req, int(toks_h[t][i]))
+                if req.done:
+                    break
+            if req.done:
+                done.append(req.rid)
+                self._retire(i)
+        self._mirror_from_device(last_h, seq_h, act_h, em_h)
+        return done
 
 
 # ---------------------------------------------------------------------------
@@ -602,6 +804,41 @@ def _decode_step(params: dict[str, Any], pools: dict[str, torch.Tensor],
 
     logits = _logits(params, x, delta, cfg)[:, 0]  # [S, V]
     return pools, logits.argmax(dim=-1).to(torch.int32)
+
+
+@torch.no_grad()
+def _horizon_plain(params: dict[str, Any], pools: dict[str, torch.Tensor], lanes: torch.Tensor,
+                   out: torch.Tensor, *, cfg: LlamaConfig, pcfg: PagedConfig, H: int
+                   ) -> torch.Tensor:
+    """H fused greedy steps over the device lane state, no host read: each
+    step is :func:`_decode_step` over every slot, then JAX's liveness
+    (``bobrapet_tpu/serving/engine.py:_horizon_plain``): a lane that hits
+    its eos or its budget is deactivated, and from then on writes only the
+    scratch block and emits -1.
+
+    ``lanes`` [S, LANE_TABLE + MB] int32 (columns ``LANE_*``); writes into
+    ``out`` [H + 4, S] int32 the tokens of every step, then last, seq, act
+    and emitted after the horizon, and writes those four back into
+    ``lanes``. Pools are written in place. Returns ``out``."""
+    last = lanes[:, LANE_LAST]
+    seq = lanes[:, LANE_SEQ].contiguous()
+    act = lanes[:, LANE_ACT] != 0
+    emitted = lanes[:, LANE_EMITTED]
+    budget, eos = lanes[:, LANE_BUDGET], lanes[:, LANE_EOS]
+    tables = lanes[:, LANE_TABLE:].contiguous()
+    for t in range(H):
+        pools, tok = _decode_step(params, pools, last, seq, act, tables, cfg=cfg, pcfg=pcfg)
+        live = act.to(torch.int32)
+        emitted = emitted + live
+        seq = seq + live
+        done = ((eos >= 0) & (tok == eos)) | (emitted >= budget)
+        out[t] = torch.where(act, tok, -1)
+        last = torch.where(act, tok, last)
+        act = act & ~done
+    for row, value in enumerate((last, seq, act.to(torch.int32), emitted)):
+        out[H + row] = value
+    lanes[:, :LANE_BUDGET] = out[H:].T
+    return out
 
 
 def _write_layer(pools: dict[str, torch.Tensor], layer_i: int, k: torch.Tensor,

@@ -1,7 +1,7 @@
 """Paged KV cache: fixed block pools + per-sequence block tables.
 
 Counterpart of ``bobrapet_tpu/serving/paged_cache.py`` in the parts the
-single-step engine runs:
+engine runs:
 
 - One pool per K and V, ``[layers, num_blocks, block_size, kv_heads,
   head_dim]``: a block id addresses the same slab in every layer.
@@ -11,7 +11,10 @@ single-step engine runs:
   tensors kept by the engine's host-side allocator.
 
 Where JAX donates the pools and gets new arrays back, the port writes
-into the pools in place.
+into the pools in place. Its horizon decodes over the pools themselves
+(the paged kernel reads them in place, each step writes its token), so
+JAX's ``gather_views`` / ``scatter_window`` round trip through contiguous
+views has no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -56,6 +59,21 @@ def init_pools(cfg: LlamaConfig, pcfg: PagedConfig,
     shape = (cfg.n_layers, pcfg.num_blocks, pcfg.block_size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def write_token(
+    pools: dict[str, torch.Tensor],
+    k: torch.Tensor,  # [L, S, Hkv, Dh]: one new token per slot, every layer
+    v: torch.Tensor,
+    block_ids: torch.Tensor,  # [S] physical block per slot (the scratch block when masked)
+    offsets: torch.Tensor,    # [S] offset within the block
+) -> dict[str, torch.Tensor]:
+    """Scatter one decoded token's K/V of every slot and layer into the
+    pools, in place: ``pool[:, block_ids, offsets]`` (adjacent advanced
+    indices) selects ``[L, S, Hkv, Dh]``. Returns ``pools``."""
+    pools["k"][:, block_ids, offsets] = k.to(pools["k"].dtype)
+    pools["v"][:, block_ids, offsets] = v.to(pools["v"].dtype)
+    return pools
 
 
 def write_prefill(

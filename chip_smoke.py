@@ -11,7 +11,8 @@ Phases, each fatal on failure (exit 1, and no result line):
    memory, spills); a spill in a tensor-core attention kernel or in an
    RMSNorm instance fails the run;
 3. each kernel against its plain PyTorch version on the card, in bf16 at
-   the main paths' shapes (greedy prefill and decode, RMSNorm alone and
+   the main paths' shapes (greedy prefill and decode, the greedy decode
+   with device lengths over the whole 192-row cache, RMSNorm alone and
    fused with the residual add, the engine's largest prefill bucket, an
    engine decode tick) plus long-cache decodes (dense over 2048 rows,
    paged up to 1024), ragged, fp32 and narrow-head cases: max abs error
@@ -23,21 +24,28 @@ Phases, each fatal on failure (exit 1, and no result line):
    moves the same bytes under the flushed timer); then the host's
    microseconds per call of each kernel wrapper against torch.add;
 4. the greedy path: Llama-3-8B at full width and depth (bf16, random
-   weights from --seed) serves three requests through greedy_generate,
-   each a batch of 8 prompts of 128 tokens with 64 new tokens; the
-   kernels' launch counts, set to 0 just before, must show that every
-   norm and every attention of the run went through the kernels, and
-   every norm but the first of a forward through the add mode;
+   weights from --seed) serves one request through greedy_generate (a
+   batch of 8 prompts of 128 tokens, 64 new tokens) four times in turns,
+   the decode steps eager, as CUDA graphs, as graphs, eager; the tokens
+   must be identical, and the kernels' launch counts, set to 0 just
+   before each run, must show that every norm and every attention of it
+   went through the kernels (graph replays counted), every norm but the
+   first of a forward through the add mode and every decode attention
+   through the device-length entry; then prefill ms, decode step ms and
+   the card's busy share of a step, eager and graphed in turns;
 5. the serving path on the same weights: the continuous-batching engine
    (8 slots over a paged cache of 256 blocks of 16) streams 16 requests
    (prompts of 8-36 tokens, budgets of 32-64, 785 new tokens) with the
-   dispatch-ahead tick off and on, a warm drain each, then measured
-   drains in turns (off, on, on, off); every request gets exactly its
+   classic tick, dispatch-ahead off and on, and with the fused horizon of
+   8 steps as one CUDA graph, a warm drain each, then measured drains in
+   turns (off, on, H8, H8, on, off); every request gets exactly its
    budget, every drain the same tokens, and the launch counts of all
-   three kernels are exact in each drain;
+   three kernels are exact in each drain; then each engine's steady tick
+   under the profiler;
 6. a 2-layer model at the 8B widths, the same seeded weights on the card
    (kernels) and on the CPU (plain versions): bf16 prefill logits must
-   agree, and in fp32 the serving engine must give identical tokens;
+   agree, and in fp32 the serving engine must give identical tokens,
+   classic and at a horizon of 8;
 7. one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -60,8 +68,17 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-REQUESTS, BATCH, PROMPT, NEW_TOKENS = 3, 8, 128, 64
+BATCH, PROMPT, NEW_TOKENS = 8, 128, 64
+# the greedy runs: decode steps eager or as CUDA graphs, in turns
+GREEDY_RUNS = (False, True, True, False)
 DECODE_KV = 160  # a mid-request decode step: the cache holds 129..192 rows
+CACHE_ROWS = PROMPT + NEW_TOKENS  # the greedy cache's capacity
+# the engine's modes, measured in turns: (pipeline_decode, decode_horizon)
+SERVE_MODES = {"off": (False, 1), "on": (True, 1), "h8": (False, 8)}
+SERVE_ORDER = ("off", "on", "h8", "h8", "on", "off")
+# the fp32 engine cross-check's budget per horizon (capacity 64, prompts
+# up to 30): the classic tick, and three horizons of 8
+CROSS_BUDGET = {1: 10, 8: 24}
 
 # The serving path: BASELINE config 6's traffic (bench.py:627-653), 16
 # requests with staggered budgets streaming through 8 slots, no eos.
@@ -301,11 +318,13 @@ def wrapper_host_costs(torch, ops, gen, dev) -> dict:
     pq, pool = randn(8, 32, 128), randn(256, 16, 8, 128)
     tables = torch.arange(1, 65, dtype=torch.int32, device=dev).reshape(8, 8)
     lens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    kv_lens = torch.full((BATCH,), DECODE_KV, dtype=torch.int32, device=dev)
     calls = {
         "rmsnorm_cuda": (lambda: ops.rmsnorm_cuda(x, w, 1e-5), x),
         "add_rmsnorm_cuda": (lambda: ops.add_rmsnorm_cuda(x, delta, w, 1e-5), x),
         "flash_attention_cuda": (lambda: ops.flash_attention_cuda(
             q, k, v, causal=True, q_offset=DECODE_KV - 1), q),
+        "cached_attention_cuda": (lambda: ops.cached_attention_cuda(q, k, v, kv_lens), q),
         "paged_attention_cuda": (lambda: ops.paged_attention_cuda(
             pq, pool, pool, tables, lens), pq),
     }
@@ -362,6 +381,41 @@ def flash_case(torch, F, ops, flush, name, b, sq, sk, hq, hkv, d, dtype, q_offse
     }
 
 
+def cached_case(torch, F, ops, flush, name, lens, cap, hq, hkv, d, dtype, gen, dev, sq=1):
+    """One greedy decode step's attention with device lengths: q [B, Sq,
+    Hq, D] over a whole cache [B, cap, Hkv, D], row b valid to lens[b]."""
+    b = len(lens)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, cap, hkv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, cap, hkv, d), generator=gen, device=dev).to(dtype)
+    n = torch.tensor(lens, dtype=torch.int32, device=dev)
+    dn = str(dtype).split(".")[-1]
+    err = compare(torch, "attention", name, ops.cached_attention_cuda(q, k, v, n),
+                  ops.cached_attention_reference(q, k, v, n), dn)
+    es = q.element_size()
+    # the valid K/V rows, q and the output once, and the lengths
+    nbytes = (2 * sum(lens) * hkv * d + 2 * q.numel()) * es + 4 * b
+    pairs = sum(attention_pairs(sq, length, True, length - sq) for length in lens)
+    b_ms, b_by = bound(nbytes, 4 * d * hq * pairs, dn)
+    # yardstick: SDPA over the whole cache with the same mask as a boolean
+    k_pos = torch.arange(cap, device=dev)
+    q_pos = n[:, None].long() - sq + torch.arange(sq, device=dev)[None, :]
+    mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
+            & (k_pos[None, None, :] < n[:, None, None].long()))[:, None]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    return {
+        "case": name, "q": [b, sq, hq, d], "kv": [b, cap, hkv, d], "lens": list(lens),
+        "dtype": dn, "max_abs_err": err,
+        "ms": time_ms(torch, lambda: ops.cached_attention_cuda(q, k, v, n), flush),
+        "plain_ms": time_ms(torch, lambda: ops.cached_attention_reference(q, k, v, n), flush),
+        "library_ms": time_ms(torch, lib, flush),
+        "library": "scaled_dot_product_attention over the whole cache with a boolean mask",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
 def paged_case(torch, F, ops, flush, name, hq, hkv, d, dtype, gen, dev, block=16,
                n_blocks=256, mb=8, lens=PAGED_LENS):
     """One decode tick's paged attention: q [S, Hq, D] over one layer's
@@ -412,39 +466,39 @@ def paged_case(torch, F, ops, flush, name, hq, hkv, d, dtype, gen, dev, block=16
     }
 
 
-def request_split(torch, llama, params, prompt, cfg, dev, steps: int = 16,
-                  profiled: int = 4) -> dict:
-    """Prefill ms, decode step ms (host clock, synchronised), and the
-    device's busy share of a decode step: kernel time per step from
-    torch.profiler over ``profiled`` steps, over the unprofiled step time."""
+def request_split(torch, llama, params, prompt, cfg, dev, cuda_graph: bool = True,
+                  steps: int = 16, profiled: int = 4) -> dict:
+    """Prefill ms, decode step ms (host clock, synchronised) and the
+    device's busy share of a decode step, for the steps of
+    ``greedy_generate``'s decoder (eager, or one CUDA graph replayed per
+    step): kernel time per step from torch.profiler over ``profiled``
+    steps, over the unprofiled step time. The first two steps (with the
+    graph's capture) are not timed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     b, s = prompt.shape
     cache = llama.init_cache(cfg, b, s + 2 + steps + profiled, device=dev)
-    state = {"cache": cache, "pos": s}
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, state["cache"] = llama.forward(
-            params, prompt, cfg, cache=cache,
-            positions=torch.arange(s, device=dev).expand(b, s))
+        logits, _ = llama.forward(params, prompt, cfg, cache=cache,
+                                  positions=torch.arange(s, device=dev).expand(b, s))
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         if not torch.isfinite(logits[:, -1]).all():
             fail("non-finite prefill logits")
-        state["tok"] = logits[:, -1:].argmax(-1)
+        decoder = llama.GreedyDecoder(params, cfg, cache, logits[:, -1:].argmax(-1), s,
+                                      cuda_graph=cuda_graph)
 
         def decode(n):
             for _ in range(n):
-                pos = torch.full((b, 1), state["pos"], device=dev)
-                logits, state["cache"] = llama.forward(params, state["tok"], cfg,
-                                                       cache=state["cache"], positions=pos)
-                state["tok"] = logits[:, -1:].argmax(-1)
-                state["pos"] += 1
+                decoder.step()
 
+        t0 = time.perf_counter()
         decode(2)
         torch.cuda.synchronize()
+        first_two_ms = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         decode(steps)
         torch.cuda.synchronize()
@@ -456,7 +510,8 @@ def request_split(torch, llama, params, prompt, cfg, dev, steps: int = 16,
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / profiled
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return {
-        "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+        "cuda_graph": cuda_graph, "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+        "first_two_steps_ms": first_two_ms,
         "decode_elementwise": elementwise_share(kernels, profiled),
         # None: the profiler saw no device time here ("not measured")
         "decode_step_device_ms": device_ms or None,
@@ -471,7 +526,8 @@ def request_split(torch, llama, params, prompt, cfg, dev, steps: int = 16,
 
 # the port's kernels by the names the profiler gives their instances
 PORT_KERNELS = (("paged_attention", ("PagedPolicy", "paged_attention_kernel")),
-                ("flash_attention", ("flash_rows_kernel", "DensePolicy", "flash_attention_kernel")),
+                ("flash_attention", ("flash_rows_kernel", "DensePolicy", "CachedPolicy",
+                                     "flash_attention_kernel")),
                 ("rmsnorm", ("rmsnorm_kernel",)))
 
 
@@ -509,15 +565,28 @@ def p50(values) -> float:
 
 def zero_counts(ops) -> None:
     for fn in (ops.rmsnorm_cuda, ops.add_rmsnorm_cuda, ops.flash_attention_cuda,
-               ops.paged_attention_cuda):
+               ops.cached_attention_cuda, ops.paged_attention_cuda):
         fn.launches = 0
 
 
 def read_counts(ops) -> dict:
+    """The wrappers' counters. ``flash_attention`` counts both entries of
+    csrc/flash_attention.cu, ``cached_attention`` the device-length one."""
     return {"rmsnorm": ops.rmsnorm_cuda.launches,
             "add_rmsnorm": ops.add_rmsnorm_cuda.launches,
             "flash_attention": ops.flash_attention_cuda.launches,
+            "cached_attention": ops.cached_attention_cuda.launches,
             "paged_attention": ops.paged_attention_cuda.launches}
+
+
+def greedy_launches(n_layers: int) -> dict:
+    """Launch counts of one greedy_generate request: 1 + NEW_TOKENS
+    forwards, the prefill's attention through the flash entry and every
+    decode step's through the device-length entry (which the flash
+    counter also counts)."""
+    forwards = 1 + NEW_TOKENS
+    return {**norm_launches(forwards, n_layers), "flash_attention": forwards * n_layers,
+            "cached_attention": NEW_TOKENS * n_layers, "paged_attention": 0}
 
 
 def norm_launches(forwards: int, n_layers: int) -> dict:
@@ -552,21 +621,22 @@ def serve_drain(torch, ops, eng, prompts) -> dict:
         if req is None or len(req.output) != budget or min(req.output) < 0 \
                 or max(req.output) >= eng.cfg.vocab_size:
             fail(f"serving: a request did not end with its budget of {budget} in-range tokens")
-    ticks = eng.phase_counts["device_steps"]
+    ticks = eng.phase_counts["device_steps"]  # decode steps: H per horizon
     prefills = SERVE_REQUESTS  # 8 slots x 7 blocks never exhaust 255 blocks: no preemption
     expected = {**norm_launches(prefills + ticks, eng.cfg.n_layers),
-                "flash_attention": prefills * eng.cfg.n_layers,
+                "flash_attention": prefills * eng.cfg.n_layers, "cached_attention": 0,
                 "paged_attention": ticks * eng.cfg.n_layers}
-    print(f"  serving (pipeline_decode={eng.pipeline_decode}) launches {launches}, "
-          f"expected {expected}", flush=True)
+    print(f"  serving (pipeline_decode={eng.pipeline_decode}, decode_horizon="
+          f"{eng.decode_horizon}) launches {launches}, expected {expected}", flush=True)
     if launches != expected:
         fail("the serving path did not run every norm and attention through the kernels")
     tokens = sum(budgets)
     ph = eng.phase_seconds
     return {
-        "pipeline_decode": eng.pipeline_decode, "requests": SERVE_REQUESTS,
-        "new_tokens": tokens, "drain_s": drain_s, "tok_per_s": tokens / drain_s,
-        "ticks": ticks, "prefills": prefills,
+        "pipeline_decode": eng.pipeline_decode, "decode_horizon": eng.decode_horizon,
+        "requests": SERVE_REQUESTS, "new_tokens": tokens, "drain_s": drain_s,
+        "tok_per_s": tokens / drain_s, "ticks": ticks, "prefills": prefills,
+        "horizons": eng.phase_counts["horizons"],
         "decode_tick_ms": (ph["decode_device"] + ph["host_sync"]) / ticks * 1e3,
         "tick_enqueue_ms": ph["decode_device"] / ticks * 1e3,
         "prefill_ms": ph["prefill"] / prefills * 1e3,
@@ -577,16 +647,22 @@ def serve_drain(torch, ops, eng, prompts) -> dict:
     }
 
 
-def tick_profile(torch, eng, prompts, steps: int = 8, profiled: int = 4) -> dict:
-    """Steady decode ticks of a full engine: host ms per step() over
-    ``steps`` (synchronised), and the device's busy share of a step from
-    torch.profiler's kernel time over ``profiled`` more steps."""
+def tick_profile(torch, eng, prompts, steps: int = 8, profiled: int = 4,
+                 warm: int = 3) -> dict:
+    """Steady decode ticks of a full engine (a tick is one horizon when
+    the engine has one): host ms per step() over ``steps``
+    (synchronised), and the device's busy share of a step from
+    torch.profiler's kernel time over ``profiled`` more steps, after
+    ``warm`` steps (admission and the first ticks). Every slot's budget
+    of 64 lasts the whole stretch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if (warm + steps + profiled) * eng.decode_horizon >= 64:
+        fail("tick_profile: the budgets would end inside the measured ticks")
     for p in prompts[:eng.pcfg.max_slots]:
         eng.submit(p, 64)
-    for _ in range(3):  # admission + the first ticks
+    for _ in range(warm):
         eng.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -603,7 +679,7 @@ def tick_profile(torch, eng, prompts, steps: int = 8, profiled: int = 4) -> dict
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / profiled
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return {
-        "step_ms": step_ms,
+        "step_ms": step_ms, "tokens_per_step_per_slot": eng.decode_horizon,
         "elementwise": elementwise_share(kernels, profiled),
         # None: the profiler saw no device time here ("not measured")
         "step_device_ms": device_ms or None,
@@ -617,45 +693,50 @@ def tick_profile(torch, eng, prompts, steps: int = 8, profiled: int = 4) -> dict
 
 
 def serving_phase(torch, ops, serving, params, cfg, seed: int, dev, card: str) -> dict:
-    """The continuous-batching engine at full width, with the
-    dispatch-ahead tick off and on: one warm drain each, then measured
-    drains in turns (off, on, on, off) so that host-clock drift between
-    the two modes cancels, then a profiled stretch of steady ticks."""
+    """The continuous-batching engine at full width in its three modes
+    (the classic tick with dispatch-ahead off and on, and the fused
+    horizon of 8 steps replayed as one CUDA graph): one warm drain each,
+    then measured drains in turns (SERVE_ORDER) so that host-clock drift
+    between the modes cancels, then a profiled stretch of steady ticks."""
     warm = serve_prompts(torch, cfg, seed + 10, dev)
     prompts = serve_prompts(torch, cfg, seed + 11, dev)
     torch.cuda.reset_peak_memory_stats()
     engines = {}
-    for pipeline in (False, True):
+    for mode, (pipeline, horizon) in SERVE_MODES.items():
         eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**SERVE_PAGING),
-                                    pipeline_decode=pipeline, decode_horizon=1,
+                                    pipeline_decode=pipeline, decode_horizon=horizon,
                                     dispatch_depth=1)
         for i, p in enumerate(warm):
             eng.submit(p, serve_budget(i))
         eng.run()
-        engines[pipeline] = eng
-    drains = {False: [], True: []}
-    for pipeline in (False, True, True, False):
-        drains[pipeline].append(serve_drain(torch, ops, engines[pipeline], prompts))
+        engines[mode] = eng
+    drains = {mode: [] for mode in SERVE_MODES}
+    for mode in SERVE_ORDER:
+        drains[mode].append(serve_drain(torch, ops, engines[mode], prompts))
     outputs = [d.pop("outputs") for runs in drains.values() for d in runs]
     if any(o != outputs[0] for o in outputs):
-        fail("serving: the dispatch-ahead tick changed the tokens")
+        fail("serving: the engine's modes gave different tokens")
     out = {"model": "llama3_8b", "dtype": "bfloat16", "paging": SERVE_PAGING,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card,
-           "identical_tokens": True, "order": "off, on, on, off"}
-    for pipeline, eng in engines.items():
-        runs = drains[pipeline]
-        out["pipelined" if pipeline else "synchronous"] = {
+           "identical_tokens": True, "order": ", ".join(SERVE_ORDER)}
+    for mode, eng in engines.items():
+        runs = drains[mode]
+        h = eng.decode_horizon
+        out[mode] = {
+            "pipeline_decode": eng.pipeline_decode, "decode_horizon": h,
             "drains": runs,
             "launches": {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]},
-            "profile": tick_profile(torch, eng, warm),
+            "profile": tick_profile(torch, eng, warm, *((8, 4, 3) if h == 1 else (2, 2, 1))),
         }
     return out
 
 
 def engine_cross_check(torch, ops, llama, serving, cfg, seed: int, dev) -> dict:
     """fp32, 2 layers at the 8B widths (TF32 off): the same seeded
-    weights served by the engine on the card (kernels) and on the CPU
-    (plain versions) must give identical tokens."""
+    weights served by the engine on the card (kernels, the horizon as a
+    CUDA graph) and on the CPU (plain versions), with the classic tick and
+    with a horizon of 8, must give identical tokens, and the horizon's
+    first tokens must be the classic tick's."""
     cfg3 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
     params = llama.init_params(cfg3, torch.Generator(device=dev).manual_seed(seed + 4), dev)
     params_cpu = tree_to(params, "cpu")
@@ -664,36 +745,48 @@ def engine_cross_check(torch, ops, llama, serving, cfg, seed: int, dev) -> dict:
                for n in (5, 12, 17, 30)]
     pcfg = serving.PagedConfig(max_slots=4, block_size=16, num_blocks=32, max_blocks_per_seq=4,
                                prefix_caching=False)
-    outs, launches = {}, 0
+    outs, launches = {}, {}
     t0 = time.perf_counter()
-    for side, tree in (("card", params), ("cpu", params_cpu)):
-        eng = serving.ServingEngine(tree, cfg3, pcfg, pipeline_decode=True, decode_horizon=1,
-                                    dispatch_depth=1)
-        for p in prompts:
-            eng.submit(p, 8)
-        start = ops.paged_attention_cuda.launches
-        eng.run()
-        outs[side] = [r.output for r in sorted(eng.finished, key=lambda r: r.rid)]
-        if side == "card":
-            launches = ops.paged_attention_cuda.launches - start
-            if launches != eng.phase_counts["device_steps"] * cfg3.n_layers:
-                fail("engine cross-check did not run the paged kernel on every tick")
+    for horizon in (1, 8):
+        for side, tree in (("card", params), ("cpu", params_cpu)):
+            eng = serving.ServingEngine(tree, cfg3, pcfg, pipeline_decode=True,
+                                        decode_horizon=horizon, dispatch_depth=1)
+            for p in prompts:
+                eng.submit(p, CROSS_BUDGET[horizon])
+            start = ops.paged_attention_cuda.launches
+            eng.run()
+            outs[side, horizon] = [r.output for r in sorted(eng.finished, key=lambda r: r.rid)]
+            if side == "card":
+                launches[horizon] = ops.paged_attention_cuda.launches - start
+                if launches[horizon] != eng.phase_counts["device_steps"] * cfg3.n_layers:
+                    fail("engine cross-check did not run the paged kernel on every step")
+                if horizon > 1 and eng.phase_counts["horizons"] == 0:
+                    fail("engine cross-check ran no horizon")
     del params
-    result = {"requests": len(prompts), "new_tokens": 8, "identical_tokens":
-              outs["card"] == outs["cpu"], "card_paged_launches": launches,
+    same = all(outs["card", h] == outs["cpu", h] for h in (1, 8))
+    # the horizon's first tokens are the classic engine's
+    prefix = all(a[:CROSS_BUDGET[1]] == b for a, b in zip(outs["card", 8], outs["card", 1]))
+    result = {"requests": len(prompts), "new_tokens": CROSS_BUDGET,
+              "identical_tokens": same, "horizon_extends_classic": prefix,
+              "card_paged_launches": {f"h{h}": n for h, n in launches.items()},
               "seconds": time.perf_counter() - t0}
-    if not result["identical_tokens"]:
-        for p, a, b in zip(prompts, outs["card"], outs["cpu"]):
+    for h in (1, 8):
+        if outs["card", h] == outs["cpu", h]:
+            continue
+        for p, a, b in zip(prompts, outs["card", h], outs["cpu", h]):
             if a != b:
                 j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
                 with torch.no_grad():
                     logits, _ = llama.forward(params_cpu, torch.tensor([p + b[:j]]), cfg3)
                 top = logits[0, -1].topk(2).values
-                result["first_divergence"] = {"prompt_len": len(p), "token": j,
+                result["first_divergence"] = {"horizon": h, "prompt_len": len(p), "token": j,
                                               "card": a[j], "cpu": b[j],
                                               "top_two_gap": float(top[0] - top[1])}
                 break
+        break
     print("engine (2 layers, 8B widths, fp32, card vs CPU): " + json.dumps(result), flush=True)
+    if not prefix:
+        fail("the fp32 engine's horizon of 8 disagrees with its classic tick")
     if not result["identical_tokens"]:
         fail("the engine on the card and on the CPU gave different tokens")
     return result
@@ -773,6 +866,17 @@ def main() -> None:
         rmsnorm_case(torch, F, ops, flush, "add_rmsnorm prefill fp32", BATCH * PROMPT, d, f32,
                      gen, dev, add=True),
     ]
+    cached_cases = [
+        cached_case(torch, F, ops, flush, "cached decode", (DECODE_KV,) * BATCH, CACHE_ROWS,
+                    hq, hkv, hd, bf16, gen, dev),
+        cached_case(torch, F, ops, flush, "cached decode ragged",
+                    tuple(PROMPT + 1 + 9 * i for i in range(BATCH - 1)) + (CACHE_ROWS,),
+                    CACHE_ROWS, hq, hkv, hd, bf16, gen, dev),
+        cached_case(torch, F, ops, flush, "cached decode fp32", (1, DECODE_KV), CACHE_ROWS,
+                    hq, hkv, hd, f32, gen, dev),
+        cached_case(torch, F, ops, flush, "cached decode D=32", (1, 33, 64), 64, 4, 2, 32, bf16,
+                    gen, dev),
+    ]
     flash_cases = [
         flash_case(torch, F, ops, flush, "flash prefill", BATCH, PROMPT, PROMPT, hq, hkv, hd,
                    bf16, 0, gen, dev),
@@ -795,14 +899,14 @@ def main() -> None:
         paged_case(torch, F, ops, flush, "paged decode D=32", 4, 2, 32, bf16, gen, dev,
                    block=8, n_blocks=64, lens=(1, 8, 9, 17, 24, 31, 32, 2), mb=4),
     ]
-    for c in rms_cases + flash_cases + paged_cases:
+    for c in rms_cases + flash_cases + cached_cases + paged_cases:
         print(f"  {c['case']}: kernel {c['ms']:.5f} ms, plain {c['plain_ms']:.5f} ms, "
               f"library {c['library_ms']:.5f} ms, bound {c['bound_ms']:.6f} ms "
               f"({c['bound_by']})", flush=True)
     host_costs = wrapper_host_costs(torch, ops, gen, dev)
     del flush
 
-    # ---- 4. the greedy path: Llama-3-8B, three requests
+    # ---- 4. the greedy path: Llama-3-8B, one request four times, eager and graphed in turns
     cfg = llama.llama3_8b()
     t0 = time.perf_counter()
     params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
@@ -810,38 +914,45 @@ def main() -> None:
     weight_bytes = tree_bytes(params)
     print(f"llama3_8b: {cfg.n_layers} layers, dim {cfg.dim}, {weight_bytes / 1e9:.2f} GB of "
           f"bf16 weights, made in {time.perf_counter() - t0:.1f} s", flush=True)
-    prompts = torch.randint(0, cfg.vocab_size, (REQUESTS, BATCH, PROMPT), device=dev,
-                            generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(ops)
-    outputs, seconds = [], []
-    for r in range(REQUESTS):
+    expected = greedy_launches(cfg.n_layers)
+    runs, outputs = [], []
+    for graph in GREEDY_RUNS:
+        zero_counts(ops)
         t0 = time.perf_counter()
-        outputs.append(llama.greedy_generate(params, prompts[r], cfg, max_new_tokens=NEW_TOKENS))
+        toks = llama.greedy_generate(params, prompt, cfg, max_new_tokens=NEW_TOKENS,
+                                     cuda_graph=graph)
         torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-    launches = read_counts(ops)
+        seconds = time.perf_counter() - t0
+        launches = read_counts(ops)
+        print(f"greedy path (cuda_graph={graph}) launches {launches}, expected {expected}",
+              flush=True)
+        if launches != expected:
+            fail("the main path did not run every norm and attention through the kernels")
+        if (tuple(toks.shape) != (BATCH, NEW_TOKENS) or toks.dtype != torch.int32
+                or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size):
+            fail(f"bad generated tokens: {toks.dtype} {tuple(toks.shape)}")
+        outputs.append(toks)
+        runs.append({"cuda_graph": graph, "request_s": seconds,
+                     "tok_per_s": BATCH * NEW_TOKENS / seconds, "launches": launches})
+    if any(not torch.equal(o, outputs[0]) for o in outputs):
+        fail("greedy path: the CUDA-graphed decode changed the tokens")
+    launches = {k: sum(r["launches"][k] for r in runs) for k in expected}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    forwards = 1 + NEW_TOKENS
-    expected = {**norm_launches(REQUESTS * forwards, cfg.n_layers),
-                "flash_attention": REQUESTS * forwards * cfg.n_layers, "paged_attention": 0}
-    print(f"greedy path launches {launches}, expected {expected}", flush=True)
-    if launches != expected:
-        fail("the main path did not run every norm and attention through the kernels")
-    for toks in outputs:
-        if (tuple(toks.shape) != (BATCH, NEW_TOKENS) or int(toks.min()) < 0
-                or int(toks.max()) >= cfg.vocab_size):
-            fail(f"bad generated tokens: shape {tuple(toks.shape)}")
-    # the parts of a request, after the counted run: one prefill, then
-    # decode steps timed alone and a few under the profiler
-    split = request_split(torch, llama, params, prompts[0], cfg, dev)
+    # the parts of a request, after the counted runs: one prefill, then
+    # decode steps timed alone and a few under the profiler, in turns
+    splits = [request_split(torch, llama, params, prompt, cfg, dev, cuda_graph=graph)
+              for graph in GREEDY_RUNS]
     decode_bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     main = {
-        "model": "llama3_8b", "dtype": "bfloat16", "requests": REQUESTS, "batch": BATCH,
-        "prompt": PROMPT, "new_tokens": NEW_TOKENS, "request_s": seconds,
-        "tok_per_s": [BATCH * NEW_TOKENS / s for s in seconds],
-        **split, "decode_tok_per_s": BATCH / split["decode_step_ms"] * 1e3,
+        "model": "llama3_8b", "dtype": "bfloat16", "batch": BATCH, "prompt": PROMPT,
+        "new_tokens": NEW_TOKENS, "order": "eager, graph, graph, eager",
+        "identical_tokens": True, "runs": runs,
+        "splits": [{**sp, "decode_tok_per_s": BATCH / sp["decode_step_ms"] * 1e3}
+                   for sp in splits],
         "decode_step_bound_ms": decode_bound_ms, "weight_bytes": weight_bytes,
         "peak_memory_gb": peak_gb, "launches": launches, "card": card,
     }
@@ -852,8 +963,7 @@ def main() -> None:
     print("serving path: " + json.dumps(served), flush=True)
     del params
     launches_by_path = {"greedy": launches,
-                        "serving_synchronous": served["synchronous"]["launches"],
-                        "serving_pipelined": served["pipelined"]["launches"]}
+                        **{f"serving_{mode}": served[mode]["launches"] for mode in SERVE_MODES}}
 
     # ---- 6. whole path and engine, card vs CPU
     cfg2 = dataclasses.replace(cfg, n_layers=2)
@@ -890,13 +1000,18 @@ def main() -> None:
     engine_cross_check(torch, ops, llama, serving, cfg, args.seed, dev)
 
     # ---- 7. result
+    # each kernel's own launches: the flash counter also counts the
+    # device-length entry's
+    own = {k: {**path, "flash_attention": path["flash_attention"] - path["cached_attention"]}
+           for k, path in launches_by_path.items()}
+
     def entry(name, source, replaces, cases, main_case):
         top = next(c for c in cases if c["case"] == main_case)
         main_errs = [c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16"]
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(path[name] for path in launches_by_path.values()),
-            "launches_by_path": {k: path[name] for k, path in launches_by_path.items()},
+            "launches": sum(path[name] for path in own.values()),
+            "launches_by_path": {k: path[name] for k, path in own.items()},
             "max_abs_err": max(main_errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"], "cases": cases,
@@ -904,11 +1019,13 @@ def main() -> None:
 
     rms_entry = entry("rmsnorm", "bobrapet_tpu_torch/csrc/rmsnorm.cu",
                       "bobrapet_tpu/ops/rmsnorm.py:33", rms_cases, "rmsnorm decode")
-    rms_entry["launches_add_mode"] = sum(path["add_rmsnorm"] for path in launches_by_path.values())
+    rms_entry["launches_add_mode"] = sum(path["add_rmsnorm"] for path in own.values())
     kernels = {"kernels": [
         rms_entry,
         entry("flash_attention", "bobrapet_tpu_torch/csrc/flash_attention.cu",
               "bobrapet_tpu/ops/attention.py:117", flash_cases, "flash decode"),
+        entry("cached_attention", "bobrapet_tpu_torch/csrc/flash_attention.cu",
+              "bobrapet_tpu/ops/attention.py:117", cached_cases, "cached decode"),
         entry("paged_attention", "bobrapet_tpu_torch/csrc/paged_attention.cu",
               "bobrapet_tpu/serving/engine.py:3106", paged_cases, "paged decode"),
     ], "build_s": build_s, "host_us_per_call": host_costs}

@@ -7,7 +7,9 @@ tick on one CUDA card, for any checkout of the port.
 Imports ``bobrapet_tpu_torch`` from DIR (default: this script's own
 checkout) and builds its kernels, makes Llama-3-8B at full width and
 depth with random bf16 weights from --seed, and profiles its greedy
-decode steps (batch 8 after a 128-token prefill) and the serving engine's
+decode steps (batch 8 after a 128-token prefill, through
+``models.llama.GreedyDecoder``, which trees before it lack: eager, or
+with --graph as the CUDA graph it replays) and the serving engine's
 steady decode ticks (8 slots, the synchronous tick) with torch.profiler.
 Both go through ``request_split`` and ``tick_profile`` of the
 ``chip_smoke.py`` beside this script, whatever DIR is, so two checkouts
@@ -40,6 +42,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=HERE)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--graph", action="store_true",
+                    help="profile the greedy step as a CUDA graph")
     args = ap.parse_args()
     smoke = smoke_helpers()
 
@@ -58,7 +62,7 @@ def main() -> None:
     params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     prompt = torch.randint(0, cfg.vocab_size, (smoke.BATCH, smoke.PROMPT), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
-    split = smoke.request_split(torch, llama, params, prompt, cfg, dev)
+    split = smoke.request_split(torch, llama, params, prompt, cfg, dev, cuda_graph=args.graph)
     eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**smoke.SERVE_PAGING),
                                 pipeline_decode=False, decode_horizon=1, dispatch_depth=1)
     warm = smoke.serve_prompts(torch, cfg, args.seed + 10, dev)

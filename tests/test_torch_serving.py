@@ -396,7 +396,7 @@ class TestEngineSurface:
         assert eng.in_flight == 1
 
     @pytest.mark.parametrize("kwargs,pcfg_kw,match", [
-        ({"decode_horizon": 8}, {}, "decode_horizon=1"),
+        ({"decode_horizon": 8, "dispatch_depth": 2}, {}, "dispatch_depth=1"),
         ({"dispatch_depth": 2}, {}, "dispatch_depth=1"),
         ({}, {"prefix_caching": True}, "prefix_caching=False"),
         ({}, {"prefill_chunk": 32}, "prefill_chunk=None"),
@@ -405,7 +405,7 @@ class TestEngineSurface:
         ({"role": "prefill"}, {}, "role='unified'"),
         ({"role": "decode"}, {}, "role='unified'"),
         ({"moe": True}, {}, "dense LlamaConfig"),
-    ], ids=["horizon", "depth", "prefix", "chunk", "lora", "draft", "prefill", "decode", "moe"])
+    ], ids=["horizon_depth", "depth", "prefix", "chunk", "lora", "draft", "prefill", "decode", "moe"])
     def test_unported_paths_raise(self, tiny, kwargs, pcfg_kw, match):
         _, params_t = tiny["float"]
         cfg = tiny["cfg_t"]
@@ -416,9 +416,9 @@ class TestEngineSurface:
         with pytest.raises(NotImplementedError, match=match.replace("(", r"\(")):
             ServingEngine(params_t, cfg, pcfg, **kw)
 
-    def test_defaults_ask_for_the_unported_horizon(self, tiny):
+    def test_defaults_ask_for_the_unported_depth(self, tiny):
         _, params_t = tiny["float"]
-        with pytest.raises(NotImplementedError, match="decode_horizon=1"):
+        with pytest.raises(NotImplementedError, match="dispatch_depth=1"):
             ServingEngine(params_t, tiny["cfg_t"])
 
     def test_sampled_requests_raise(self, tiny):
