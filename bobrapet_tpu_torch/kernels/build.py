@@ -134,6 +134,17 @@ def kernel_function(name: str, argtypes: list) -> ctypes._CFuncPtr:
     return fn
 
 
+def launch(fn: ctypes._CFuncPtr, device_index: int, *args) -> int:
+    """Call a C entry point with ``args`` and then the raw handle of the
+    current stream of card ``device_index``: no ``torch.Stream`` is built,
+    and the card is entered only when it is not already the current one.
+    Returns the entry's ``cudaError_t``."""
+    if device_index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+    with torch.cuda.device(device_index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+
+
 def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

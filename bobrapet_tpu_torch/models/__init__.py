@@ -1,5 +1,6 @@
-"""Model families in PyTorch (the Llama family so far)."""
+"""Model families in PyTorch (the Llama family so far, with LoRA adapters)."""
 
+from . import lora
 from .bridge import params_from_numpy
 from .llama import (
     LlamaConfig,
@@ -19,6 +20,7 @@ __all__ = [
     "greedy_generate",
     "init_cache",
     "init_params",
+    "lora",
     "llama3_1b",
     "llama3_8b",
     "llama_tiny",

@@ -39,6 +39,7 @@ from ..graphs import GraphedStep
 from ..ops.attention import attention, cached_attention
 from ..ops.rmsnorm import add_rmsnorm, rmsnorm
 from ..ops.rope import apply_rope, rope_frequencies
+from .lora import lora_delta, lora_delta_slots
 from .quant import matmul as _mm
 
 
@@ -179,17 +180,37 @@ def _norm(x: torch.Tensor, delta: Optional[torch.Tensor], weight: torch.Tensor,
     return add_rmsnorm(x, delta, weight, cfg.norm_eps)
 
 
+def _lora_mm(h: torch.Tensor, w: Any, lora_layer: Optional[dict[str, Any]], site: str,
+             lora_scale: float, adapters: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The base matmul plus the site's LoRA delta ``scale * (h @ A) @ B``
+    where ``lora_layer`` has the site. ``adapters`` [S] (the serving
+    engine's decode step): ``lora_layer`` is a stacked tree and each batch
+    row takes its own adapter's factors."""
+    out = _mm(h, w)
+    if lora_layer is None or site not in lora_layer:
+        return out
+    if adapters is None:
+        return out + lora_delta(h, lora_layer[site], lora_scale)
+    return out + lora_delta_slots(h, lora_layer[site], adapters, lora_scale)
+
+
 def _qkv(layer: dict[str, Any], x: torch.Tensor, delta: Optional[torch.Tensor],
          freqs: torch.Tensor, cfg: LlamaConfig, positions: Optional[torch.Tensor],
+         lora_layer: Optional[dict[str, Any]] = None, lora_scale: float = 1.0,
+         adapters: Optional[torch.Tensor] = None,
          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The attention norm over ``x + delta``, the q/k/v projections
-    [B, S, H, Dh] and RoPE. Returns ``(x + delta, q, k, v)``: the residual
-    stream with the pending delta added."""
+    [B, S, H, Dh] (with their LoRA deltas, :func:`_lora_mm`) and RoPE.
+    Returns ``(x + delta, q, k, v)``: the residual stream with the pending
+    delta added."""
     b, s, _ = x.shape
     x, h = _norm(x, delta, layer["attn_norm"]["weight"], cfg)
-    q = _mm(h, layer["attn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = _mm(h, layer["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = _mm(h, layer["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+
+    def proj(site: str, heads: int) -> torch.Tensor:
+        out = _lora_mm(h, layer["attn"][site], lora_layer, site, lora_scale, adapters)
+        return out.reshape(b, s, heads, cfg.head_dim)
+
+    q, k, v = proj("wq", cfg.n_heads), proj("wk", cfg.n_kv_heads), proj("wv", cfg.n_kv_heads)
     return x, apply_rope(q, freqs, positions), apply_rope(k, freqs, positions), v
 
 
@@ -202,6 +223,8 @@ def _attention_block(
     cache: Optional[dict[str, Any]],
     positions: Optional[torch.Tensor],
     rows: Optional[tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    lora_layer: Optional[dict[str, Any]] = None,
+    lora_scale: float = 1.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(x + delta, the block's own delta)``: the output
     projection is not yet added to the residual stream; the next norm
@@ -209,7 +232,7 @@ def _attention_block(
     row of every new token and each row's valid length after the write,
     from :func:`_device_rows`."""
     b, s, _ = x.shape
-    x, q, k, v = _qkv(layer, x, delta, freqs, cfg, positions)
+    x, q, k, v = _qkv(layer, x, delta, freqs, cfg, positions, lora_layer, lora_scale)
     if rows is not None:
         # write k/v at each batch row's device cursor, attend over the
         # whole capacity up to each row's length
@@ -231,7 +254,7 @@ def _attention_block(
     else:
         out = attention(q, k, v, causal=True)
     out = out.reshape(b, s, cfg.dim)
-    return x, _mm(out, layer["attn"]["wo"])
+    return x, _lora_mm(out, layer["attn"]["wo"], lora_layer, "wo", lora_scale)
 
 
 def _cached_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
@@ -248,14 +271,20 @@ def _cached_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
 
 
 def _mlp_block(layer: dict[str, Any], x: torch.Tensor, delta: torch.Tensor,
-               cfg: LlamaConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """The MLP norm over ``x + delta`` and the MLP. Returns ``(x + delta,
-    the MLP's delta)``: its output is not yet added to the residual
-    stream; the next norm adds it."""
+               cfg: LlamaConfig, lora_layer: Optional[dict[str, Any]] = None,
+               lora_scale: float = 1.0, adapters: Optional[torch.Tensor] = None,
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MLP norm over ``x + delta`` and the MLP (with its LoRA deltas).
+    Returns ``(x + delta, the MLP's delta)``: its output is not yet added
+    to the residual stream; the next norm adds it."""
     x, h = add_rmsnorm(x, delta, layer["mlp_norm"]["weight"], cfg.norm_eps)
-    gate = F.silu(_mm(h, layer["mlp"]["w_gate"]).float())
-    up = _mm(h, layer["mlp"]["w_up"]).float()
-    return x, _mm((gate * up).to(cfg.dtype), layer["mlp"]["w_down"])
+
+    def mm(inp: torch.Tensor, site: str) -> torch.Tensor:
+        return _lora_mm(inp, layer["mlp"][site], lora_layer, site, lora_scale, adapters)
+
+    gate = F.silu(mm(h, "w_gate").float())
+    up = mm(h, "w_up").float()
+    return x, mm((gate * up).to(cfg.dtype), "w_down")
 
 
 def forward(
@@ -264,8 +293,12 @@ def forward(
     cfg: LlamaConfig,
     cache: Optional[list[dict[str, Any]]] = None,
     positions: Optional[torch.Tensor] = None,
+    lora: Optional[dict[str, Any]] = None,
+    lora_scale: float = 1.0,
 ) -> tuple[torch.Tensor, Optional[list[dict[str, Any]]]]:
-    """Token ids [B, S] -> fp32 logits [B, S, V] (+ the cache).
+    """Token ids [B, S] -> fp32 logits [B, S, V] (+ the cache). ``lora`` is
+    one adapter's tree (:mod:`models.lora`); its deltas ride every site it
+    holds, scaled by ``lora_scale``.
 
     Unlike the JAX forward, this one consumes ``cache``: each layer's k/v
     rows are written and its cursor advanced in place, and the same list
@@ -280,8 +313,10 @@ def forward(
     delta = None
     for i, layer in enumerate(params["layers"]):
         layer_cache = cache[i] if cache is not None else None
-        x, delta = _attention_block(layer, x, delta, freqs, cfg, layer_cache, positions, rows)
-        x, delta = _mlp_block(layer, x, delta, cfg)
+        lora_layer = lora["layers"][i] if lora is not None else None
+        x, delta = _attention_block(layer, x, delta, freqs, cfg, layer_cache, positions, rows,
+                                    lora_layer, lora_scale)
+        x, delta = _mlp_block(layer, x, delta, cfg, lora_layer, lora_scale)
     if rows is not None:
         cursor.add_(tokens.shape[1])  # the one tensor every layer holds
     return _logits(params, x, delta, cfg), cache

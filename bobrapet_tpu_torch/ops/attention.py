@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels import KERNEL_DTYPES, check_launch, kernel_function
+from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch
 
 NEG_INF = -1e30
 #: head widths the kernel is instantiated for: those of the presets
@@ -141,7 +141,8 @@ def flash_attention_cuda(
     shapes; one launch per call. Raises on what the kernel does not take,
     including a tensor that is not on a card; it never computes the plain
     version instead."""
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    dev = q.get_device()
+    if not q.is_cuda or k.get_device() != dev or v.get_device() != dev:
         raise ValueError(
             f"flash_attention_cuda needs q, k, v on one CUDA device, got "
             f"{q.device}, {k.device}, {v.device}")
@@ -171,13 +172,11 @@ def flash_attention_cuda(
     scale = 1.0 / math.sqrt(d)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     fn = kernel_function("bobra_flash_attention", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    err = launch(fn, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, sq, sk, hq, hq // hkv, d,
                  q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-                 int(bool(causal)), int(q_offset), float(scale), splits,
-                 KERNEL_DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+                 int(bool(causal)), int(q_offset), float(scale), splits, KERNEL_DTYPES[q.dtype])
     check_launch("flash_attention", err)
     flash_attention_cuda.launches += 1
     return out
@@ -227,7 +226,8 @@ def cached_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     own ``launches`` and into ``flash_attention_cuda.launches`` (a kernel
     of the same source). Raises on what the kernel does not take; it never
     computes the plain version instead."""
-    if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, lens)):
+    dev = q.get_device()
+    if not q.is_cuda or any(t.get_device() != dev for t in (k, v, lens)):
         raise ValueError(
             f"cached_attention_cuda needs q, k, v and lens on one CUDA device, got "
             f"{q.device}, {k.device}, {v.device}, {lens.device}")
@@ -262,13 +262,11 @@ def cached_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     splits = kv_splits(cap) if route == "decode" else 0
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     fn = kernel_function("bobra_cached_attention", _CACHED_ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lens.data_ptr(),
-                 b, sq, cap, hq, hq // hkv, d,
+    err = launch(fn, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lens.data_ptr(), b, sq, cap, hq, hq // hkv, d,
                  q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-                 1.0 / math.sqrt(d), splits, KERNEL_DTYPES[q.dtype],
-                 torch.cuda.current_stream().cuda_stream)
+                 1.0 / math.sqrt(d), splits, KERNEL_DTYPES[q.dtype])
     check_launch("cached_attention", err)
     cached_attention_cuda.launches += 1
     flash_attention_cuda.launches += 1

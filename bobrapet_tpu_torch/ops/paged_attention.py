@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from ..kernels import KERNEL_DTYPES, check_launch, kernel_function
+from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch
 from .attention import DECODE_ROWS, KERNEL_HEAD_DIMS, NEG_INF, check_aligned, kv_splits
 
 #: q heads per kv head the kernel holds in one block (one tile of rows)
@@ -91,7 +91,8 @@ def paged_attention_cuda(
     kernel does not take, including a tensor that is not on a card; it
     never computes the plain version instead."""
     tensors = (q, k_pool, v_pool, block_tables, seq_lens)
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+    dev = q.get_device()
+    if not q.is_cuda or any(t.get_device() != dev for t in tensors):
         raise ValueError(
             "paged_attention_cuda needs q, pools, tables and lengths on one CUDA "
             f"device, got {[str(t.device) for t in tensors]}")
@@ -127,11 +128,10 @@ def paged_attention_cuda(
         return out.zero_()
     splits = kv_splits(block_tables.shape[1] * block_size) if q.dtype == torch.bfloat16 else 0
     fn = kernel_function("bobra_paged_attention", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-                 seq_lens.data_ptr(), out.data_ptr(), s, hkv, hq // hkv, d, block_size,
-                 block_tables.shape[1], n_blocks, 1.0 / math.sqrt(d), splits,
-                 KERNEL_DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    err = launch(fn, dev, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), s, hkv, hq // hkv,
+                 d, block_size, block_tables.shape[1], n_blocks, 1.0 / math.sqrt(d), splits,
+                 KERNEL_DTYPES[q.dtype])
     check_launch("paged_attention", err)
     paged_attention_cuda.launches += 1
     return out

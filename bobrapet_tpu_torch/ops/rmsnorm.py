@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels import KERNEL_DTYPES, check_launch, kernel_function
+from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, delta, w
@@ -92,13 +92,7 @@ def _launch(name: str, x: torch.Tensor, delta: Optional[torch.Tensor], weight: t
     args = (x.data_ptr(), None if delta is None else delta.data_ptr(), weight.data_ptr(),
             None if s is None else s.data_ptr(), out.data_ptr(), rows, d, float(eps),
             KERNEL_DTYPES[dt])
-    if dev == torch.cuda.current_device():
-        # the raw handle of the current stream, without building a Stream
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-    check_launch("rmsnorm", err)
+    check_launch("rmsnorm", launch(fn, dev, *args))
     rmsnorm_cuda.launches += 1
     return s, out
 

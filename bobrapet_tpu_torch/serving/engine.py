@@ -1,15 +1,29 @@
 """Continuous-batching serving engine over the paged KV cache.
 
-Counterpart of ``bobrapet_tpu/serving/engine.py``, sub-slices (a) and
-(b): the classic single-step engine and the fused decode horizon, at
-``dispatch_depth=1``, greedy, without prefix caching. Requests stream
-through a fixed set of slots: a request is admitted the moment a slot and
-enough KV blocks are free, decodes fused with every other live request,
-and leaves the instant it finishes.
+Counterpart of ``bobrapet_tpu/serving/engine.py``, sub-slices (a), (b)
+and (d): the classic single-step engine and the fused decode horizon, at
+``dispatch_depth=1``, greedy, with prefix caching, chunked prefill and
+multi-LoRA. Requests stream through a fixed set of slots: a request is
+admitted the moment a slot and enough KV blocks are free, decodes fused
+with every other live request, and leaves the instant it finishes.
 
 - One decode step for every slot: liveness is a mask, never a shape;
   inactive slots compute garbage that lands in the scratch block.
 - Prefill runs per length bucket (next power of two, whole blocks).
+- Prefix caching (``PagedConfig.prefix_caching``): full prompt blocks are
+  content-addressed (:class:`~.prefix_cache.PrefixCache`); an admission
+  takes the matched blocks into its table and prefills only the rest,
+  against a contiguous cache seeded with the prefix's KV
+  (:func:`_prefill_bucket`: one flash launch a layer at ``q_offset`` = the
+  prefix length).
+- Chunked prefill (``PagedConfig.prefill_chunk``): an uncached suffix
+  longer than a chunk secures its whole table at admission, then ingests
+  one chunk per engine tick, each chunk a seeded prefill over the chunks
+  before it, so the live slots keep decoding meanwhile.
+- Multi-LoRA (``loras``, a stacked adapter tree, index 0 the zero
+  adapter): a prefill takes its request's adapter; every decode step
+  gathers each slot's adapter by an index on the device, so one step (one
+  graph) serves any adapter mix.
 - The host scheduler (admit, retire, grow, preempt, block accounting)
   touches only small int lists; the pools are written in place.
 - Preemption is recompute: the youngest slot's blocks are freed and it
@@ -47,26 +61,35 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..graphs import GraphedStep
 from ..models.llama import (
     LlamaConfig,
     _freqs_table,
     _logits,
+    _lora_mm,
     _mlp_block,
     _qkv,
     forward,
     init_cache,
 )
-from ..graphs import GraphedStep
-from ..models.quant import matmul as _mm
+from ..models.lora import select_adapter
 from ..ops.paged_attention import paged_attention
-from .paged_cache import SCRATCH_BLOCK, BlockAllocator, PagedConfig, init_pools, write_prefill
+from .paged_cache import (
+    SCRATCH_BLOCK,
+    BlockAllocator,
+    PagedConfig,
+    init_cache_seed,
+    init_pools,
+    write_prefill,
+)
+from .prefix_cache import PrefixCache
 
 
 @dataclasses.dataclass
 class Request:
     """The JAX engine's request, field for field and in its order. The port
-    serves greedy requests of the base model: ``temperature`` 0 and
-    ``adapter`` 0; ``tenant`` and ``trace`` are carried for a router."""
+    serves greedy requests (``temperature`` 0) under any adapter of the
+    engine's stack; ``tenant`` and ``trace`` are carried for a router."""
 
     rid: int
     prompt: list[int]
@@ -123,12 +146,20 @@ class _SlotState:
     request: Request
     blocks: list[int]
     seq_len: int  # tokens currently in the cache (prompt + generated)
+    #: chunked prefill in progress: tokens of the effective prompt already
+    #: ingested (block-aligned); None once decoding
+    ingest_pos: Optional[int] = None
+    #: prefix-cache hit at admission (its stats are recorded at the end
+    #: of the prefill)
+    shared_tokens: int = 0
 
 
 #: columns of the device lane state [S, LANE_TABLE + max_blocks_per_seq]
-#: int32: the four the horizon advances, then budget, eos, the block table
-LANE_LAST, LANE_SEQ, LANE_ACT, LANE_EMITTED, LANE_BUDGET, LANE_EOS, LANE_TABLE = range(7)
-LANE_FIELDS = ("last", "seq", "act", "emitted", "budget", "eos")
+#: int32: the four the horizon advances, then budget, eos, the LoRA
+#: adapter, the block table
+(LANE_LAST, LANE_SEQ, LANE_ACT, LANE_EMITTED, LANE_BUDGET, LANE_EOS, LANE_ADAPTER,
+ LANE_TABLE) = range(8)
+LANE_FIELDS = ("last", "seq", "act", "emitted", "budget", "eos", "adapter")
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -138,18 +169,17 @@ def _bucket(n: int, minimum: int = 16) -> int:
     return b
 
 
+def _leaves(tree: Any) -> list[Any]:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return [tree]
+
+
 def _weights_device(tree: Any) -> torch.device:
     """The one device every tensor of ``tree`` lives on; raises otherwise."""
-    devices = set()
-    stack = [tree]
-    while stack:
-        node = stack.pop()
-        if isinstance(node, dict):
-            stack.extend(node.values())
-        elif isinstance(node, (list, tuple)):
-            stack.extend(node)
-        elif isinstance(node, torch.Tensor):
-            devices.add(node.device)
+    devices = {leaf.device for leaf in _leaves(tree) if isinstance(leaf, torch.Tensor)}
     if len(devices) != 1:
         raise ValueError(
             f"the weights must all live on one device, found {sorted(map(str, devices))}")
@@ -170,7 +200,7 @@ class ServingEngine:
 
     def __init__(self, params: Any, cfg: LlamaConfig,
                  pcfg: Optional[PagedConfig] = None,
-                 loras: Optional[Any] = None,
+                 loras: Optional[Any] = None, lora_scale: float = 1.0,
                  draft_params: Optional[Any] = None,
                  pipeline_decode: bool = True,
                  decode_horizon: int = 8,
@@ -185,13 +215,6 @@ class ServingEngine:
         pcfg = pcfg or PagedConfig()
         if dispatch_depth > 1:
             raise _not_ported("the depth-N dispatch pipeline", "dispatch_depth=1", "(c)")
-        if pcfg.prefix_caching:
-            raise _not_ported("prefix caching",
-                              "PagedConfig(..., prefix_caching=False)", "(d)")
-        if pcfg.prefill_chunk is not None:
-            raise _not_ported("chunked prefill", "PagedConfig(..., prefill_chunk=None)", "(d)")
-        if loras is not None:
-            raise _not_ported("multi-LoRA serving", "loras=None", "(d)")
         if draft_params is not None:
             raise _not_ported("speculative decoding", "draft_params=None", "(e)")
         if getattr(cfg, "n_experts", None) is not None:
@@ -205,13 +228,35 @@ class ServingEngine:
         self.params = params
         self.cfg = cfg
         self.pcfg = pcfg
+        #: multi-LoRA: a stacked adapter tree (``models.lora.stack_adapters``;
+        #: index 0 must be the zero adapter)
+        self.loras = loras
+        self.lora_scale = lora_scale
+        if loras is not None:
+            leaves = _leaves(loras)
+            counts = {leaf.shape[0] for leaf in leaves}
+            if any(leaf.dim() != 3 for leaf in leaves) or len(counts) != 1:
+                raise ValueError(
+                    "loras must be a stacked adapter tree (models.lora.stack_adapters: "
+                    "every leaf [n_adapters, in, r] / [n_adapters, r, out]); got leaf "
+                    f"shapes {[tuple(leaf.shape) for leaf in leaves[:3]]}")
+            self.n_adapters = counts.pop()
+        else:
+            self.n_adapters = 1
+        #: one adapter's tree per index, selected out of the stack once
+        self._adapter_cache: dict[int, Any] = {}
         self.pipeline_decode = pipeline_decode
         #: greedy steps per horizon; 1 = the classic single-step engine
         self.decode_horizon = int(decode_horizon)
         self.dispatch_depth = int(dispatch_depth)
         self.device = _weights_device(params)
+        if loras is not None and _weights_device(loras) != self.device:
+            raise ValueError(f"the adapters must live with the weights on {self.device}")
         self.pools = init_pools(cfg, pcfg, self.device)
         self.allocator = BlockAllocator(pcfg.num_blocks)
+        # every block goes through the prefix cache, so a freed block that
+        # is still registered is invalidated when it is handed out again
+        self.blocks = PrefixCache(self.allocator, pcfg.block_size)
         #: a draining engine refuses new submissions but serves its queue
         self.draining = False
         self.pending: deque[Request] = deque()
@@ -228,28 +273,33 @@ class ServingEngine:
         self._lane_cache: Optional[tuple] = None
         self._lane_key: Optional[tuple] = None
         #: the horizon's device lane state, one static int32 buffer
-        #: [S, LANE_TABLE + MB] (last, seq, act, emitted, budget, eos, then
-        #: the block table): patched lane by lane, advanced in place
+        #: [S, LANE_TABLE + MB] (last, seq, act, emitted, budget, eos,
+        #: adapter, then the block table): patched lane by lane, advanced in
+        #: place
         self._dev = torch.zeros((S, LANE_TABLE + MB), dtype=torch.int32, device=self.device)
         #: what the device holds per lane, as the host last wrote or read it
         self._dev_mirror: list[Optional[dict]] = [None] * S
         #: per horizon length: the graphed horizon, its output [H + 4, S]
         #: and the pinned host buffer it is read back through
         self._hz: dict[int, tuple[GraphedStep, torch.Tensor]] = {}
-        #: host seconds per phase: ``prefill`` (forward + first-token
-        #: readback), ``decode_device`` (issuing decode ticks and horizons:
-        #: every launch or replay is enqueued here), ``host_sync`` (waiting
-        #: for their tokens)
+        #: host seconds per phase: ``prefill`` (issuing every prefill and
+        #: chunk, and reading back a prefill's first token), ``decode_device``
+        #: (issuing decode ticks and horizons: every launch or replay is
+        #: enqueued here), ``host_sync`` (waiting for their tokens)
         self.phase_seconds = {"prefill": 0.0, "decode_device": 0.0, "host_sync": 0.0}
         #: ``device_steps`` counts decode steps dispatched (H per horizon),
-        #: ``horizons`` the horizons
-        self.phase_counts = {"host_syncs": 0, "horizons": 0, "device_steps": 0}
+        #: ``horizons`` the horizons, ``prefills`` the prefill dispatches
+        #: (one-shot or chunk), ``chunks`` those that were chunks
+        self.phase_counts = {"host_syncs": 0, "horizons": 0, "device_steps": 0,
+                             "prefills": 0, "chunks": 0}
 
     # -- public API --------------------------------------------------------
 
     def submit(self, prompt: list[int], max_new_tokens: int,
-               temperature: float = 0.0, eos_token: Optional[int] = None) -> int:
-        """Queue a greedy request; returns its rid."""
+               temperature: float = 0.0, eos_token: Optional[int] = None,
+               adapter: Optional[int] = None) -> int:
+        """Queue a greedy request under LoRA ``adapter`` (None or 0: the
+        base model); returns its rid."""
         if self.draining:
             raise ValueError(
                 "engine is draining (scale-down or role change in progress): "
@@ -263,6 +313,10 @@ class ServingEngine:
             raise ValueError(
                 f"prompt+new ({len(prompt)}+{max_new_tokens}) exceeds slot "
                 f"capacity {self.pcfg.capacity}")
+        if adapter is not None and not (0 <= adapter < self.n_adapters):
+            raise ValueError(
+                f"adapter {adapter} out of range (engine has {self.n_adapters} incl. the base "
+                "at 0)")
         if temperature > 0:
             raise NotImplementedError(
                 "sampled decoding is not ported yet: pass temperature=0 (greedy); "
@@ -270,7 +324,7 @@ class ServingEngine:
         rid = self._next_rid
         self._next_rid += 1
         self.pending.append(Request(rid, list(prompt), max_new_tokens, temperature, eos_token,
-                                    submitted_at=time.perf_counter(),
+                                    adapter=adapter or 0, submitted_at=time.perf_counter(),
                                     submitted_wall=time.time()))
         return rid
 
@@ -307,6 +361,18 @@ class ServingEngine:
     def drained(self) -> bool:
         """True exactly when a requested drain has fully retired."""
         return self.draining and self.in_flight == 0
+
+    def set_prefix_sharing(self, enabled: Any) -> None:
+        """Cross-engine prefix sharing: False or None leaves the engine
+        local-only, which it always is; anything else raises, since the
+        shared registry is not ported."""
+        if enabled is False or enabled is None:
+            return
+        if not self.pcfg.prefix_caching:
+            raise ValueError("prefix sharing requires prefix_caching=True")
+        raise NotImplementedError(
+            "cross-engine prefix sharing is not ported yet: pass False (the shared "
+            "registry and its spill come with ROADMAP Queue 1 item 7, the port's engram)")
 
     def set_decode_horizon(self, horizon: int) -> None:
         """Live: takes effect at the next tick. One graph is kept per
@@ -349,9 +415,9 @@ class ServingEngine:
         return {i for i, _rid in tick["snapshot"]} if tick else set()
 
     def _steady_state(self) -> bool:
-        """True when the next tick is pure decode: nothing to admit, every
-        active slot's next write position already block-covered, and at
-        least one slot decoding."""
+        """True when the next tick is pure decode: nothing to admit, no slot
+        ingesting, every active slot's next write position already
+        block-covered, and at least one slot decoding."""
         if self.pending:
             return False
         pend_idx = self._pending_indices(self._pending_tick)
@@ -359,6 +425,8 @@ class ServingEngine:
         for i, s in enumerate(self.slots):
             if s is None:
                 continue
+            if s.ingest_pos is not None:
+                return False
             any_active = True
             # the next dispatch passes seq_lens == predicted and writes at
             # position predicted - 1
@@ -371,6 +439,11 @@ class ServingEngine:
 
     def _settled_step(self) -> list[int]:
         self._admit()
+        # chunked prefill: each ingesting slot advances one chunk a tick,
+        # so a long prompt never stalls the live slots' decode
+        for i, slot in enumerate(self.slots):
+            if slot is not None and slot.ingest_pos is not None:
+                self._ingest_chunk(i)
         # a request can finish on its prefill token (max_new_tokens=1, or
         # eos as the first token): decoding it once more would overrun
         done: list[int] = []
@@ -378,9 +451,10 @@ class ServingEngine:
             if slot is not None and slot.request.done:
                 done.append(slot.request.rid)
                 self._retire(i)
-        if not any(self.slots):
+        if not self._decoding_slots():
             return done
-        if self.decode_horizon > 1:
+        if self.decode_horizon > 1 and not any(
+                s is not None and s.ingest_pos is not None for s in self.slots):
             hz = self._plain_horizon_decode(self.decode_horizon)
             if hz is not None:
                 done.extend(hz)
@@ -388,7 +462,7 @@ class ServingEngine:
             # lookahead unfundable without preemption: the classic tick,
             # which may preempt
         self._ensure_growth()
-        if not any(self.slots):
+        if not self._decoding_slots():
             return done
         done.extend(self._decode_once())
         return done
@@ -407,18 +481,24 @@ class ServingEngine:
                 self.pending.popleft()
                 self.finished.append(req)
                 continue
-            fresh = self.allocator.alloc(need_total)
+            shared: list[int] = []
+            shared_tokens = 0
+            if self.pcfg.prefix_caching:
+                shared, shared_tokens = self.blocks.match_prefix(effective, salt=req.adapter)
+            fresh = self.blocks.alloc(need_total - len(shared))
             if fresh is None:
+                self.blocks.free(shared)
                 return  # head-of-line waits for memory
             self.pending.popleft()
-            self._prefill(i, req, fresh)
+            self._prefill(i, req, shared, shared_tokens, fresh)
 
     def _ensure_growth(self) -> None:
-        """Ensure every slot's table covers its next write (position
-        seq_len - 1, i.e. blocks_for(seq_len) blocks); preempt the
-        youngest slot when the pool is exhausted."""
+        """Ensure every decoding slot's table covers its next write
+        (position seq_len - 1, i.e. blocks_for(seq_len) blocks); preempt
+        the youngest slot when the pool is exhausted. Ingesting slots
+        secured their whole table at admission."""
         for i, slot in enumerate(self.slots):
-            if slot is None:
+            if slot is None or slot.ingest_pos is not None:
                 continue
             needed = self.pcfg.blocks_for(slot.seq_len)
             if needed <= len(slot.blocks):
@@ -427,7 +507,7 @@ class ServingEngine:
                 self._retire(i)  # capacity cap reached
                 continue
             while self.slots[i] is not None and len(slot.blocks) < needed:
-                got = self.allocator.alloc(1)
+                got = self.blocks.alloc(1)
                 while got is None:
                     victim = self._youngest(exclude=i)
                     if victim is None:
@@ -436,7 +516,7 @@ class ServingEngine:
                         self._retire(i)
                         break
                     self._preempt(victim)
-                    got = self.allocator.alloc(1)
+                    got = self.blocks.alloc(1)
                 if self.slots[i] is not None and got:
                     slot.blocks.extend(got)
 
@@ -447,11 +527,13 @@ class ServingEngine:
 
     def _preempt(self, slot_idx: int) -> None:
         """Recompute strategy: free the blocks now; on readmission the
-        prefill recomputes prompt + the tokens already generated."""
+        prefill recomputes prompt + the tokens already generated. Registered
+        prefix blocks stay matchable, so the recompute usually takes them
+        back for free."""
         slot = self.slots[slot_idx]
         assert slot is not None
         slot.request.preemptions += 1
-        self.allocator.free(slot.blocks)
+        self.blocks.free(slot.blocks)
         self.slots[slot_idx] = None
         self.pending.appendleft(slot.request)
 
@@ -460,7 +542,7 @@ class ServingEngine:
         assert slot is not None
         slot.request.done = True
         slot.request.finished_at = time.perf_counter()
-        self.allocator.free(slot.blocks)
+        self.blocks.free(slot.blocks)
         self.finished.append(slot.request)
         self.slots[slot_idx] = None
 
@@ -483,43 +565,174 @@ class ServingEngine:
         bucket = min(_bucket(sp), room)
         return min(-(-bucket // B) * B, room)
 
-    def _prefill(self, slot_idx: int, req: Request, fresh: list[int]) -> None:
+    def _chunk_size(self) -> Optional[int]:
+        """The chunked-prefill unit: block-aligned and equal to a bucket
+        width (at least the smallest block multiple >= the bucket minimum
+        of 16), so every middle chunk is exactly one bucket wide."""
+        if self.pcfg.prefill_chunk is None:
+            return None
+        B = self.pcfg.block_size
+        floor = -(-16 // B) * B  # smallest multiple of B >= 16
+        return _bucket(self.pcfg.prefill_chunk, minimum=floor)
+
+    def _prefill(self, slot_idx: int, req: Request, shared: list[int], shared_tokens: int,
+                 fresh: list[int]) -> None:
         if req.admitted_at is None:
             # first admission only: a preemption recompute re-enters here
             req.admitted_at = time.perf_counter()
-        # a preempted request resumes by prefilling prompt + its own output
-        self._run_prefill_graph(slot_idx, req, req.prompt + req.output, fresh)
+        # a preempted request resumes by prefilling prompt + its own output;
+        # a matched prefix skips straight to the uncached suffix
+        effective = req.prompt + req.output
+        p = len(effective)
+        sp = p - shared_tokens
+        if sp == 1 and req.output:
+            # every cached position [0, p - 1) matched, and the one token
+            # left is already sampled (a recompute whose whole tail
+            # matched): it is just the next decode input, whose K/V the
+            # decode step writes at position p - 1. No prefill at all.
+            self.slots[slot_idx] = _SlotState(req, shared + fresh, p,
+                                              shared_tokens=shared_tokens)
+            self._last_tokens[slot_idx] = req.output[-1]
+            if self.pcfg.prefix_caching:
+                self.blocks.register(effective, shared + fresh, salt=req.adapter)
+                self.blocks.record_stats(p, shared_tokens)
+            return
+        chunk = self._chunk_size()
+        if chunk is not None and sp > chunk:
+            # chunked: secure the whole table now (the final chunk's bucket
+            # padding included), then ingest a chunk per tick
+            B = self.pcfg.block_size
+            n_chunks = -(-sp // chunk)
+            final_start = shared_tokens + (n_chunks - 1) * chunk
+            final_bucket = self._whole_block_bucket(p - final_start,
+                                                    self.pcfg.capacity - final_start)
+            # every chunk's (padded) writes plus the first decode token
+            total_blocks = max(final_start // B + final_bucket // B, self.pcfg.blocks_for(p + 1))
+            while len(shared) + len(fresh) < total_blocks:
+                more = self.blocks.alloc(1)
+                if more is None:
+                    self.blocks.free(shared + fresh)
+                    self.pending.appendleft(req)
+                    return
+                fresh.extend(more)
+            self.slots[slot_idx] = _SlotState(req, shared + fresh, 0, ingest_pos=shared_tokens,
+                                              shared_tokens=shared_tokens)
+            return
+        if not self._run_prefill_graph(slot_idx, req, effective, shared, shared_tokens, fresh,
+                                       start=shared_tokens, end=p):
+            return
+        if self.pcfg.prefix_caching:
+            self.blocks.register(effective, shared + fresh, salt=req.adapter)
+            self.blocks.record_stats(p, shared_tokens)
+
+    def _ingest_chunk(self, slot_idx: int) -> None:
+        """Advance one ingesting slot by one chunk; the final chunk samples
+        the first token and turns the slot to decoding."""
+        slot = self.slots[slot_idx]
+        assert slot is not None and slot.ingest_pos is not None
+        req = slot.request
+        effective = req.prompt + req.output
+        p = len(effective)
+        chunk = self._chunk_size()
+        assert chunk is not None  # ingest_pos is only set on the chunked path
+        start = slot.ingest_pos
+        prefix_blocks = slot.blocks[:start // self.pcfg.block_size]
+        if p - start > chunk:
+            # a middle chunk: exactly one bucket, nothing sampled
+            self._run_chunk_graph(effective, prefix_blocks, start, start + chunk, slot.blocks,
+                                  req.adapter)
+            slot.ingest_pos = start + chunk
+            return
+        logits = self._run_chunk_graph(effective, prefix_blocks, start, p, slot.blocks,
+                                       req.adapter)
+        t0 = time.perf_counter()
+        tok = self._sample_host(logits)
+        self.phase_seconds["prefill"] += time.perf_counter() - t0
+        slot.ingest_pos = None
+        slot.seq_len = p + 1
+        if self.pcfg.prefix_caching:
+            self.blocks.register(effective, slot.blocks, salt=req.adapter)
+            self.blocks.record_stats(p, slot.shared_tokens)
+        self._record(slot_idx, req, tok)
+
+    def _run_chunk_graph(self, effective: list[int], prefix_blocks: list[int], start: int,
+                         end: int, table: list[int], adapter: int) -> torch.Tensor:
+        """Ingest ``effective[start:end]`` over the blocks already ingested;
+        returns the last real token's logits [V]."""
+        B = self.pcfg.block_size
+        sp = end - start
+        bucket = self._whole_block_bucket(sp, self.pcfg.capacity - start)
+        target = table[start // B:start // B + bucket // B]
+        logits = self._dispatch_prefill(effective[start:end] + [0] * (bucket - sp),
+                                        prefix_blocks, start, target, bucket, adapter)
+        self.phase_counts["chunks"] += 1
+        return logits[0, sp - 1]
 
     def _run_prefill_graph(self, slot_idx: int, req: Request, effective: list[int],
-                           fresh: list[int]) -> bool:
-        """One-shot prefill; returns False when the padded bucket cannot be
-        funded (the request is re-queued at the head)."""
+                           shared: list[int], shared_tokens: int, fresh: list[int],
+                           start: int, end: int) -> bool:
+        """One-shot prefill of ``effective[start:end]`` after the matched
+        prefix; returns False when the padded bucket cannot be funded (the
+        request is re-queued at the head)."""
         p = len(effective)
-        bucket = self._whole_block_bucket(p, self.pcfg.capacity)
-        n_blocks = bucket // self.pcfg.block_size
-        while len(fresh) < n_blocks:
-            more = self.allocator.alloc(1)
+        sp = end - start
+        # within what the table can still hold past the matched prefix
+        bucket = self._whole_block_bucket(sp, self.pcfg.capacity - shared_tokens)
+        n_sfx_blocks = bucket // self.pcfg.block_size
+        while len(fresh) < n_sfx_blocks:
+            more = self.blocks.alloc(1)
             if more is None:
-                self.allocator.free(fresh)
+                self.blocks.free(shared + fresh)
                 self.pending.appendleft(req)
                 return False
             fresh.extend(more)
+        logits = self._dispatch_prefill(effective[start:end] + [0] * (bucket - sp), shared,
+                                        shared_tokens, fresh[:n_sfx_blocks], bucket, req.adapter)
         t0 = time.perf_counter()
-        logits = self._dispatch_prefill(effective + [0] * (bucket - p), fresh[:n_blocks], bucket)
-        tok = self._sample_host(logits[0, p - 1])
+        tok = self._sample_host(logits[0, sp - 1])
         self.phase_seconds["prefill"] += time.perf_counter() - t0
-        self.slots[slot_idx] = _SlotState(req, fresh, p + 1)
+        self.slots[slot_idx] = _SlotState(req, shared + fresh, p + 1)
         self._record(slot_idx, req, tok)
         return True
 
-    def _dispatch_prefill(self, tokens: list[int], target_blocks: list[int],
-                          bucket: int) -> torch.Tensor:
-        """The bucket-wide prefill into ``target_blocks``; returns the
-        logits [1, bucket, V]."""
-        self.pools, logits = _prefill_plain(
-            self.params, self.pools, self._upload([tokens], torch.long),
-            self._upload(target_blocks, torch.long), cfg=self.cfg, bucket=bucket)
+    def _dispatch_prefill(self, tokens: list[int], prefix_blocks: list[int], prefix_len: int,
+                          target_blocks: list[int], bucket: int, adapter: int = 0
+                          ) -> torch.Tensor:
+        """The bucket-wide prefill of ``tokens`` after ``prefix_len`` cached
+        tokens in ``prefix_blocks``, written into ``target_blocks``; returns
+        the logits [1, bucket, V]. Adapter 0 is the zero adapter: it takes
+        the LoRA-free forward. Another adapter's tree is selected out of
+        the stack once and kept."""
+        lora = None
+        if self.loras is not None and adapter != 0:
+            lora = self._adapter_cache.get(adapter)
+            if lora is None:
+                lora = self._adapter_cache[adapter] = select_adapter(self.loras, adapter)
+        t0 = time.perf_counter()
+        self.pools, logits = self._run_prefill_graphs(tokens, prefix_blocks, prefix_len,
+                                                      target_blocks, bucket, lora)
+        self.phase_seconds["prefill"] += time.perf_counter() - t0
+        self.phase_counts["prefills"] += 1
         return logits
+
+    def _run_prefill_graphs(self, tokens: list[int], prefix_blocks: list[int],
+                            prefix_len: int, target_blocks: list[int], bucket: int,
+                            lora: Optional[Any]) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+        """One prefill: the plain bucket-wide one without a prefix, else
+        the prefix-seeded one, whose gathered prefix region is the
+        power-of-two block bucket of the prefix."""
+        suffix = self._upload([tokens], torch.long)
+        target = self._upload(target_blocks, torch.long)
+        if prefix_blocks:
+            prefix_bucket = min(_bucket(len(prefix_blocks), minimum=1),
+                                self.pcfg.max_blocks_per_seq)
+            table = prefix_blocks + [SCRATCH_BLOCK] * (prefix_bucket - len(prefix_blocks))
+            return _prefill_bucket(self.params, self.pools, suffix,
+                                   self._upload(table, torch.long), prefix_len, target, lora,
+                                   cfg=self.cfg, pcfg=self.pcfg, bucket=bucket,
+                                   lora_scale=self.lora_scale)
+        return _prefill_plain(self.params, self.pools, suffix, target, lora, cfg=self.cfg,
+                              bucket=bucket, lora_scale=self.lora_scale)
 
     def _decode_once(self) -> list[int]:
         return self._plain_decode_once()
@@ -534,9 +747,9 @@ class ServingEngine:
         seq_lens are advanced by the commit its harvest will apply."""
         t0 = time.perf_counter()
         pend_idx = self._pending_indices(prev)
-        active_l, active = self._lane_arrays()
+        active_l, active, adapters = self._lane_arrays()
         seq_lens = self._upload(
-            [(s.seq_len + (1 if i in pend_idx else 0)) if s else 1
+            [(s.seq_len + (1 if i in pend_idx else 0)) if (s and s.ingest_pos is None) else 1
              for i, s in enumerate(self.slots)], torch.int32)
         if prev is None:
             tokens = self._upload(self._last_tokens, torch.int32)
@@ -547,7 +760,9 @@ class ServingEngine:
             tokens = prev["next"]
         tables = self._block_tables()
         self.pools, next_tokens = _decode_step(self.params, self.pools, tokens, seq_lens,
-                                               active, tables, cfg=self.cfg, pcfg=self.pcfg)
+                                               active, tables, self.loras, adapters,
+                                               cfg=self.cfg, pcfg=self.pcfg,
+                                               lora_scale=self.lora_scale)
         host, ready = next_tokens, None
         if next_tokens.device.type == "cuda":
             host = torch.empty(next_tokens.shape, dtype=next_tokens.dtype, pin_memory=True)
@@ -560,13 +775,19 @@ class ServingEngine:
         self.phase_counts["device_steps"] += 1
         return {"next": next_tokens, "host": host, "ready": ready, "snapshot": snapshot}
 
-    def _lane_arrays(self) -> tuple[list[bool], torch.Tensor]:
-        """The [S] active mask, kept on the device between occupancy
-        changes."""
-        key = tuple(s.request.rid if s is not None else None for s in self.slots)
+    def _lane_arrays(self) -> tuple[list[bool], torch.Tensor, Optional[torch.Tensor]]:
+        """The [S] active mask and (with LoRA) the [S] adapters, kept on the
+        device between occupancy changes. An ingesting slot is not in the
+        decode batch: its cache is mid-prefill."""
+        key = tuple((s.request.rid, s.ingest_pos is None) if s is not None else None
+                    for s in self.slots)
         if self._lane_key != key:
-            active_l = [s is not None for s in self.slots]
-            self._lane_cache = (active_l, self._upload(active_l, torch.bool))
+            active_l = [s is not None and s.ingest_pos is None for s in self.slots]
+            adapters = None
+            if self.loras is not None:
+                adapters = self._upload([s.request.adapter if s else 0 for s in self.slots],
+                                        torch.int32)
+            self._lane_cache = (active_l, self._upload(active_l, torch.bool), adapters)
             self._lane_key = key
         return self._lane_cache
 
@@ -634,7 +855,8 @@ class ServingEngine:
     # -- device-resident horizon -------------------------------------------
 
     def _decoding_slots(self) -> list[tuple[int, _SlotState]]:
-        return [(i, s) for i, s in enumerate(self.slots) if s is not None]
+        return [(i, s) for i, s in enumerate(self.slots)
+                if s is not None and s.ingest_pos is None]
 
     def _fund_lookahead(self, slot: _SlotState, tokens_ahead: int) -> bool:
         """Grow the slot's table to cover ``tokens_ahead`` more commits
@@ -648,7 +870,7 @@ class ServingEngine:
         if need > self.pcfg.max_blocks_per_seq:
             return False
         while len(slot.blocks) < need:
-            got = self.allocator.alloc(1)
+            got = self.blocks.alloc(1)
             if got is None:
                 return False
             slot.blocks.extend(got)
@@ -662,17 +884,17 @@ class ServingEngine:
         horizons) without invalidation hooks. A free lane keeps its last
         values, inactive."""
         for i, s in enumerate(self.slots):
-            if s is not None:
+            if s is not None and s.ingest_pos is None:
                 req = s.request
                 want = {"last": int(self._last_tokens[i]), "seq": int(s.seq_len), "act": True,
                         "emitted": len(req.output), "budget": int(req.max_new_tokens),
                         "eos": -1 if req.eos_token is None else int(req.eos_token),
-                        "table": tuple(s.blocks)}
+                        "adapter": int(req.adapter), "table": tuple(s.blocks)}
             else:
                 prev = self._dev_mirror[i]
                 want = dict(prev) if prev is not None else {
                     "last": 0, "seq": 1, "act": False, "emitted": 0, "budget": 0, "eos": -1,
-                    "table": ()}
+                    "adapter": 0, "table": ()}
                 want["act"] = False
             if want != self._dev_mirror[i]:
                 self._patch_lane(i, want)
@@ -702,8 +924,9 @@ class ServingEngine:
         if hz is None:
             out = torch.empty((horizon + LANE_BUDGET, self.pcfg.max_slots),
                               dtype=torch.int32, device=self.device)
-            fn = functools.partial(_horizon_plain, self.params, self.pools, cfg=self.cfg,
-                                   pcfg=self.pcfg, H=horizon)
+            fn = functools.partial(_horizon_plain, self.params, self.pools, loras=self.loras,
+                                   cfg=self.cfg, pcfg=self.pcfg, H=horizon,
+                                   lora_scale=self.lora_scale)
             host = out if self.device.type == "cpu" else torch.empty(
                 out.shape, dtype=out.dtype, pin_memory=True)
             hz = self._hz[horizon] = (GraphedStep(fn, self._dev, out), host)
@@ -761,27 +984,56 @@ class ServingEngine:
 
 @torch.no_grad()
 def _prefill_plain(params: dict[str, Any], pools: dict[str, torch.Tensor],
-                   tokens: torch.Tensor, block_ids: torch.Tensor, *,
-                   cfg: LlamaConfig, bucket: int):
-    """Full-prompt prefill: a fresh contiguous cache of exactly bucket
-    capacity, the model forward, then its K/V scattered into the blocks.
+                   tokens: torch.Tensor, block_ids: torch.Tensor, lora: Optional[Any] = None, *,
+                   cfg: LlamaConfig, bucket: int, lora_scale: float = 1.0):
+    """Full-prompt prefill without a shared prefix: a fresh contiguous cache
+    of exactly bucket capacity, the model forward (under one adapter's
+    ``lora`` tree, or none), then its K/V scattered into the blocks.
     Returns ``(pools, logits [1, bucket, V])``."""
     cache = init_cache(cfg, 1, bucket, device=tokens.device)
     positions = torch.arange(bucket, device=tokens.device)[None, :]
-    logits, cache = forward(params, tokens, cfg, cache=cache, positions=positions)
+    logits, cache = forward(params, tokens, cfg, cache=cache, positions=positions, lora=lora,
+                            lora_scale=lora_scale)
     k = torch.stack([c["k"][0] for c in cache])
     v = torch.stack([c["v"][0] for c in cache])
     return write_prefill(pools, k, v, block_ids), logits
 
 
 @torch.no_grad()
+def _prefill_bucket(params: dict[str, Any], pools: dict[str, torch.Tensor],
+                    suffix_tokens: torch.Tensor, prefix_table: torch.Tensor, prefix_len: int,
+                    suffix_blocks: torch.Tensor, lora: Optional[Any] = None, *,
+                    cfg: LlamaConfig, pcfg: PagedConfig, bucket: int,
+                    lora_scale: float = 1.0):
+    """The suffix forward against a contiguous cache seeded with the
+    prefix's KV (:func:`~.paged_cache.init_cache_seed`); the suffix's K/V
+    lands in the sequence's ``suffix_blocks``. The cursor is the host int
+    ``prefix_len``, so each layer's attention is one flash launch over the
+    ``prefix_len + bucket`` valid rows at ``q_offset = prefix_len``.
+    Returns ``(pools, logits [1, bucket, V])``."""
+    cache = init_cache_seed(pools, prefix_table, prefix_len, extra=bucket)
+    positions = prefix_len + torch.arange(bucket, device=suffix_tokens.device)[None, :]
+    logits, cache = forward(params, suffix_tokens, cfg, cache=cache, positions=positions,
+                            lora=lora, lora_scale=lora_scale)
+    # the suffix K/V sits at [prefix_len, prefix_len + bucket) (block-aligned:
+    # shared prefixes are whole blocks)
+    k = torch.stack([c["k"][0, prefix_len:prefix_len + bucket] for c in cache])
+    v = torch.stack([c["v"][0, prefix_len:prefix_len + bucket] for c in cache])
+    return write_prefill(pools, k, v, suffix_blocks), logits
+
+
+@torch.no_grad()
 def _decode_step(params: dict[str, Any], pools: dict[str, torch.Tensor],
                  tokens: torch.Tensor, seq_lens: torch.Tensor, active: torch.Tensor,
-                 block_tables: torch.Tensor, *, cfg: LlamaConfig, pcfg: PagedConfig):
+                 block_tables: torch.Tensor, loras: Optional[Any] = None,
+                 adapter_idx: Optional[torch.Tensor] = None, *, cfg: LlamaConfig,
+                 pcfg: PagedConfig, lora_scale: float = 1.0):
     """One fused greedy token step for every slot: the incoming token sits
     at position ``seq_len - 1``; its K/V is written into the pools before
-    the layer's attention reads them. Returns ``(pools, next tokens [S]
-    int32)``, all on the device."""
+    the layer's attention reads them. With a stacked ``loras`` tree each
+    slot adds its own adapter's deltas (``adapter_idx`` [S] on the device,
+    :func:`models.lora.lora_delta_slots`). Returns ``(pools, next tokens
+    [S] int32)``, all on the device."""
     S = tokens.shape[0]
     freqs = _freqs_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, cfg.rope_scaling,
                          tokens.device)
@@ -796,11 +1048,14 @@ def _decode_step(params: dict[str, Any], pools: dict[str, torch.Tensor],
 
     delta = None  # the pending residual delta, added by the next norm
     for layer_i, layer in enumerate(params["layers"]):
-        x, q, k, v = _qkv(layer, x, delta, freqs, cfg, positions[:, None])
+        lora_layer = loras["layers"][layer_i] if loras is not None else None
+        lora = (lora_layer, lora_scale, adapter_idx)
+        x, q, k, v = _qkv(layer, x, delta, freqs, cfg, positions[:, None], *lora)
         pools = _write_layer(pools, layer_i, k, v, write_block, write_off)
         out = _paged_attention(q, pools, block_tables, seq_lens, layer_i, cfg)
-        delta = _mm(out.reshape(S, 1, cfg.dim), layer["attn"]["wo"])
-        x, delta = _mlp_block(layer, x, delta, cfg)
+        delta = _lora_mm(out.reshape(S, 1, cfg.dim), layer["attn"]["wo"], lora_layer, "wo",
+                         lora_scale, adapter_idx)
+        x, delta = _mlp_block(layer, x, delta, cfg, *lora)
 
     logits = _logits(params, x, delta, cfg)[:, 0]  # [S, V]
     return pools, logits.argmax(dim=-1).to(torch.int32)
@@ -808,13 +1063,15 @@ def _decode_step(params: dict[str, Any], pools: dict[str, torch.Tensor],
 
 @torch.no_grad()
 def _horizon_plain(params: dict[str, Any], pools: dict[str, torch.Tensor], lanes: torch.Tensor,
-                   out: torch.Tensor, *, cfg: LlamaConfig, pcfg: PagedConfig, H: int
-                   ) -> torch.Tensor:
+                   out: torch.Tensor, loras: Optional[Any] = None, *, cfg: LlamaConfig,
+                   pcfg: PagedConfig, H: int, lora_scale: float = 1.0) -> torch.Tensor:
     """H fused greedy steps over the device lane state, no host read: each
     step is :func:`_decode_step` over every slot, then JAX's liveness
     (``bobrapet_tpu/serving/engine.py:_horizon_plain``): a lane that hits
     its eos or its budget is deactivated, and from then on writes only the
-    scratch block and emits -1.
+    scratch block and emits -1. With ``loras``, each lane's adapter is read
+    from its ``LANE_ADAPTER`` column on the device, so a new adapter mix
+    replays the same graph.
 
     ``lanes`` [S, LANE_TABLE + MB] int32 (columns ``LANE_*``); writes into
     ``out`` [H + 4, S] int32 the tokens of every step, then last, seq, act
@@ -825,9 +1082,11 @@ def _horizon_plain(params: dict[str, Any], pools: dict[str, torch.Tensor], lanes
     act = lanes[:, LANE_ACT] != 0
     emitted = lanes[:, LANE_EMITTED]
     budget, eos = lanes[:, LANE_BUDGET], lanes[:, LANE_EOS]
+    adapters = lanes[:, LANE_ADAPTER] if loras is not None else None
     tables = lanes[:, LANE_TABLE:].contiguous()
     for t in range(H):
-        pools, tok = _decode_step(params, pools, last, seq, act, tables, cfg=cfg, pcfg=pcfg)
+        pools, tok = _decode_step(params, pools, last, seq, act, tables, loras, adapters,
+                                  cfg=cfg, pcfg=pcfg, lora_scale=lora_scale)
         live = act.to(torch.int32)
         emitted = emitted + live
         seq = seq + live

@@ -10,6 +10,9 @@ engine runs:
 - Block tables are small ``[max_slots, max_blocks_per_seq]`` int32
   tensors kept by the engine's host-side allocator.
 
+- A prefill after a matched prefix runs on a contiguous cache seeded with
+  the prefix's blocks (:func:`init_cache_seed`).
+
 Where JAX donates the pools and gets new arrays back, the port writes
 into the pools in place. Its horizon decodes over the pools themselves
 (the paged kernel reads them in place, each step writes its token), so
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -39,10 +42,10 @@ class PagedConfig:
     block_size: int = 16        # tokens per KV block
     num_blocks: int = 256       # pool size (incl. the scratch block)
     max_blocks_per_seq: int = 32
-    #: content-addressed reuse of full prompt blocks (not ported yet: the
-    #: engine raises unless this is False)
+    #: content-addressed reuse of full prompt blocks (serving/prefix_cache.py)
     prefix_caching: bool = True
-    #: chunked prefill width (not ported yet: the engine raises unless None)
+    #: chunked prefill width: a longer uncached suffix ingests one chunk
+    #: per engine tick (None: one-shot prefill)
     prefill_chunk: Optional[int] = None
 
     @property
@@ -94,6 +97,36 @@ def write_prefill(
     return pools
 
 
+def init_cache_seed(
+    pools: dict[str, torch.Tensor],
+    prefix_table: torch.Tensor,  # [mb] block ids (scratch-padded)
+    prefix_len: int,             # tokens actually valid
+    extra: int,                  # contiguous room after the prefix
+) -> list[dict[str, Any]]:
+    """A contiguous model cache (batch 1) seeded with a shared prefix's KV.
+
+    The gathered prefix blocks occupy rows ``[0, mb * block)``, of which
+    only ``[0, prefix_len)`` are valid; the capacity is ``mb * block +
+    extra`` and the rest is zeros. The cursor is the host int
+    ``prefix_len``: the suffix prefill runs the model forward on this cache,
+    writing from there on and attending over the valid rows only, so the
+    scratch-padded rest is never read."""
+    L, _, B, H, D = pools["k"].shape
+    mb = prefix_table.shape[0]
+    cap = mb * B + extra
+    table = prefix_table.long()
+    cache = []
+    for layer in range(L):
+        entry: dict[str, Any] = {"cursor": int(prefix_len)}
+        for name in ("k", "v"):
+            buf = torch.zeros((1, cap, H, D), dtype=pools[name].dtype,
+                              device=pools[name].device)
+            buf[0, :mb * B] = pools[name][layer, table].reshape(mb * B, H, D)
+            entry[name] = buf
+        cache.append(entry)
+    return cache
+
+
 def gather_kv(
     pools: dict[str, torch.Tensor],
     block_tables: torch.Tensor,  # [S, max_blocks_per_seq]
@@ -131,4 +164,13 @@ class BlockAllocator:
             if b == SCRATCH_BLOCK:
                 raise ValueError("scratch block cannot be freed")
             self._free.append(b)
+
+    def reserve(self, block: int) -> bool:
+        """Pull a specific block out of the free list (the prefix cache
+        taking back a freed block that is still registered)."""
+        try:
+            self._free.remove(block)
+        except ValueError:
+            return False
+        return True
 

@@ -14,8 +14,9 @@ Phases, each fatal on failure (exit 1, and no result line):
    the main paths' shapes (greedy prefill and decode, the greedy decode
    with device lengths over the whole 192-row cache, RMSNorm alone and
    fused with the residual add, the engine's largest prefill bucket, an
-   engine decode tick) plus long-cache decodes (dense over 2048 rows,
-   paged up to 1024), ragged, fp32 and narrow-head cases: max abs error
+   engine decode tick, phase 7's prefill chunk at q_offset 512 and its
+   decode tick over 41-block tables) plus long-cache decodes (dense over
+   2048 rows, paged up to 1024), ragged, fp32 and narrow-head cases: max abs error
    against a stated tolerance, and the times (CUDA events, median of 50
    launches, L2 flushed before each) of the kernel, the plain version and
    one PyTorch library call for the same function (a yardstick only; the
@@ -45,8 +46,25 @@ Phases, each fatal on failure (exit 1, and no result line):
 6. a 2-layer model at the 8B widths, the same seeded weights on the card
    (kernels) and on the CPU (plain versions): bf16 prefill logits must
    agree, and in fp32 the serving engine must give identical tokens,
-   classic and at a horizon of 8;
-7. one JSON line of kernels, the card line, and last
+   classic and at a horizon of 8, both plain and with prefix caching,
+   chunked prefill and four LoRA adapters (card against CPU, and chunked
+   with prefixes against one-shot prefill on the card);
+7. prefix caching, chunked prefill and multi-LoRA at full width: Llama-3-8B
+   again, 8 slots over 512 blocks of 16 (41 a sequence), the unified leg
+   of bench.py's config 14 (12 requests of a shared 128-token system
+   prompt and a 512-token tail, 8 new tokens each, interleaved 2:1 with 8
+   of 8-11 tokens and 64 new, closed loop, window 14) through the engine
+   with prefix caching and chunks of 128 (A) and with one-shot prefill and
+   no cache (B), drained A, B, B, A at a horizon of 8: drain s, tok/s,
+   TTFT and TPOT percentiles, hit and miss tokens, chunks, phase seconds
+   and peak memory, exact launch counts, the same tokens from both drains
+   of an engine, and A's first tokens against B's wherever B's top-2
+   margin exceeds the logit error between the two prefills; then config
+   6's 16 requests over four stacked adapters (the zero one and three of
+   rank 8 on wq/wv), adapter i % 4: the zero adapter's requests give the
+   LoRA-free engine's tokens bit for bit, every other adapter changes some
+   request, and the horizon's ms with and without LoRA;
+8. one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
@@ -93,6 +111,30 @@ PAGED_LENS = (1, 9, 16, 17, 50, 64, 100, 128)
 LONG_KV = 2048
 LONG_KV_PAGES, LONG_PAGED_BLOCKS = 64, 520
 LONG_PAGED_LENS = (1, 100, 255, 256, 511, 700, 1000, 1024)
+
+
+# phase 7: the unified leg of bench.py's config 14 (bench.py:1096-1140) at
+# full width, prefix caching with chunks of 128 (A) against one-shot prefill
+# with no cache (B), drained in turns
+PREFIX_PAGING = dict(max_slots=8, block_size=16, num_blocks=512, max_blocks_per_seq=41,
+                     prefix_caching=True, prefill_chunk=128)
+ONESHOT_PAGING = {**PREFIX_PAGING, "prefix_caching": False, "prefill_chunk": None}
+PREFIX_HORIZON = 8
+N_LONG, N_SHORT, LONG_NEW, SHORT_NEW, WINDOW = 12, 8, 8, 64, 14
+SYSTEM_TOKENS, TAIL_TOKENS = 128, 512
+PREFIX_ORDER = ("A", "B", "B", "A")
+# the chunk attention of a long request after its matched system prompt,
+# and a decode tick over 41-block tables, lanes from 9 to 648 rows
+CHUNK_Q_OFFSET = 512
+PREFIX_PAGED_LENS = (9, 90, 180, 270, 360, 450, 540, 648)
+# multi-LoRA: the zero adapter and three of LoRAConfig()'s defaults (rank 8,
+# alpha 16, wq and wv), B given content
+N_ADAPTERS = 4
+# the fp32 engine cross-check with prefix caching, chunks and LoRA: a
+# shared 32-token system prompt, chunks of 16, two waves
+CROSS_PREFIX_PAGING = dict(max_slots=4, block_size=16, num_blocks=48, max_blocks_per_seq=6,
+                           prefix_caching=True, prefill_chunk=16)
+CROSS_TAILS = ((5, 25, 40, 9), (30, 2))
 
 
 def serve_prompt_len(i: int) -> int:
@@ -361,15 +403,21 @@ def flash_case(torch, F, ops, flush, name, b, sq, sk, hq, hkv, d, dtype, q_offse
     # SDPA's is_causal aligns the mask top-left: the same function as ours
     # when sq == sk (q_offset 0), or for one query that sees every key
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    extra = {}
     if sq == sk and q_offset == 0:
-        lib_causal = True
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
     elif sq == 1 and q_offset == sk - 1:
-        lib_causal = False
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, enable_gqa=True)
     else:
-        fail(f"{name}: no library call computes this case")
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=lib_causal, enable_gqa=True)
-    return {
+        # queries after a cached prefix: the causal mask as a boolean
+        q_pos = q_offset + torch.arange(sq, device=dev)
+        mask = torch.arange(sk, device=dev)[None, :] <= q_pos[:, None]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        extra = {"library": "scaled_dot_product_attention with the causal mask as a boolean"}
+    return {**extra,
         "case": name, "q": [b, sq, hq, d], "kv": [b, sk, hkv, d], "q_offset": q_offset,
         "dtype": dn, "max_abs_err": err,
         "ms": time_ms(torch, lambda: ops.flash_attention_cuda(
@@ -792,12 +840,339 @@ def engine_cross_check(torch, ops, llama, serving, cfg, seed: int, dev) -> dict:
     return result
 
 
+def prefix_cross_check(torch, ops, llama, serving, lora_mod, cfg, seed: int, dev) -> dict:
+    """fp32, 2 layers at the 8B widths (TF32 off): the engine with prefix
+    caching, chunks of 16 and four stacked adapters (request i under
+    adapter i % 4), classic and at a horizon of 8, on the card and on the
+    CPU, and on the card with one-shot prefill and no cache: every run must
+    give the same tokens, the horizon's first tokens the classic tick's,
+    and on the card every prefill and decode step must run the kernels."""
+    cfg3 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    params = llama.init_params(cfg3, torch.Generator(device=dev).manual_seed(seed + 4), dev)
+    stacked, lcfg = make_loras(torch, lora_mod, cfg3, N_ADAPTERS, seed + 6, dev)
+    trees = {"card": (params, stacked), "cpu": (tree_to(params, "cpu"), tree_to(stacked, "cpu"))}
+    gen = torch.Generator().manual_seed(seed + 7)
+    system = torch.randint(0, cfg3.vocab_size, (32,), generator=gen).tolist()
+    waves = [[system + torch.randint(0, cfg3.vocab_size, (n,), generator=gen).tolist()
+              for n in tails] for tails in CROSS_TAILS]
+    oneshot = {**CROSS_PREFIX_PAGING, "prefix_caching": False, "prefill_chunk": None}
+    outs, stats = {}, {}
+    t0 = time.perf_counter()
+    for horizon in (1, 8):
+        for side, name, paging in (("card", "prefix", CROSS_PREFIX_PAGING),
+                                   ("cpu", "prefix", CROSS_PREFIX_PAGING),
+                                   ("card", "oneshot", oneshot)):
+            tree, loras = trees[side]
+            eng = serving.ServingEngine(tree, cfg3, serving.PagedConfig(**paging), loras=loras,
+                                        lora_scale=lcfg.scale, pipeline_decode=True,
+                                        decode_horizon=horizon, dispatch_depth=1)
+            zero_counts(ops)
+            n = 0
+            for wave in waves:
+                for p in wave:
+                    eng.submit(p, CROSS_BUDGET[horizon], adapter=n % N_ADAPTERS)
+                    n += 1
+                eng.run()
+            pc = eng.phase_counts
+            if side == "card" and read_counts(ops) != engine_launches(
+                    pc["prefills"], pc["device_steps"], cfg3.n_layers):
+                fail("the prefix/chunk/LoRA cross-check did not run the kernels on every "
+                     "prefill and step")
+            if name == "prefix" and not (eng.blocks.hit_tokens and pc["chunks"]):
+                fail("the prefix/chunk/LoRA cross-check matched no prefix or ran no chunk")
+            if horizon > 1 and pc["horizons"] == 0:
+                fail("the prefix/chunk/LoRA cross-check ran no horizon")
+            outs[side, name, horizon] = [r.output for r in sorted(eng.finished,
+                                                                  key=lambda r: r.rid)]
+            stats[f"{side}_{name}_h{horizon}"] = {
+                "hit_tokens": eng.blocks.hit_tokens, "chunks": pc["chunks"],
+                "prefills": pc["prefills"], "decode_steps": pc["device_steps"]}
+    checks = {
+        "card_equals_cpu": all(outs["card", "prefix", h] == outs["cpu", "prefix", h]
+                               for h in (1, 8)),
+        "chunked_equals_oneshot": all(outs["card", "prefix", h] == outs["card", "oneshot", h]
+                                      for h in (1, 8)),
+        "horizon_extends_classic": all(
+            a[:CROSS_BUDGET[1]] == b
+            for a, b in zip(outs["card", "prefix", 8], outs["card", "prefix", 1])),
+    }
+    result = {"requests": sum(map(len, waves)), "new_tokens": CROSS_BUDGET,
+              "paging": CROSS_PREFIX_PAGING, "adapters": N_ADAPTERS, **checks, "runs": stats,
+              "seconds": time.perf_counter() - t0}
+    print("engine with prefix caching, chunks and LoRA (2 layers, 8B widths, fp32): "
+          + json.dumps(result), flush=True)
+    for name, ok in checks.items():
+        if not ok:
+            fail(f"prefix/chunk/LoRA cross-check: {name} does not hold")
+    return result
+
+
 def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def pctl(values, q: float) -> float:
+    """The q-quantile (nearest rank) of ``values``."""
+    values = sorted(values)
+    return values[min(len(values) - 1, int(q * len(values)))]
+
+
+def mixed_workload(torch, cfg, system_seed: int, seed: int, dev, n_long: int = N_LONG,
+                   n_short: int = N_SHORT) -> list:
+    """bench.py's config-14 traffic: (prompt, new tokens, kind) for long
+    requests (the 128-token system prompt of ``system_seed`` and a
+    512-token tail) interleaved 2:1 with short ones (8-11 tokens)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def toks(n, g=gen):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g, device=dev).tolist()
+
+    system = toks(SYSTEM_TOKENS, torch.Generator(device=dev).manual_seed(system_seed))
+    longs = [(system + toks(TAIL_TOKENS), LONG_NEW, "long") for _ in range(n_long)]
+    shorts = [(toks(8 + i % 4), SHORT_NEW, "short") for i in range(n_short)]
+    return interleave(longs, shorts)
+
+
+def interleave(longs: list, shorts: list) -> list:
+    """Two long requests, then one short, until both run out."""
+    out, li, si = [], 0, 0
+    while li < len(longs) or si < len(shorts):
+        for _ in range(2):
+            if li < len(longs):
+                out.append(longs[li])
+                li += 1
+        if si < len(shorts):
+            out.append(shorts[si])
+            si += 1
+    return out
+
+
+def engine_launches(prefills: int, steps: int, n_layers: int) -> dict:
+    """The kernels of an engine's run: every prefill dispatch (one-shot,
+    seeded or chunk) one flash launch a layer, every decode step one paged
+    launch a layer, and 2L + 1 norms per forward of either."""
+    return {**norm_launches(prefills + steps, n_layers), "flash_attention": prefills * n_layers,
+            "cached_attention": 0, "paged_attention": steps * n_layers}
+
+
+def closed_drain(torch, ops, eng, workload, adapters=None, window: int = WINDOW) -> dict:
+    """One closed-loop drain (at most ``window`` requests in flight, a new
+    one submitted as one finishes; request i under ``adapters[i]``), the
+    counts set to 0 just before and read just after; the launch counts must
+    be exact."""
+    eng.reset_phase_stats()
+    hit0, miss0 = eng.blocks.hit_tokens, eng.blocks.miss_tokens
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(ops)
+    base = len(eng.finished)
+    rids = []
+
+    def submit():
+        prompt, new, _kind = workload[len(rids)]
+        rids.append(eng.submit(prompt, new,
+                               adapter=None if adapters is None else adapters[len(rids)]))
+
+    t0 = time.perf_counter()
+    while len(rids) < min(window, len(workload)):
+        submit()
+    while len(eng.finished) - base < len(workload):
+        eng.step()
+        while len(rids) < len(workload) and len(rids) - (len(eng.finished) - base) < window:
+            submit()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    launches = read_counts(ops)
+    prefills, steps = eng.phase_counts["prefills"], eng.phase_counts["device_steps"]
+    expected = engine_launches(prefills, steps, eng.cfg.n_layers)
+    if launches != expected:
+        fail(f"an engine drain did not run every norm and attention through the kernels: "
+             f"{launches}, expected {expected}")
+    by_rid = {r.rid: r for r in eng.finished[base:]}
+    reqs = [by_rid[rid] for rid in rids]
+    for req, (_, new, _) in zip(reqs, workload):
+        if len(req.output) != new or min(req.output) < 0 or max(req.output) >= eng.cfg.vocab_size:
+            fail(f"a request did not end with its budget of {new} in-range tokens")
+    kinds = [kind for _, _, kind in workload]
+    tokens = sum(new for _, new, _ in workload)
+
+    def ms(values, q):
+        return pctl(values, q) * 1e3
+
+    ttft = {k: [r.ttft_seconds for r, kk in zip(reqs, kinds) if kk == k] for k in set(kinds)}
+    tpot = [r.tpot_seconds for r, k in zip(reqs, kinds) if k == "short"]
+    ph = eng.phase_seconds
+    return {
+        "drain_s": drain_s, "new_tokens": tokens, "tok_per_s": tokens / drain_s,
+        **{f"ttft_ms_{k}_p{int(q * 100)}": ms(v, q) for k, v in sorted(ttft.items())
+           for q in (0.5, 0.95)},
+        **({f"tpot_ms_short_p{int(q * 100)}": ms(tpot, q) for q in (0.5, 0.95)} if tpot else {}),
+        "hit_tokens": eng.blocks.hit_tokens - hit0, "miss_tokens": eng.blocks.miss_tokens - miss0,
+        "prefills": prefills, "chunks": eng.phase_counts["chunks"], "decode_steps": steps,
+        "horizons": eng.phase_counts["horizons"],
+        "prefill_s": ph["prefill"], "decode_device_s": ph["decode_device"],
+        "host_sync_s": ph["host_sync"],
+        # host ms per decode step launched and waited for (classic ticks and
+        # horizon steps alike), and per horizon where only horizons ran
+        "decode_step_ms": (ph["decode_device"] + ph["host_sync"]) / steps * 1e3,
+        "horizon_ms": ((ph["decode_device"] + ph["host_sync"]) / eng.phase_counts["horizons"]
+                       * 1e3) if steps == eng.phase_counts["horizons"] * eng.decode_horizon
+        else None,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "outputs": [r.output for r in reqs],
+    }
+
+
+def first_logits(torch, llama, params, cfg, eng, prompt, chunk) -> "torch.Tensor":
+    """The logits of ``prompt``'s first new token as engine ``eng``
+    computes them from scratch: one bucket-wide prefill (``chunk`` None),
+    or chunks of ``chunk``, each over the cache the chunks before it wrote
+    (the engine's seeded prefill attends over the same valid rows and runs
+    the same launches on the same values)."""
+    p, cap = len(prompt), eng.pcfg.capacity
+    dev = params["embed"]["weight"].device
+    cache = llama.init_cache(cfg, 1, cap, device=dev)
+    start = 0
+    with torch.no_grad():
+        while True:
+            end = min(start + (chunk or p), p)
+            # a middle chunk is exactly one bucket: the forward's cursor
+            # lands on ``end``
+            bucket = eng._whole_block_bucket(end - start, cap - start)
+            toks = torch.tensor([prompt[start:end] + [0] * (bucket - (end - start))], device=dev)
+            logits, _ = llama.forward(params, toks, cfg, cache=cache,
+                                      positions=start + torch.arange(bucket, device=dev)[None])
+            if end == p:
+                return logits[0, p - 1 - start].float()
+            start = end
+
+
+def make_loras(torch, lora_mod, cfg, n: int, seed: int, dev, lcfg=None):
+    """The zero adapter, then n - 1 of ``lcfg`` (LoRAConfig()'s defaults)
+    from ``seed``, every leaf given 0.05 x a normal sample so that B is
+    not zero; stacked."""
+    lcfg = lcfg or lora_mod.LoRAConfig()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    adapters = [lora_mod.zero_lora(cfg, lcfg, dev)]
+    for _ in range(n - 1):
+        a = lora_mod.init_lora(gen, cfg, lcfg, dev)
+        adapters.append(lora_mod._tree_map(
+            lambda leaf: (leaf.float() + 0.05 * torch.randn(
+                leaf.shape, generator=gen, device=dev)).to(leaf.dtype), a))
+    return lora_mod.stack_adapters(adapters), lcfg
+
+
+def prefix_phase(torch, ops, serving, llama, lora_mod, params, cfg, seed: int, dev,
+                 card: str) -> dict:
+    """Phase 7: engines A (prefix caching, chunks of 128) and B (one-shot,
+    no cache) on config 14's unified leg, drained A, B, B, A. Each drain
+    gets an engine of its own, warmed by three requests of the same system
+    prompt (the kernels' first use, the horizon's capture, and for A the
+    system prompt registered, as in a deployment that serves it all day),
+    so both drains of an engine start from the same cache. Then config 6's
+    traffic over four stacked adapters against the LoRA-free engine."""
+    t_phase = time.perf_counter()
+    pagings = {"A": PREFIX_PAGING, "B": ONESHOT_PAGING}
+    warm = mixed_workload(torch, cfg, seed + 20, seed + 21, dev, n_long=2, n_short=1)
+    workload = mixed_workload(torch, cfg, seed + 20, seed + 22, dev)
+    drains = {name: [] for name in pagings}
+    engines = {}
+    for name in PREFIX_ORDER:
+        engines.pop(name, None)
+        eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**pagings[name]),
+                                    decode_horizon=PREFIX_HORIZON, dispatch_depth=1)
+        for prompt, new, _ in warm:
+            eng.submit(prompt, new)
+        eng.run()
+        drains[name].append(closed_drain(torch, ops, eng, workload))
+        engines[name] = eng
+    for name, runs in drains.items():
+        if runs[0]["outputs"] != runs[1]["outputs"]:
+            fail(f"engine {name}: two drains gave different tokens")
+    if min(d["hit_tokens"] for d in drains["A"]) < (N_LONG - 1) * SYSTEM_TOKENS:
+        fail("engine A did not serve the system prompt from its cache")
+    if any(d["hit_tokens"] or d["chunks"] for d in drains["B"]):
+        fail("engine B matched a prefix or chunked a prefill")
+    out_a, out_b = drains["A"][0]["outputs"], drains["B"][0]["outputs"]
+    same = sum(x == y for a, b in zip(out_a, out_b) for x, y in zip(a, b))
+    divergence = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                  for a, b in zip(out_a, out_b)]
+    first_checks = []
+    for i, (prompt, _, kind) in enumerate(workload):
+        if divergence[i] != 0:
+            continue
+        # the first tokens differ: fair only for a near-tie of B's logits
+        la = first_logits(torch, llama, params, cfg, engines["A"], prompt,
+                          engines["A"]._chunk_size())
+        lb = first_logits(torch, llama, params, cfg, engines["B"], prompt, None)
+        top = lb.topk(2).values
+        first_checks.append({
+            "request": i, "kind": kind, "A": out_a[i][0], "B": out_b[i][0],
+            "recomputed_argmax": [int(la.argmax()), int(lb.argmax())],
+            "top2_margin_B": float(top[0] - top[1]),
+            "max_abs_logit_err": float((la - lb).abs().max())})
+    comparison = {"identical_token_share": same / sum(len(a) for a in out_a),
+                  "first_divergence": divergence, "first_token_checks": first_checks}
+    print("prefix phase, A against B: " + json.dumps(comparison), flush=True)
+    for check in first_checks:
+        if check["top2_margin_B"] > check["max_abs_logit_err"]:
+            fail(f"request {check['request']}: A's first token differs from B's beyond "
+                 "the logit error of the two prefills")
+    for runs in drains.values():
+        for d in runs:
+            d.pop("outputs")
+    result = {"model": "llama3_8b", "dtype": "bfloat16", "card": card,
+              "paging": {"A": PREFIX_PAGING, "B": ONESHOT_PAGING},
+              "decode_horizon": PREFIX_HORIZON, "order": ", ".join(PREFIX_ORDER),
+              "workload": {"long": [N_LONG, SYSTEM_TOKENS, TAIL_TOKENS, LONG_NEW],
+                           "short": [N_SHORT, "8-11", SHORT_NEW], "window": WINDOW},
+              "drains": drains, "comparison": comparison}
+    del engines
+    result["lora"] = lora_drains(torch, ops, serving, lora_mod, params, cfg, seed, dev)
+    result["seconds"] = time.perf_counter() - t_phase
+    print("prefix phase: " + json.dumps(result), flush=True)
+    return result
+
+
+def lora_drains(torch, ops, serving, lora_mod, params, cfg, seed: int, dev) -> dict:
+    """Config 6's 16 requests (submitted at once) at adapter i % 4 through an
+    engine with four stacked adapters, and the same requests through the
+    LoRA-free engine; launch counts exact in both."""
+    stacked, lcfg = make_loras(torch, lora_mod, cfg, N_ADAPTERS, seed + 30, dev)
+    paging = {**SERVE_PAGING, "prefix_caching": True}
+    prompts = serve_prompts(torch, cfg, seed + 11, dev)
+    workload = [(p, serve_budget(i), "short") for i, p in enumerate(prompts)]
+    adapters = [i % N_ADAPTERS for i in range(SERVE_REQUESTS)]
+    runs = {}
+    for name, loras in (("base", None), ("lora", stacked)):
+        eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**paging), loras=loras,
+                                    lora_scale=lcfg.scale, decode_horizon=PREFIX_HORIZON,
+                                    dispatch_depth=1)
+        eng.submit(prompts[0], 4, adapter=None if loras is None else 1)  # the capture
+        eng.run()
+        runs[name] = closed_drain(torch, ops, eng, workload,
+                                  adapters=None if loras is None else adapters,
+                                  window=SERVE_REQUESTS)
+        del eng
+    base, tuned = runs["base"].pop("outputs"), runs["lora"].pop("outputs")
+    zero_same = all(tuned[i] == base[i] for i in range(SERVE_REQUESTS) if adapters[i] == 0)
+    changed = {a: any(tuned[i] != base[i] for i in range(SERVE_REQUESTS) if adapters[i] == a)
+               for a in range(1, N_ADAPTERS)}
+    result = {"adapters": N_ADAPTERS, "rank": lcfg.rank, "alpha": lcfg.alpha,
+              "sites": list(lcfg.sites), "paging": paging,
+              "zero_adapter_bit_identical": zero_same, "adapter_changes_output": changed,
+              "horizon_ms": {name: run["horizon_ms"] for name, run in runs.items()},
+              "drains": runs}
+    print("multi-LoRA: " + json.dumps(result), flush=True)
+    if not zero_same:
+        fail("the zero adapter's requests differ from the LoRA-free engine's")
+    if not all(changed.values()):
+        fail(f"an adapter changed no request's output: {changed}")
+    return result
 
 
 def main() -> None:
@@ -824,6 +1199,7 @@ def main() -> None:
         from bobrapet_tpu_torch import ops, serving
         from bobrapet_tpu_torch.kernels import build as kbuild
         from bobrapet_tpu_torch.models import llama, tree_bytes
+        from bobrapet_tpu_torch.models import lora as lora_mod
     except ImportError as e:
         fail(f"the port is not importable here ({e}): run from the root of the repo")
 
@@ -890,6 +1266,9 @@ def main() -> None:
                    gen, dev),
         flash_case(torch, F, ops, flush, "flash prefill fp32", 2, PROMPT, PROMPT, hq, hkv, hd,
                    f32, 0, gen, dev),
+        flash_case(torch, F, ops, flush, "flash prefill chunk", 1, PREFIX_PAGING["prefill_chunk"],
+                   PREFIX_PAGING["prefill_chunk"] + CHUNK_Q_OFFSET, hq, hkv, hd, bf16,
+                   CHUNK_Q_OFFSET, gen, dev),
     ]
     paged_cases = [
         paged_case(torch, F, ops, flush, "paged decode", hq, hkv, hd, bf16, gen, dev),
@@ -898,6 +1277,9 @@ def main() -> None:
         paged_case(torch, F, ops, flush, "paged decode fp32", hq, hkv, hd, f32, gen, dev),
         paged_case(torch, F, ops, flush, "paged decode D=32", 4, 2, 32, bf16, gen, dev,
                    block=8, n_blocks=64, lens=(1, 8, 9, 17, 24, 31, 32, 2), mb=4),
+        paged_case(torch, F, ops, flush, "paged decode 41 blocks", hq, hkv, hd, bf16, gen, dev,
+                   n_blocks=PREFIX_PAGING["num_blocks"], mb=PREFIX_PAGING["max_blocks_per_seq"],
+                   lens=PREFIX_PAGED_LENS),
     ]
     for c in rms_cases + flash_cases + cached_cases + paged_cases:
         print(f"  {c['case']}: kernel {c['ms']:.5f} ms, plain {c['plain_ms']:.5f} ms, "
@@ -998,8 +1380,21 @@ def main() -> None:
         fail("card and CPU logits disagree")
     del params_cpu, gpu_logits
     engine_cross_check(torch, ops, llama, serving, cfg, args.seed, dev)
+    prefix_cross_check(torch, ops, llama, serving, lora_mod, cfg, args.seed, dev)
 
-    # ---- 7. result
+    # ---- 7. prefix caching, chunked prefill and multi-LoRA at full width
+    # (the weights of phases 4 and 5 again, from the same seed)
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    prefixed = prefix_phase(torch, ops, serving, llama, lora_mod, params, cfg, args.seed, dev,
+                            card)
+    del params
+    for name, runs in prefixed["drains"].items():
+        launches_by_path[f"prefix_{name}"] = {
+            k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+    for name, run in prefixed["lora"]["drains"].items():
+        launches_by_path[f"multi_lora_{name}"] = run["launches"]
+
+    # ---- 8. result
     # each kernel's own launches: the flash counter also counts the
     # device-length entry's
     own = {k: {**path, "flash_attention": path["flash_attention"] - path["cached_attention"]}

@@ -2,7 +2,7 @@
 """Per-step kernel profile of the port's greedy decode step and serving
 tick on one CUDA card, for any checkout of the port.
 
-    python3 step_profile.py [--tree DIR] [--seed N]
+    python3 step_profile.py [--tree DIR] [--seed N] [--graph | --wrappers]
 
 Imports ``bobrapet_tpu_torch`` from DIR (default: this script's own
 checkout) and builds its kernels, makes Llama-3-8B at full width and
@@ -15,7 +15,10 @@ Both go through ``request_split`` and ``tick_profile`` of the
 ``chip_smoke.py`` beside this script, whatever DIR is, so two checkouts
 are counted by one definition: every kernel, PyTorch's elementwise
 kernels (``elementwise_kernel`` in the name) and the port's kernels, each
-per step. Prints one JSON line. Imports nothing of JAX.
+per step. With --wrappers it times instead each kernel wrapper's host
+microseconds per call (``wrapper_host_costs`` of the same
+``chip_smoke.py``) beside ``torch.add``, and makes no model. Prints one
+JSON line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--graph", action="store_true",
                     help="profile the greedy step as a CUDA graph")
+    ap.add_argument("--wrappers", action="store_true",
+                    help="time the kernel wrappers' host cost per call instead")
     args = ap.parse_args()
     smoke = smoke_helpers()
 
@@ -58,6 +63,14 @@ def main() -> None:
 
     kbuild.library()
     dev = torch.device("cuda", 0)
+    if args.wrappers:
+        from bobrapet_tpu_torch import ops
+
+        costs = smoke.wrapper_host_costs(torch, ops, torch.Generator(device=dev).manual_seed(
+            args.seed), dev)
+        print(json.dumps({"tree": str(args.tree), "card": smoke.card_line(),
+                          "host_us_per_call": costs}), flush=True)
+        return
     cfg = llama.llama3_8b()
     params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     prompt = torch.randint(0, cfg.vocab_size, (smoke.BATCH, smoke.PROMPT), device=dev,

@@ -140,3 +140,72 @@ def test_port_kernel_shares_sorts_instances_by_kernel(smoke):
     assert shares == {"paged_attention": {"ms_per_step": pytest.approx(0.2), "calls_per_step": 32.0},
                       "flash_attention": {"ms_per_step": pytest.approx(0.15), "calls_per_step": 33.0},
                       "rmsnorm": {"ms_per_step": pytest.approx(0.03), "calls_per_step": 65.0}}
+
+
+def test_prefix_traffic_is_the_unified_leg_of_config_14(smoke):
+    import torch
+
+    from bobrapet_tpu_torch.models.llama import llama_tiny
+
+    cfg = llama_tiny()
+    work = smoke.mixed_workload(torch, cfg, 0, 1, "cpu")
+    kinds = "".join(k[0] for _, _, k in work)
+    # two long requests, then one short, as bench.py interleaves them
+    assert kinds == "LLSLLSLLSLLSLLSLLSSS".lower()
+    longs = [p for p, _, k in work if k == "long"]
+    shorts = [p for p, _, k in work if k == "short"]
+    assert len(longs) == 12 and len(shorts) == 8
+    assert all(len(p) == 640 and p[:128] == longs[0][:128] for p in longs)
+    assert len({tuple(p[128:]) for p in longs}) == 12
+    assert sorted(len(p) for p in shorts) == [8, 8, 9, 9, 10, 10, 11, 11]
+    assert sum(n for _, n, _ in work) == 12 * 8 + 8 * 64 == 608
+    # the warm requests share the measured system prompt, not the tails
+    warm = smoke.mixed_workload(torch, cfg, 0, 2, "cpu", n_long=2, n_short=1)
+    assert [k for _, _, k in warm] == ["long", "long", "short"]
+    assert warm[0][0][:128] == longs[0][:128] and warm[0][0][128:] != longs[0][128:]
+
+
+def test_prefix_paging_fits_without_preemption(smoke):
+    from bobrapet_tpu_torch.ops.attention import kv_splits
+    from bobrapet_tpu_torch.serving import PagedConfig
+
+    a = PagedConfig(**smoke.PREFIX_PAGING)
+    b = PagedConfig(**smoke.ONESHOT_PAGING)
+    assert (a.prefix_caching, a.prefill_chunk) == (True, 128)
+    assert (b.prefix_caching, b.prefill_chunk) == (False, None)
+    long_total = smoke.SYSTEM_TOKENS + smoke.TAIL_TOKENS + smoke.LONG_NEW
+    assert long_total <= a.capacity == 656 and a.blocks_for(long_total) <= a.max_blocks_per_seq
+    # every slot holding a long request still leaves the pool room
+    assert a.max_slots * a.max_blocks_per_seq <= a.num_blocks - 1
+    # the chunks after a matched system prompt start at 128 .. 512
+    starts = list(range(smoke.SYSTEM_TOKENS, smoke.SYSTEM_TOKENS + smoke.TAIL_TOKENS,
+                        a.prefill_chunk))
+    assert starts == [128, 256, 384, 512] and starts[-1] == smoke.CHUNK_Q_OFFSET
+    # the decode tick's case: 41-block tables, lanes up to the longest request
+    assert max(smoke.PREFIX_PAGED_LENS) == long_total
+    assert kv_splits(a.capacity) == 8
+    pages = sum(-(-n // 16) for n in smoke.PREFIX_PAGED_LENS[1:])
+    assert pages <= a.num_blocks - 1
+
+
+def test_engine_launches_count_prefills_and_steps(smoke):
+    assert smoke.engine_launches(56, 100, 32) == {
+        "rmsnorm": 156 * 65, "add_rmsnorm": 156 * 64, "flash_attention": 56 * 32,
+        "cached_attention": 0, "paged_attention": 100 * 32}
+    assert smoke.PREFIX_ORDER == ("A", "B", "B", "A")
+
+
+def test_chunk_case_bound(smoke):
+    # q [1,128,32,128] + out, k/v [1,640,8,128], bf16; queries at 512..639
+    pairs = smoke.attention_pairs(128, 640, True, 512)
+    assert pairs == 128 * 512 + 128 * 129 // 2
+    nbytes = (2 * 128 * 32 * 128 + 2 * 640 * 8 * 128) * 2
+    flops = 4 * 128 * pairs * 32
+    assert round(nbytes / 1e6, 2) == 4.72 and round(flops / 1e9, 2) == 1.21
+    ms, by = smoke.bound(nbytes, flops, "bfloat16")
+    assert by == "bytes" and round(ms * 1e3, 2) == 1.41
+
+
+def test_pctl_is_the_nearest_rank(smoke):
+    assert smoke.pctl([3, 1, 2, 4], 0.5) == 3 and smoke.pctl(range(20), 0.95) == 19
+    assert smoke.pctl([5], 0.95) == 5

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from bobrapet_tpu_torch.graphs import GraphedStep
-from bobrapet_tpu_torch.models import llama
+from bobrapet_tpu_torch.models import llama, lora
 from bobrapet_tpu_torch.ops import (
     add_rmsnorm_cuda,
     cached_attention_cuda,
@@ -175,3 +175,69 @@ def test_tiny_engine_horizon_graph_equals_eager_and_cpu(cuda):
             assert step.graph is not None and step.replays == eng.phase_counts["horizons"] - 1
         outs[name, horizon] = {r.rid: r.output for r in eng.finished}
     assert outs["card", 4] == outs["card", 1] == outs["cpu", 4]
+
+
+def test_tiny_engine_prefix_chunk_lora_graph_equals_classic_and_cpu(cuda):
+    """Prefix caching, chunked prefill and three adapters over the zero one:
+    the horizon of 4 as a graph, the classic tick and the CPU give the same
+    tokens, and every prefill (one-shot, seeded or chunk) and every decode
+    step went through the kernels."""
+    cfg = llama.llama_tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    lcfg = lora.LoRAConfig(rank=4, alpha=8.0, sites=("wq", "wv", "w_down"))
+    gen = torch.Generator().manual_seed(3)
+    adapters = [lora.zero_lora(cfg, lcfg, "cpu")]
+    for _ in range(3):
+        a = lora.init_lora(gen, cfg, lcfg, "cpu")
+        adapters.append(lora._tree_map(
+            lambda leaf: leaf + 0.05 * torch.randn(leaf.shape, generator=gen), a))
+    stacked = lora.stack_adapters(adapters)
+    pcfg = PagedConfig(max_slots=3, block_size=8, num_blocks=48, max_blocks_per_seq=8,
+                       prefix_caching=True, prefill_chunk=16)
+    g = torch.Generator().manual_seed(2)
+    system = torch.randint(0, cfg.vocab_size, (16,), generator=g).tolist()
+    waves = [[(system + torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist(), a)
+              for n, a in ((30, 1), (5, 0), (12, 2))] for _ in range(2)]
+    waves[1].append((torch.randint(0, cfg.vocab_size, (6,), generator=g).tolist(), 3))
+    outs = {}
+    for name, dev, horizon in (("cpu", "cpu", 4), ("card", cuda, 1), ("card", cuda, 4)):
+        eng = ServingEngine(_to(params, dev), cfg, pcfg, loras=_to(stacked, dev),
+                            lora_scale=lcfg.scale, pipeline_decode=False,
+                            decode_horizon=horizon, dispatch_depth=1)
+        paged_attention_cuda.launches = rmsnorm_cuda.launches = 0
+        flash_attention_cuda.launches = 0
+        for wave in waves:
+            for i, (p, adapter) in enumerate(wave):
+                eng.submit(p, 5 + 2 * i, adapter=adapter)
+            eng.run()
+        steps, prefills = eng.phase_counts["device_steps"], eng.phase_counts["prefills"]
+        assert eng.blocks.hit_tokens >= 16 and eng.phase_counts["chunks"] > 0
+        if name == "card":
+            assert flash_attention_cuda.launches == prefills * cfg.n_layers
+            assert paged_attention_cuda.launches == steps * cfg.n_layers
+            assert rmsnorm_cuda.launches == (prefills + steps) * (2 * cfg.n_layers + 1)
+        if horizon > 1 and name == "card":
+            step, _ = eng._hz[horizon]
+            assert step.graph is not None and step.replays == eng.phase_counts["horizons"] - 1
+        outs[name, horizon] = {r.rid: r.output for r in eng.finished}
+    assert outs["card", 4] == outs["card", 1] == outs["cpu", 4]
+
+
+def test_the_jax_default_paged_config_serves_on_the_card(cuda):
+    """PagedConfig() as JAX defaults it (prefix caching on) at H = 8: the
+    card's tokens are the CPU's, and a repeated prompt hits the cache."""
+    cfg = llama.llama_tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in (40, 9, 23)]
+    outs = {}
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(_to(params, dev), cfg, PagedConfig(), decode_horizon=8,
+                            dispatch_depth=1)
+        for wave in (prompts, prompts[:1]):
+            for p in wave:
+                eng.submit(p, 12)
+            eng.run()
+        assert eng.blocks.hit_tokens == 32
+        outs[str(dev)] = {r.rid: r.output for r in eng.finished}
+    assert outs["cpu"] == outs[str(cuda)]

@@ -107,6 +107,8 @@ FLASH_CASES = [
     (3, 1, 64, 8, 1, 128, True, 63),        # group 8, Sk 64: one block
     (1, 64, 200, 32, 8, 128, True, 136),    # a chunk after a cached prefix
     (2, 1, 1, 4, 1, 32, True, 0),           # one key
+    (1, 128, 256, 32, 8, 128, True, 128),   # a prefill chunk after a 128-token prefix
+    (1, 128, 640, 32, 8, 128, True, 512),   # the last chunk of a 640-token prompt
 ]
 
 

@@ -398,14 +398,11 @@ class TestEngineSurface:
     @pytest.mark.parametrize("kwargs,pcfg_kw,match", [
         ({"decode_horizon": 8, "dispatch_depth": 2}, {}, "dispatch_depth=1"),
         ({"dispatch_depth": 2}, {}, "dispatch_depth=1"),
-        ({}, {"prefix_caching": True}, "prefix_caching=False"),
-        ({}, {"prefill_chunk": 32}, "prefill_chunk=None"),
-        ({"loras": {"layers": []}}, {}, "loras=None"),
         ({"draft_params": {}}, {}, "draft_params=None"),
         ({"role": "prefill"}, {}, "role='unified'"),
         ({"role": "decode"}, {}, "role='unified'"),
         ({"moe": True}, {}, "dense LlamaConfig"),
-    ], ids=["horizon_depth", "depth", "prefix", "chunk", "lora", "draft", "prefill", "decode", "moe"])
+    ], ids=["horizon_depth", "depth", "draft", "prefill", "decode", "moe"])
     def test_unported_paths_raise(self, tiny, kwargs, pcfg_kw, match):
         _, params_t = tiny["float"]
         cfg = tiny["cfg_t"]
@@ -415,6 +412,32 @@ class TestEngineSurface:
         pcfg = PagedConfig(**{"prefix_caching": False, **pcfg_kw})
         with pytest.raises(NotImplementedError, match=match.replace("(", r"\(")):
             ServingEngine(params_t, cfg, pcfg, **kw)
+
+    def test_cross_engine_prefix_sharing_raises_naming_item_7(self, tiny):
+        _, params_t = tiny["float"]
+        eng = ServingEngine(params_t, tiny["cfg_t"], PagedConfig(), decode_horizon=1,
+                            dispatch_depth=1)
+        eng.set_prefix_sharing(False)  # local-only, as it always is
+        with pytest.raises(NotImplementedError, match="item 7"):
+            eng.set_prefix_sharing(True)
+
+    @pytest.mark.parametrize("horizon", [1, 8])
+    def test_the_jax_default_paged_config_serves(self, tiny, horizon):
+        """PagedConfig() (prefix caching on, as JAX's default) constructs and
+        serves at dispatch_depth=1, a repeated prompt hitting its cache."""
+        _, params_t = tiny["float"]
+        eng = ServingEngine(params_t, tiny["cfg_t"], PagedConfig(), decode_horizon=horizon,
+                            dispatch_depth=1)
+        assert eng.pcfg.prefix_caching and eng.pcfg == PagedConfig()
+        prompt = _prompt(90, 40, tiny["cfg_t"].vocab_size)
+        first = eng.submit(prompt, 6)
+        eng.run()
+        again = eng.submit(prompt, 6)
+        eng.run()
+        out = _outputs(eng)
+        assert out[first] == out[again] and len(out[first]) == 6
+        assert eng.blocks.hit_tokens == 32
+        assert eng.allocator.free_blocks == PagedConfig().num_blocks - 1
 
     def test_defaults_ask_for_the_unported_depth(self, tiny):
         _, params_t = tiny["float"]
