@@ -327,9 +327,12 @@ struct CachedPolicy : DensePolicy<D_> {
   __device__ int key_limit(int b, int r) const { return lens[b] - this->sq + r / this->group; }
 };
 
-// Paged: q, o [S, Hkv * group, D]; pools [N, B, Hkv, D] of one layer read
-// in place; int32 tables [S, MB] and seq_lens [S] on the device. Key t of
-// sequence s lives in page tables[s, t / B] at row t % B.
+// Paged: q, o [S, sq, Hkv * group, D]; pools [N, B, Hkv, D] of one layer
+// read in place; int32 tables [S, MB] and seq_lens [S] on the device. Key
+// t of sequence s lives in page tables[s, t / B] at row t % B. Query i of
+// sequence s sits at seq_lens[s] - sq + i and sees the keys up to its own
+// position (the cached rule): with sq = 1 every key below seq_lens[s].
+// Packed row r is (query r / group, q head h * group + r % group).
 template <int D_>
 struct PagedPolicy {
   static constexpr int kD = D_;
@@ -340,19 +343,19 @@ struct PagedPolicy {
   bf16* o;
   const int* tables;
   const int* seq_lens;
-  int hkv, group, block_size, max_blocks, num_blocks;
+  int sq, hkv, group, block_size, max_blocks, num_blocks;
   float scale_log2;
 
-  __device__ int rows() const { return group; }
+  __device__ int rows() const { return sq * group; }
   // a length past the table's capacity counts as the capacity
   __device__ int keys(int s) const { return min(max(seq_lens[s], 0), max_blocks * block_size); }
-  __device__ int key_limit(int, int) const { return 0x7fffffff; }
-  __device__ const bf16* q_row(int s, int h, int r) const {
-    return q + (static_cast<long long>(s) * hkv * group + h * group + r) * kD;
+  __device__ int key_limit(int s, int r) const { return seq_lens[s] - sq + r / group; }
+  __device__ long long row_off(int s, int h, int r) const {
+    return ((static_cast<long long>(s) * sq + r / group) * hkv * group + h * group + r % group) *
+           kD;
   }
-  __device__ bf16* o_row(int s, int h, int r) const {
-    return o + (static_cast<long long>(s) * hkv * group + h * group + r) * kD;
-  }
+  __device__ const bf16* q_row(int s, int h, int r) const { return q + row_off(s, h, r); }
+  __device__ bf16* o_row(int s, int h, int r) const { return o + row_off(s, h, r); }
   // the table entries of the pages that hold keys [k_begin, k_end), once
   __device__ void load_table(int* tbl, int s, int k_begin, int k_end, int tid) const {
     if (k_end <= k_begin) return;
@@ -375,9 +378,15 @@ struct PagedPolicy {
 };
 
 // ---------------------------------------------------------------------------
-// the decode core: at most 16 packed rows of one (kv head, sequence)
+// the decode core: tiles of 16 packed rows of one (kv head, sequence)
 //
-// Grid (C, Hkv, B or slots), cluster (C, 1, 1). Block `rank` of the
+// Grid (C, Hkv, B x row tiles), cluster (C, 1, 1). A block holds one m16
+// tile of packed rows, rows [16 * tile, 16 * tile + 16) of the
+// (sequence, kv head): a call with more than 16 packed rows (a T-query
+// verify, a draft catch-up, a multi-token cached decode) puts its tiles on
+// the grid's z axis beside the sequences, each tile reading the keys its
+// rows may see (its K/V tiles come from L2 for all but the first). Block
+// `rank` of the
 // cluster takes keys [rank * chunk, (rank + 1) * chunk) of the n that the
 // sequence holds, chunk = ceil(n / C) rounded up to 16; its 4 warps take
 // 16 keys each of every 64-key tile in its range, so a block's K/V tiles
@@ -448,10 +457,14 @@ decode_attention_kernel(const Policy P, const DecodeLayout L) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int splits = static_cast<int>(cluster.num_blocks());
-  const int h = blockIdx.y, seq = blockIdx.z;
+  // z: the sequence and its tile of packed rows (the tiles of a sequence
+  // are adjacent)
+  const int tiles = (P.rows() + kDecodeRows - 1) / kDecodeRows;
+  const int h = blockIdx.y, seq = blockIdx.z / tiles;
+  const int row0 = (blockIdx.z % tiles) * kDecodeRows;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  const int rows = P.rows();
+  const int rows = min(kDecodeRows, P.rows() - row0);
   const int n = P.keys(seq);
   const int chunk = (n + splits * 16 - 1) / (splits * 16) * 16;
   const int k_begin = min(n, rank * chunk), k_end = min(n, k_begin + chunk);
@@ -461,7 +474,7 @@ decode_attention_kernel(const Policy P, const DecodeLayout L) {
   for (int e = tid; e < kDecodeRows * kChunks; e += kThreads) {
     const int r = e / kChunks, c = e % kChunks;
     const bool ok = r < rows;
-    cp_async16(smem_u32(q_s) + tile_offset<D>(r, c), (ok ? P.q_row(seq, h, r) : P.q) + c * 8, ok);
+    cp_async16(smem_u32(q_s) + tile_offset<D>(r, c), (ok ? P.q_row(seq, h, row0 + r) : P.q) + c * 8, ok);
   }
   if constexpr (Policy::kPaged) {
     P.load_table(tbl, seq, k_begin, k_end, tid);
@@ -506,7 +519,7 @@ decode_attention_kernel(const Policy P, const DecodeLayout L) {
   for (int j = 0; j < kNO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int limit[2] = {P.key_limit(seq, g), P.key_limit(seq, g + 8)};
+  const int limit[2] = {P.key_limit(seq, row0 + g), P.key_limit(seq, row0 + g + 8)};
 
   for (int t = 0; t < n_tiles; ++t) {
     switch (L.stages) {
@@ -623,17 +636,18 @@ decode_attention_kernel(const Policy P, const DecodeLayout L) {
         acc.y += x.y * f;
       }
       const float inv = sum == 0.f ? 0.f : 1.f / sum;
-      *reinterpret_cast<__nv_bfloat162*>(P.o_row(seq, h, r) + c) =
+      *reinterpret_cast<__nv_bfloat162*>(P.o_row(seq, h, row0 + r) + c) =
           __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
     }
   }
 }
 
 // Set the kernel's dynamic shared-memory limit once per device, then
-// launch it on a cluster of `splits` blocks along x. max_chunk is the most
-// keys a block can get (from the static size the split was chosen from).
-// Returns the cudaError_t; a refused cluster launch is an error, never
-// retried.
+// launch it on a cluster of `splits` blocks along x, one block a tile of
+// 16 of the `rows` packed rows of each (kv head, batch row). max_chunk is
+// the most keys a block can get (from the static size the split was
+// chosen from). Returns the cudaError_t; a refused cluster launch is an
+// error, never retried.
 template <class Policy>
 int launch_decode(const Policy& P, int rows, int splits, int max_chunk, int heads, int batch,
                   int table_entries, cudaStream_t st) {
@@ -641,7 +655,10 @@ int launch_decode(const Policy& P, int rows, int splits, int max_chunk, int head
   if (splits != 1 && splits != 2 && splits != 4 && splits != 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (rows < 1 || rows > kDecodeRows) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (static_cast<long long>(rows) + kDecodeRows - 1) / kDecodeRows;
+  if (rows < 1 || batch < 1 || tiles * batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   static int sm_count[64] = {};  // per device; 0 until the first launch there
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -657,11 +674,12 @@ int launch_decode(const Policy& P, int rows, int splits, int max_chunk, int head
     sm_count[dev] = sms;
   }
   DecodeLayout L;
-  const bool few_blocks = static_cast<long long>(splits) * heads * batch <= sm_count[dev];
-  const int smem = decode_layout<D>(rows, splits, max_chunk, table_entries, few_blocks, &L);
+  const bool few_blocks = splits * heads * tiles * batch <= sm_count[dev];
+  const int smem = decode_layout<D>(rows < kDecodeRows ? rows : kDecodeRows, splits, max_chunk,
+                                    table_entries, few_blocks, &L);
   if (smem > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, heads, batch);
+  cfg.gridDim = dim3(splits, heads, static_cast<unsigned>(tiles * batch));
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;

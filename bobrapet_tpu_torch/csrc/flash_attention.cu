@@ -53,8 +53,10 @@
 // probability 0, query i at lens[b] - Sq + i. Nothing of the launch then
 // changes from one greedy step to the next, so a CUDA graph replays it.
 // bf16 takes the decode core with the cached policy (the split from the
-// cache's capacity, never from a length), fp32 the scalar kernel reading
-// the same array. Its bound is the decode's: the valid K/V rows, once.
+// cache's capacity, never from a length), at any Sq x group: above 16
+// packed rows (the standalone speculative verify, Sq = k + 1) the rows go
+// in tiles of 16 on the grid. fp32 takes the scalar kernel reading the
+// same array. Its bound is the decode's: the valid K/V rows, once.
 
 #include <math.h>
 
@@ -383,15 +385,14 @@ int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int 
   return launch_decode(P, sq * group, splits, split_chunk(sk, splits), hkv, b, 0, st);
 }
 
-// the decode core over a whole cache of `cap` rows with device lengths
+// the decode core over a whole cache of `cap` rows with device lengths,
+// 16 packed rows a block
 template <int D>
 int launch_cached_bf16(const void* q, const void* k, const void* v, void* o, const int* lens,
                        int b, int sq, int cap, int hkv, int group, long long q_sb, long long q_ss,
                        long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                        long long o_sb, long long o_ss, float scale, int splits, cudaStream_t st) {
-  if (static_cast<long long>(sq) * group > kDecodeRows || splits < 1 || splits > kMaxSplits) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (splits < 1 || splits > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
   CachedPolicy<D> P;
   P.q = static_cast<const bf16*>(q);
   P.k = static_cast<const bf16*>(k);
@@ -475,9 +476,9 @@ extern "C" int bobra_flash_attention(const void* q, const void* k, const void* v
 // cache k/v [b, cap, hq/group, d] (heads packed, batch and sequence
 // strides free), lens [b] int32 on the device. Row b's queries sit at
 // lens[b] - sq ..., keys at or past lens[b] are not read. splits: 1, 2, 4
-// or 8 in bf16 (sq * group <= 16: the decode core, its keys split across
-// a cluster of that many blocks), 0 in fp32 (the scalar kernel). Returns
-// the cudaError_t of the launch.
+// or 8 in bf16 (the decode core, its keys split across a cluster of that
+// many blocks, the sq * group packed rows in tiles of 16), 0 in fp32 (the
+// scalar kernel). Returns the cudaError_t of the launch.
 extern "C" int bobra_cached_attention(const void* q, const void* k, const void* v, void* o,
                                       const void* lens, int b, int sq, int cap, int hq,
                                       int group, int d, long long q_sb, long long q_ss,

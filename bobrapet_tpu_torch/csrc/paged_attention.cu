@@ -1,7 +1,13 @@
-// Paged decode attention: one query per sequence over KV pages read in place.
+// Paged decode attention: one query per sequence over KV pages read in place,
+// or T queries per sequence (a speculative verify, a draft catch-up).
 //
 // Replaces: bobrapet_tpu/serving/engine.py:_paged_attention_pallas, which calls
 // jax.experimental's TPU paged_attention kernel (paged_attention_kernel.py:376).
+// The T-query entry, bobra_paged_attention_multi, replaces the XLA function
+// bobrapet_tpu/serving/spec_decode.py:_paged_attention_multi (query t of slot
+// s attends the cache positions <= pos0[s] + t, its own write included): the
+// caller passes lens = pos0 + T, and query i then sits at lens - T + i, the
+// cached kernel's causal rule. T = 1 is bobra_paged_attention, bit for bit.
 // It computes what the engine runs by default, engine.py:_paged_attention (the
 // einsum route): scores scaled by 1/sqrt(D) in fp32 (the Pallas route passes q
 // unscaled and applies no scale), keys at positions >= seq_len masked, softmax
@@ -26,7 +32,8 @@
 // Two kernels, chosen by dtype:
 //
 // * bf16: attention_core.cuh's decode core with the paged policy. The GQA
-//   group's q rows fill one m16 tile of the tensor cores; a sequence's keys
+//   group's q rows (T x group packed rows for T queries) fill m16 tiles of
+//   the tensor cores, one tile a block, the tiles on the grid; a sequence's keys
 //   are split across a thread-block cluster of C blocks (C from the table's
 //   capacity, on the host: the wrapper never reads tables or lengths), grid
 //   (C, Hkv, slots). Each block loads its slice of the table row once, then
@@ -36,9 +43,9 @@
 //   state into rank 0, which combines the cluster: one launch, no atomics,
 //   deterministic.
 // * fp32: the scalar kernel below, exact in fp32 (the tensor cores would
-//   run fp32 as TF32): one block of 128 threads per (kv head, sequence)
-//   holding the group's rows, 32-key tiles staged as fp32 in shared memory,
-//   one key per lane, scalar FMAs.
+//   run fp32 as TF32): one block of 128 threads per (kv head, sequence,
+//   query) holding the group's rows, 32-key tiles staged as fp32 in shared
+//   memory, one key per lane, scalar FMAs.
 
 #include <math.h>
 #include <stdint.h>
@@ -59,8 +66,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kPagedThreads)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                        const T* __restrict__ v_pool, const int* __restrict__ tables,
-                       const int* __restrict__ seq_lens, T* __restrict__ o, int hkv, int group,
-                       int block_size, int max_blocks, int num_blocks, float scale) {
+                       const int* __restrict__ seq_lens, T* __restrict__ o, int sq, int hkv,
+                       int group, int block_size, int max_blocks, int num_blocks, float scale) {
   static_assert(kPagedThreads % D == 0, "unsupported head dim");
   constexpr int kPack = 16 / sizeof(T);           // elements per 16-byte load
   constexpr int kVecPerRow = D / kPack;
@@ -76,13 +83,14 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
   const int h = blockIdx.x;  // kv head
   const int s = blockIdx.y;  // sequence (slot)
+  const int qi = blockIdx.z;  // query: at seq_lens[s] - sq + qi, sees the keys up to it
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // the group's q rows (heads h*group ...) are contiguous: [group, D]
-  const long long q_row0 = (static_cast<long long>(s) * hkv + h) * group;
+  // the group's q rows (heads h*group ...) of query qi are contiguous: [group, D]
+  const long long q_row0 = ((static_cast<long long>(s) * sq + qi) * hkv + h) * group;
   const T* qb = q + q_row0 * D;
   T* ob = o + q_row0 * D;
   const int* table = tables + static_cast<long long>(s) * max_blocks;
-  const int n = min(max(seq_lens[s], 0), max_blocks * block_size);
+  const int n = min(max(seq_lens[s] - sq + qi + 1, 0), max_blocks * block_size);
   const long long token_stride = static_cast<long long>(hkv) * D;
 
   for (int e = tid; e < group * D; e += kPagedThreads) {
@@ -187,14 +195,14 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 }
 
 int launch_paged_f32(const float* q, const float* k_pool, const float* v_pool, const int* tables,
-                     const int* seq_lens, float* o, int slots, int hkv, int group, int d,
+                     const int* seq_lens, float* o, int slots, int sq, int hkv, int group, int d,
                      int block_size, int max_blocks, int num_blocks, float scale,
                      cudaStream_t st) {
-  const dim3 grid(hkv, slots);
+  const dim3 grid(hkv, slots, sq);
 #define BOBRA_PAGED(DD)                                                                        \
   paged_attention_kernel<float, DD><<<grid, kPagedThreads, 0, st>>>(                           \
-      q, k_pool, v_pool, tables, seq_lens, o, hkv, group, block_size, max_blocks, num_blocks,   \
-      scale)
+      q, k_pool, v_pool, tables, seq_lens, o, sq, hkv, group, block_size, max_blocks,           \
+      num_blocks, scale)
   switch (d) {
     case 32: BOBRA_PAGED(32); break;    // llama_tiny
     case 128: BOBRA_PAGED(128); break;  // llama3_1b, llama3_8b
@@ -208,7 +216,7 @@ namespace attn {
 
 template <int D>
 int launch_paged_bf16(const void* q, const void* k_pool, const void* v_pool, const int* tables,
-                      const int* seq_lens, void* o, int slots, int hkv, int group,
+                      const int* seq_lens, void* o, int slots, int sq, int hkv, int group,
                       int block_size, int max_blocks, int num_blocks, float scale, int splits,
                       cudaStream_t st) {
   PagedPolicy<D> P;
@@ -218,6 +226,7 @@ int launch_paged_bf16(const void* q, const void* k_pool, const void* v_pool, con
   P.o = static_cast<bf16*>(o);
   P.tables = tables;
   P.seq_lens = seq_lens;
+  P.sq = sq;
   P.hkv = hkv;
   P.group = group;
   P.block_size = block_size;
@@ -226,28 +235,25 @@ int launch_paged_bf16(const void* q, const void* k_pool, const void* v_pool, con
   P.scale_log2 = scale * kLog2e;
   if (splits < 1 || splits > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
   const int capacity = max_blocks * block_size;
-  return launch_decode(P, group, splits, split_chunk(capacity, splits), hkv, slots,
+  return launch_decode(P, sq * group, splits, split_chunk(capacity, splits), hkv, slots,
                        paged_table_entries(capacity, splits, block_size), st);
 }
 
 }  // namespace attn
 }  // namespace bobra
 
-// q, o: [slots, hkv * group, d]; k_pool, v_pool: [num_blocks, block_size, hkv, d],
-// all contiguous and of one type, the pools (and in bf16 q and o) 16-byte
-// aligned; tables: int32 [slots, max_blocks]; seq_lens: int32 [slots]. splits: 0 for fp32 (the
-// scalar kernel); 1, 2, 4 or 8 for bf16, the blocks of the cluster that
-// split a sequence's keys. Returns the cudaError_t of the launch.
-extern "C" int bobra_paged_attention(const void* q, const void* k_pool, const void* v_pool,
-                                     const void* tables, const void* seq_lens, void* o,
-                                     int slots, int hkv, int group, int d, int block_size,
-                                     int max_blocks, int num_blocks, float scale, int splits,
-                                     int dtype, void* stream) {
+namespace {
+
+// both entries: sq queries per sequence (1 for the one-query entry)
+int paged_attention(const void* q, const void* k_pool, const void* v_pool, const void* tables,
+                    const void* seq_lens, void* o, int slots, int sq, int hkv, int group, int d,
+                    int block_size, int max_blocks, int num_blocks, float scale, int splits,
+                    int dtype, void* stream) {
   using namespace bobra;
   const uintptr_t pools = reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool);
   const uintptr_t rows = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(o);
-  if (slots <= 0 || slots > 65535 || hkv <= 0 || hkv > 65535 || group <= 0 ||
-      group > kMaxGroup || block_size <= 0 || max_blocks <= 0 || num_blocks <= 0 ||
+  if (slots <= 0 || slots > 65535 || sq <= 0 || sq > 65535 || hkv <= 0 || hkv > 65535 ||
+      group <= 0 || group > kMaxGroup || block_size <= 0 || max_blocks <= 0 || num_blocks <= 0 ||
       static_cast<long long>(max_blocks) * block_size > 0x7fffffff || pools % 16 != 0 ||
       (dtype == kBFloat16 && rows % 16 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -260,15 +266,16 @@ extern "C" int bobra_paged_attention(const void* q, const void* k_pool, const vo
     if (splits != 0) return static_cast<int>(cudaErrorInvalidValue);
     err = launch_paged_f32(static_cast<const float*>(q), static_cast<const float*>(k_pool),
                            static_cast<const float*>(v_pool), tp, lp, static_cast<float*>(o),
-                           slots, hkv, group, d, block_size, max_blocks, num_blocks, scale, st);
+                           slots, sq, hkv, group, d, block_size, max_blocks, num_blocks, scale,
+                           st);
   } else if (dtype == kBFloat16) {
     switch (d) {
       case 32:
-        err = attn::launch_paged_bf16<32>(q, k_pool, v_pool, tp, lp, o, slots, hkv, group,
+        err = attn::launch_paged_bf16<32>(q, k_pool, v_pool, tp, lp, o, slots, sq, hkv, group,
                                           block_size, max_blocks, num_blocks, scale, splits, st);
         break;
       case 128:
-        err = attn::launch_paged_bf16<128>(q, k_pool, v_pool, tp, lp, o, slots, hkv, group,
+        err = attn::launch_paged_bf16<128>(q, k_pool, v_pool, tp, lp, o, slots, sq, hkv, group,
                                            block_size, max_blocks, num_blocks, scale, splits, st);
         break;
       default: return static_cast<int>(cudaErrorInvalidValue);
@@ -278,4 +285,34 @@ extern "C" int bobra_paged_attention(const void* q, const void* k_pool, const vo
   }
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, o: [slots, hkv * group, d]; k_pool, v_pool: [num_blocks, block_size, hkv, d],
+// all contiguous and of one type, the pools (and in bf16 q and o) 16-byte
+// aligned; tables: int32 [slots, max_blocks]; seq_lens: int32 [slots]. splits: 0 for fp32 (the
+// scalar kernel); 1, 2, 4 or 8 for bf16, the blocks of the cluster that
+// split a sequence's keys. Returns the cudaError_t of the launch.
+extern "C" int bobra_paged_attention(const void* q, const void* k_pool, const void* v_pool,
+                                     const void* tables, const void* seq_lens, void* o,
+                                     int slots, int hkv, int group, int d, int block_size,
+                                     int max_blocks, int num_blocks, float scale, int splits,
+                                     int dtype, void* stream) {
+  return paged_attention(q, k_pool, v_pool, tables, seq_lens, o, slots, 1, hkv, group, d,
+                         block_size, max_blocks, num_blocks, scale, splits, dtype, stream);
+}
+
+// The T-query entry: q, o [slots, sq, hkv * group, d], the rest as above,
+// lens [slots] int32 = pos0 + sq, where query i of slot s sits at position
+// pos0[s] + i and attends the keys at positions <= it. In bf16 the sq x
+// group packed rows go in tiles of 16, one block a tile. Returns the
+// cudaError_t of the launch.
+extern "C" int bobra_paged_attention_multi(const void* q, const void* k_pool, const void* v_pool,
+                                           const void* tables, const void* lens, void* o,
+                                           int slots, int sq, int hkv, int group, int d,
+                                           int block_size, int max_blocks, int num_blocks,
+                                           float scale, int splits, int dtype, void* stream) {
+  return paged_attention(q, k_pool, v_pool, tables, lens, o, slots, sq, hkv, group, d,
+                         block_size, max_blocks, num_blocks, scale, splits, dtype, stream);
 }

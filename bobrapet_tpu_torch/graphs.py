@@ -39,12 +39,13 @@ from typing import Any, Callable
 import torch
 
 from .ops.attention import cached_attention_cuda, flash_attention_cuda
-from .ops.paged_attention import paged_attention_cuda
+from .ops.paged_attention import paged_attention_cuda, paged_attention_multi_cuda
+from .ops.quant_matmul import quant_matmul_cuda
 from .ops.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
 
 #: every kernel wrapper with a ``launches`` counter
 COUNTED = (rmsnorm_cuda, add_rmsnorm_cuda, flash_attention_cuda, cached_attention_cuda,
-           paged_attention_cuda)
+           paged_attention_cuda, paged_attention_multi_cuda, quant_matmul_cuda)
 
 
 class GraphedStep:

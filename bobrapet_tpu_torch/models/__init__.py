@@ -1,4 +1,5 @@
-"""Model families in PyTorch (the Llama family so far, with LoRA adapters)."""
+"""Model families in PyTorch (the Llama family so far, with LoRA adapters),
+and standalone speculative decoding."""
 
 from . import lora
 from .bridge import params_from_numpy
@@ -13,8 +14,11 @@ from .llama import (
     llama_tiny,
 )
 from .quant import quantize_params, tree_bytes
+from .speculative import SpecResult, speculative_generate
 
 __all__ = [
+    "SpecResult",
+    "speculative_generate",
     "LlamaConfig",
     "forward",
     "greedy_generate",

@@ -4,8 +4,12 @@ Counterpart of ``bobrapet_tpu/models/quant.py``, same scheme and the same
 rounding: every 2-D float matmul weight outside the skip list becomes
 ``{"q": int8, "scale": [out] in the weight's dtype}`` with a
 per-output-column absmax scale; 1-D norm gains and the embedding table
-stay as they are. Plain PyTorch: the JAX package leaves these products to
-XLA, and the port leaves them to ``torch.matmul``.
+stay as they are. A product with an int8 leaf runs the plain PyTorch
+version on the CPU and the port's int8 kernel on a card
+(:func:`~bobrapet_tpu_torch.ops.quant_matmul.quant_matmul_cuda`, which
+never writes the widened weight, as XLA's fused product does not); a
+product with a plain weight stays ``torch.matmul``, as the JAX package
+leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+
+from ..ops.quant_matmul import quant_matmul_cuda, quant_matmul_reference
 
 #: param-tree keys never quantized (gather tables + tied heads)
 _SKIP_NAMES = {"embed"}
@@ -51,10 +57,13 @@ def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
 
     For the int8 leaf the per-column scale factors out of the contraction,
     in the JAX order: ``(x @ q.to(x.dtype)) * scale.to(x.dtype)``, so the
-    product is rounded to x's type before the scale multiply."""
+    product is rounded to x's type before the scale multiply. On the CPU
+    that is the plain version; on a card the int8 kernel, which refuses
+    what it does not take (it never falls back to the plain version)."""
     if is_quantized(w):
-        out = x @ w["q"].to(x.dtype)
-        return out * w["scale"].to(x.dtype)
+        if x.device.type == "cpu":
+            return quant_matmul_reference(x, w["q"], w["scale"])
+        return quant_matmul_cuda(x, w["q"], w["scale"])
     return x @ w
 
 

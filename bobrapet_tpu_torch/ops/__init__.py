@@ -8,7 +8,15 @@ from .attention import (
     cached_attention_reference,
     flash_attention_cuda,
 )
-from .paged_attention import paged_attention, paged_attention_cuda, paged_attention_reference
+from .paged_attention import (
+    paged_attention,
+    paged_attention_cuda,
+    paged_attention_multi,
+    paged_attention_multi_cuda,
+    paged_attention_multi_reference,
+    paged_attention_reference,
+)
+from .quant_matmul import quant_matmul_cuda, quant_matmul_reference
 from .rmsnorm import (
     add_rmsnorm,
     add_rmsnorm_cuda,
@@ -31,7 +39,12 @@ __all__ = [
     "flash_attention_cuda",
     "paged_attention",
     "paged_attention_cuda",
+    "paged_attention_multi",
+    "paged_attention_multi_cuda",
+    "paged_attention_multi_reference",
     "paged_attention_reference",
+    "quant_matmul_cuda",
+    "quant_matmul_reference",
     "rmsnorm",
     "rmsnorm_cuda",
     "rmsnorm_reference",

@@ -220,8 +220,9 @@ def cached_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch ``bobra_cached_attention`` (``csrc/flash_attention.cu``): q
     [B, Sq, Hq, D] over a whole cache k/v [B, cap, Hkv, D] with int32
     ``lens [B]`` on the same card. The wrapper never reads ``lens``; in
-    bf16 (at most 16 packed rows: the decode core) the keys are split by
-    :func:`kv_splits` of the capacity, in fp32 the scalar kernel runs.
+    bf16 the decode core runs (the Sq x group packed rows in tiles of 16,
+    one block a tile, so a multi-token verify takes it too) with the keys
+    split by :func:`kv_splits` of the capacity, in fp32 the scalar kernel.
     Batch and sequence strides are free, heads packed. Counts into its
     own ``launches`` and into ``flash_attention_cuda.launches`` (a kernel
     of the same source). Raises on what the kernel does not take; it never
@@ -251,15 +252,11 @@ def cached_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("cached_attention_cuda: empty input")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_heads_packed(name, t)
-    route = flash_route(sq, hq // hkv, q.dtype)
-    if route == "rows":
-        raise ValueError(
-            f"cached_attention_cuda takes at most {DECODE_ROWS} packed rows (Sq x group) in "
-            f"bf16, got {sq} x {hq // hkv}")
-    if route == "decode":
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             check_aligned(f"cached_attention_cuda: {name}", t, (t.stride(0), t.stride(1)))
-    splits = kv_splits(cap) if route == "decode" else 0
+    splits = kv_splits(cap) if bf16 else 0
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     fn = kernel_function("bobra_cached_attention", _CACHED_ARGTYPES)
     err = launch(fn, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

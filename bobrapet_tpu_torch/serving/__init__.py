@@ -1,6 +1,7 @@
 """Serving: continuous batching over a paged KV cache (engine.py,
-paged_cache.py) with prefix caching (prefix_cache.py), chunked prefill
-and multi-LoRA; greedy, at dispatch depth 1."""
+paged_cache.py) with prefix caching (prefix_cache.py), chunked prefill,
+multi-LoRA and speculative decoding (spec_decode.py); greedy, at dispatch
+depth 1."""
 
 from .engine import Request, ServingEngine
 from .paged_cache import BlockAllocator, PagedConfig

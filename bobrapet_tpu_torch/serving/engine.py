@@ -1,11 +1,12 @@
 """Continuous-batching serving engine over the paged KV cache.
 
-Counterpart of ``bobrapet_tpu/serving/engine.py``, sub-slices (a), (b)
-and (d): the classic single-step engine and the fused decode horizon, at
-``dispatch_depth=1``, greedy, with prefix caching, chunked prefill and
-multi-LoRA. Requests stream through a fixed set of slots: a request is
-admitted the moment a slot and enough KV blocks are free, decodes fused
-with every other live request, and leaves the instant it finishes.
+Counterpart of ``bobrapet_tpu/serving/engine.py``, sub-slices (a), (b),
+(d) and (e): the classic single-step engine and the fused decode horizon,
+at ``dispatch_depth=1``, greedy, with prefix caching, chunked prefill,
+multi-LoRA and speculative decoding. Requests stream through a fixed set
+of slots: a request is admitted the moment a slot and enough KV blocks
+are free, decodes fused with every other live request, and leaves the
+instant it finishes.
 
 - One decode step for every slot: liveness is a mask, never a shape;
   inactive slots compute garbage that lands in the scratch block.
@@ -44,10 +45,22 @@ with every other live request, and leaves the instant it finishes.
   ``[H, S]`` and the lane state after it. On a card the horizon is one
   CUDA graph per H (:class:`~bobrapet_tpu_torch.graphs.GraphedStep`),
   replayed once per tick: the JAX engine's ``lax.scan``.
+- Speculative decoding (``draft_params``, ``draft_cfg``, ``spec_k``;
+  :mod:`.spec_decode`): a draft model over its own pools (every prefill is
+  mirrored into them) proposes ``spec_k`` tokens a slot, one ``k + 1``-token
+  target step verifies them, and the greedy-exact accept prefix is
+  committed. The classic tick speculates once per tick; a horizon runs
+  ``ceil(H / (k + 1))`` draft + verify rounds with the lane state on the
+  device, one CUDA graph each for draft and verify per ``(k, rounds)``,
+  and the host reads the commits once a horizon. A plain tick or horizon
+  on a draft engine catches the draft pools up. The payoff guard first
+  alternates speculative and plain decoding, measuring tokens per second
+  each way, and keeps the draft only if it pays (``spec_guard``).
 
 On a card every norm (each but the first fused with the residual add
-before it), the prefill attention and the decode attention launch the
-port's kernels; on the CPU their plain versions run.
+before it), the prefill attention, the decode attention (one query a slot,
+or T: a verify, a draft catch-up) and every int8 product launch the port's
+kernels; on the CPU their plain versions run.
 """
 
 from __future__ import annotations
@@ -56,6 +69,7 @@ import dataclasses
 import functools
 import time
 from collections import deque
+from statistics import median
 from typing import Any, Optional
 
 import numpy as np
@@ -83,6 +97,14 @@ from .paged_cache import (
     write_prefill,
 )
 from .prefix_cache import PrefixCache
+from .spec_decode import (
+    _draft_append,
+    _draft_sync_block,
+    _spec_accept,
+    _spec_draft,
+    _spec_step,
+    _spec_verify,
+)
 
 
 @dataclasses.dataclass
@@ -192,9 +214,13 @@ def _not_ported(what: str, instead: str, sub_slice: str) -> NotImplementedError:
         f"engine sub-slice {sub_slice})")
 
 
+def _is_moe(cfg: Any) -> bool:
+    return getattr(cfg, "n_experts", None) is not None
+
+
 class ServingEngine:
-    """See the module docstring. The params tree may be int8
-    (``models.quant``); the pools live on the device of the weights."""
+    """See the module docstring. The params tree (and a draft's) may be
+    int8 (``models.quant``); the pools live on the device of the weights."""
 
     ROLES = frozenset({"unified", "prefill", "decode"})
 
@@ -202,6 +228,11 @@ class ServingEngine:
                  pcfg: Optional[PagedConfig] = None,
                  loras: Optional[Any] = None, lora_scale: float = 1.0,
                  draft_params: Optional[Any] = None,
+                 draft_cfg: Optional[LlamaConfig] = None,
+                 spec_k: int = 4,
+                 spec_guard: bool = True,
+                 spec_guard_ticks: int = 6,
+                 spec_guard_margin: float = 0.05,
                  pipeline_decode: bool = True,
                  decode_horizon: int = 8,
                  dispatch_depth: int = 2,
@@ -214,10 +245,31 @@ class ServingEngine:
             raise ValueError(f"role must be one of {sorted(self.ROLES)}, got {role!r}")
         pcfg = pcfg or PagedConfig()
         if dispatch_depth > 1:
+            if draft_params is not None:
+                raise _not_ported("a draft engine's depth-N pipeline (its speculative commit "
+                                  "watch)", "dispatch_depth=1", "(c)")
             raise _not_ported("the depth-N dispatch pipeline", "dispatch_depth=1", "(c)")
         if draft_params is not None:
-            raise _not_ported("speculative decoding", "draft_params=None", "(e)")
-        if getattr(cfg, "n_experts", None) is not None:
+            # the JAX engine's checks, in its order
+            if draft_cfg is None:
+                raise ValueError("draft_params requires draft_cfg")
+            if _is_moe(cfg):
+                raise ValueError(
+                    "speculative serving is dense-target only (the MoE fused step routes "
+                    "slots, not slot x position grids)")
+            if _is_moe(draft_cfg):
+                raise ValueError("the draft model must be dense")
+            if spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            if draft_cfg.max_seq_len < cfg.max_seq_len:
+                raise ValueError(
+                    f"draft max_seq_len {draft_cfg.max_seq_len} < target {cfg.max_seq_len}: "
+                    "the draft must cover every position the target can reach")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab_size {draft_cfg.vocab_size} != target {cfg.vocab_size}: "
+                    "draft and target must share the tokenizer")
+        if _is_moe(cfg):
             raise NotImplementedError(
                 "MoE serving is not ported yet: pass a dense LlamaConfig (the MoE "
                 "family comes with ROADMAP Queue 1 item 8)")
@@ -253,6 +305,33 @@ class ServingEngine:
         if loras is not None and _weights_device(loras) != self.device:
             raise ValueError(f"the adapters must live with the weights on {self.device}")
         self.pools = init_pools(cfg, pcfg, self.device)
+        # speculative decoding (spec_decode.py): a dense draft over its own
+        # pools proposes spec_k tokens a slot; one fused verify commits the
+        # greedy-exact accept prefix
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.spec_k = int(spec_k)
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        #: the payoff guard: the first decode ticks (or horizons) alternate
+        #: speculative and plain decoding, measuring realized tokens/s each
+        #: way; then speculation stays on only if it beats plain by the
+        #: margin. One-shot, recorded in ``spec_guard_decision``.
+        self.spec_guard = spec_guard
+        self.spec_guard_ticks = spec_guard_ticks
+        self.spec_guard_margin = spec_guard_margin
+        self.spec_active = draft_params is not None
+        self.spec_guard_decision: Optional[dict] = None
+        self._guard_samples: dict[str, list[float]] = {"spec": [], "plain": []}
+        self._tokens_emitted = 0
+        #: post-guard watchdog window: [tokens, seconds] of realized
+        #: spec-horizon throughput (see _watched_spec_horizon)
+        self._spec_watch: list = [0, 0.0]
+        if draft_params is not None:
+            if _weights_device(draft_params) != self.device:
+                raise ValueError(f"the draft's weights must live with the target's on "
+                                 f"{self.device}")
+            self.dpools = init_pools(draft_cfg, pcfg, self.device)
         self.allocator = BlockAllocator(pcfg.num_blocks)
         # every block goes through the prefix cache, so a freed block that
         # is still registered is invalidated when it is handed out again
@@ -282,16 +361,38 @@ class ServingEngine:
         #: per horizon length: the graphed horizon, its output [H + 4, S]
         #: and the pinned host buffer it is read back through
         self._hz: dict[int, tuple[GraphedStep, torch.Tensor]] = {}
+        #: the speculative horizon per (k, rounds): its graphed draft and
+        #: verify rounds, their output [rounds + 1, S + 1, max(k + 2, 4)]
+        #: and its pinned host buffer; the draft catch-up per H
+        self._hz_spec: dict[tuple[int, int], tuple] = {}
+        self._hz_sync: dict[int, GraphedStep] = {}
+        #: a horizon's funded lookahead per lane, the round index of the
+        #: verify graph, and the lane state before a plain horizon (the
+        #: draft catch-up reads it)
+        self._cov = torch.zeros((S,), dtype=torch.int32, device=self.device)
+        self._round = torch.zeros((1,), dtype=torch.long, device=self.device)
+        self._pre = torch.zeros((S, LANE_BUDGET), dtype=torch.int32, device=self.device)
         #: host seconds per phase: ``prefill`` (issuing every prefill and
-        #: chunk, and reading back a prefill's first token), ``decode_device``
-        #: (issuing decode ticks and horizons: every launch or replay is
-        #: enqueued here), ``host_sync`` (waiting for their tokens)
-        self.phase_seconds = {"prefill": 0.0, "decode_device": 0.0, "host_sync": 0.0}
-        #: ``device_steps`` counts decode steps dispatched (H per horizon),
-        #: ``horizons`` the horizons, ``prefills`` the prefill dispatches
-        #: (one-shot or chunk), ``chunks`` those that were chunks
+        #: chunk, the draft's mirror included, and reading back a prefill's
+        #: first token), ``decode_device`` (issuing decode ticks and
+        #: horizons: every launch or replay is enqueued here), ``host_sync``
+        #: (waiting for their tokens), ``draft`` and ``verify`` (issuing the
+        #: speculative horizon's draft and verify rounds, and the draft's
+        #: catch-up after a plain horizon)
+        self.phase_seconds = {"prefill": 0.0, "decode_device": 0.0, "host_sync": 0.0,
+                              "draft": 0.0, "verify": 0.0}
+        #: ``device_steps`` counts the target's one-token decode steps
+        #: dispatched (H per plain horizon), ``horizons`` the horizons (plain
+        #: and speculative), ``prefills`` the prefill dispatches (one-shot or
+        #: chunk), ``chunks`` those that were chunks, ``spec_rounds`` the
+        #: draft + verify rounds of speculative horizons (JAX's names); the
+        #: port also counts ``spec_ticks`` (classic speculative ticks),
+        #: ``draft_prefills`` (the draft's mirror of a prefill),
+        #: ``draft_syncs`` (T = H catch-ups after a plain horizon) and
+        #: ``draft_appends`` (T = 1 catch-ups before a plain tick)
         self.phase_counts = {"host_syncs": 0, "horizons": 0, "device_steps": 0,
-                             "prefills": 0, "chunks": 0}
+                             "prefills": 0, "chunks": 0, "spec_rounds": 0, "spec_ticks": 0,
+                             "draft_prefills": 0, "draft_syncs": 0, "draft_appends": 0}
 
     # -- public API --------------------------------------------------------
 
@@ -320,7 +421,7 @@ class ServingEngine:
         if temperature > 0:
             raise NotImplementedError(
                 "sampled decoding is not ported yet: pass temperature=0 (greedy); "
-                "it comes with its own invariant in ROADMAP Queue 1 item 6")
+                "it comes with its own invariant in ROADMAP Queue 1 item 12")
         rid = self._next_rid
         self._next_rid += 1
         self.pending.append(Request(rid, list(prompt), max_new_tokens, temperature, eos_token,
@@ -376,10 +477,41 @@ class ServingEngine:
 
     def set_decode_horizon(self, horizon: int) -> None:
         """Live: takes effect at the next tick. One graph is kept per
-        horizon length, so flipping back and forth captures each once."""
+        horizon length, so flipping back and forth captures each once. A
+        new horizon re-arms the payoff guard (its measurement shape)."""
         if horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
+        changed = int(horizon) != self.decode_horizon
         self.decode_horizon = int(horizon)
+        if changed:
+            self._rearm_spec_guard()
+
+    def set_spec_k(self, k: int) -> None:
+        """Live, on a draft engine: the next tick speculates ``k`` tokens (the
+        graphs are kept per k, so a k seen before is not captured again) and
+        the payoff guard re-arms; on an engine without a draft it only
+        records k."""
+        if k < 1:
+            raise ValueError("spec_k must be >= 1")
+        if self.draft_params is None or k == self.spec_k:
+            self.spec_k = int(k)
+            return
+        self.spec_k = int(k)
+        self._rearm_spec_guard()
+
+    def _rearm_spec_guard(self) -> None:
+        """The horizon and spec_k are the payoff guard's measurement shape:
+        after either changes, a decision (and half-collected samples) says
+        nothing about the new shape, so the guard starts again and the draft
+        gets a fresh shot even if it was retired (its pools may have gone
+        stale while off, which lowers the accept rate for one window; the
+        commits stay token-exact)."""
+        if self.draft_params is None or not self.spec_guard:
+            return
+        self.spec_guard_decision = None
+        self._guard_samples = {"spec": [], "plain": []}
+        self._spec_watch = [0, 0.0]
+        self.spec_active = True
 
     def reset_phase_stats(self) -> None:
         """Zero the per-phase counters (after a warm-up)."""
@@ -396,7 +528,11 @@ class ServingEngine:
         back tick N. Otherwise: commit any pending tick, then the settled
         sequence (admit -> retire finished -> a horizon, or grow/preempt ->
         decode -> retire). Returns rids that finished."""
-        if self.decode_horizon <= 1 and self.pipeline_decode and self._steady_state():
+        # the dispatch-ahead tick composes with a draft engine only after the
+        # payoff guard turned speculation off: from then on no tick drafts
+        if (self.decode_horizon <= 1 and self.pipeline_decode
+                and (self.draft_params is None or not self.spec_active)
+                and self._steady_state()):
             prev = self._pending_tick
             self._pending_tick = None
             new_tick = self._dispatch_plain(prev)
@@ -455,7 +591,7 @@ class ServingEngine:
             return done
         if self.decode_horizon > 1 and not any(
                 s is not None and s.ingest_pos is not None for s in self.slots):
-            hz = self._plain_horizon_decode(self.decode_horizon)
+            hz = self._horizon_decode()
             if hz is not None:
                 done.extend(hz)
                 return done
@@ -709,33 +845,47 @@ class ServingEngine:
             if lora is None:
                 lora = self._adapter_cache[adapter] = select_adapter(self.loras, adapter)
         t0 = time.perf_counter()
-        self.pools, logits = self._run_prefill_graphs(tokens, prefix_blocks, prefix_len,
-                                                      target_blocks, bucket, lora)
+        args = (self._upload([tokens], torch.long), prefix_blocks, prefix_len,
+                self._upload(target_blocks, torch.long), bucket)
+        self.pools, logits = self._run_prefill_graphs(self.params, self.pools, self.cfg, *args,
+                                                      lora, self.lora_scale)
+        if self.draft_params is not None and self.spec_active:
+            # mirror every prefill into the draft pools: the draft's cache
+            # covers the prompt before the first speculative tick, and a
+            # registered prefix block stays valid for the draft on reuse
+            # (same tokens, same draft K/V). Skipped once the payoff guard
+            # turned speculation off.
+            self.dpools, _ = self._run_prefill_graphs(self.draft_params, self.dpools,
+                                                      self.draft_cfg, *args, None, 1.0)
+            self.phase_counts["draft_prefills"] += 1
         self.phase_seconds["prefill"] += time.perf_counter() - t0
         self.phase_counts["prefills"] += 1
         return logits
 
-    def _run_prefill_graphs(self, tokens: list[int], prefix_blocks: list[int],
-                            prefix_len: int, target_blocks: list[int], bucket: int,
-                            lora: Optional[Any]) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
-        """One prefill: the plain bucket-wide one without a prefix, else
-        the prefix-seeded one, whose gathered prefix region is the
-        power-of-two block bucket of the prefix."""
-        suffix = self._upload([tokens], torch.long)
-        target = self._upload(target_blocks, torch.long)
+    def _run_prefill_graphs(self, params: Any, pools: dict[str, torch.Tensor], cfg: LlamaConfig,
+                            suffix: torch.Tensor, prefix_blocks: list[int], prefix_len: int,
+                            target: torch.Tensor, bucket: int, lora: Optional[Any],
+                            lora_scale: float) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+        """One prefill of one model (the target, or the draft's mirror):
+        the plain bucket-wide one without a prefix, else the prefix-seeded
+        one, whose gathered prefix region is the power-of-two block bucket
+        of the prefix."""
         if prefix_blocks:
             prefix_bucket = min(_bucket(len(prefix_blocks), minimum=1),
                                 self.pcfg.max_blocks_per_seq)
             table = prefix_blocks + [SCRATCH_BLOCK] * (prefix_bucket - len(prefix_blocks))
-            return _prefill_bucket(self.params, self.pools, suffix,
-                                   self._upload(table, torch.long), prefix_len, target, lora,
-                                   cfg=self.cfg, pcfg=self.pcfg, bucket=bucket,
-                                   lora_scale=self.lora_scale)
-        return _prefill_plain(self.params, self.pools, suffix, target, lora, cfg=self.cfg,
-                              bucket=bucket, lora_scale=self.lora_scale)
+            return _prefill_bucket(params, pools, suffix, self._upload(table, torch.long),
+                                   prefix_len, target, lora, cfg=cfg, pcfg=self.pcfg,
+                                   bucket=bucket, lora_scale=lora_scale)
+        return _prefill_plain(params, pools, suffix, target, lora, cfg=cfg, bucket=bucket,
+                              lora_scale=lora_scale)
 
     def _decode_once(self) -> list[int]:
-        return self._plain_decode_once()
+        if self.draft_params is None or not self.spec_active:
+            return self._plain_decode_once()
+        if self.spec_guard and self.spec_guard_decision is None:
+            return self._guarded_tick()
+        return self._spec_decode_once()
 
     def _plain_decode_once(self) -> list[int]:
         # synchronous tick: dispatch, then harvest at once
@@ -818,6 +968,7 @@ class ServingEngine:
     def _record(self, slot_idx: int, req: Request, tok: int) -> None:
         """Account one generated token (host side)."""
         self._last_tokens[slot_idx] = tok
+        self._tokens_emitted += 1
         req.output.append(tok)
         if req.first_token_at is None:
             req.first_token_at = time.perf_counter()
@@ -932,12 +1083,29 @@ class ServingEngine:
             hz = self._hz[horizon] = (GraphedStep(fn, self._dev, out), host)
         return hz
 
-    def _plain_horizon_decode(self, horizon: int) -> Optional[list[int]]:
+    def _horizon_decode(self) -> Optional[list[int]]:
+        """One horizon: speculative on a draft engine (through the payoff
+        guard while it measures, then its watchdog), else plain. None when
+        the lookahead cannot be funded without preemption (the caller takes
+        the classic tick, which may preempt)."""
+        if self.draft_params is not None and self.spec_active:
+            if self.spec_guard and self.spec_guard_decision is None:
+                return self._guarded_horizon()
+            if self.spec_guard:
+                return self._watched_spec_horizon()
+            return self._spec_horizon_decode(self._spec_rounds())
+        return self._plain_horizon_decode(self.decode_horizon, draft_sync=False)
+
+    def _plain_horizon_decode(self, horizon: int, draft_sync: bool = False
+                              ) -> Optional[list[int]]:
         """Fund every decoding lane ``horizon`` tokens ahead (at most its
         budget left), sync the lane state, run one horizon and commit its
         tokens. None when the funding fails: the caller falls back to the
         classic tick. Always the full horizon: a lane that ends early is
-        deactivated on the device and its later steps are no-ops."""
+        deactivated on the device and its later steps are no-ops. With
+        ``draft_sync`` (a draft engine decoding plainly: the guard's plain
+        arm) the horizon's tokens are then appended to the draft pools in
+        one T = H pass, keeping the draft cache lag-one current."""
         acts = self._decoding_slots()
         for _, s in acts:
             rem = s.request.max_new_tokens - len(s.request.output)
@@ -946,7 +1114,16 @@ class ServingEngine:
         self._sync_device_state()
         step, host = self._horizon_step(horizon)
         t0 = time.perf_counter()
+        if draft_sync:
+            self._pre.copy_(self._dev[:, :LANE_BUDGET])
         out = step()
+        self.phase_seconds["decode_device"] += time.perf_counter() - t0
+        if draft_sync:
+            t0 = time.perf_counter()
+            self._draft_sync_step(horizon, out)()
+            self.phase_seconds["draft"] += time.perf_counter() - t0
+            self.phase_counts["draft_syncs"] += 1
+        t0 = time.perf_counter()
         ready = None
         if host is not out:
             host.copy_(out, non_blocking=True)
@@ -975,6 +1152,305 @@ class ServingEngine:
                 self._retire(i)
         self._mirror_from_device(last_h, seq_h, act_h, em_h)
         return done
+
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _draft_sync_step(self, horizon: int, out: torch.Tensor) -> GraphedStep:
+        """The graphed draft catch-up after a plain horizon of this length
+        (reading its output ``out`` and the lane state saved before it)."""
+        step = self._hz_sync.get(horizon)
+        if step is None:
+            fn = functools.partial(_draft_sync_lanes, self.draft_params, self.dpools,
+                                   dcfg=self.draft_cfg, pcfg=self.pcfg, H=horizon)
+            step = self._hz_sync[horizon] = GraphedStep(fn, self._dev, self._pre, out)
+        return step
+
+    def _spec_rounds(self) -> int:
+        """Draft + verify rounds a horizon, sized so that a well-accepting
+        draft commits about one horizon's worth of tokens per host read."""
+        return max(1, -(-self.decode_horizon // (self.spec_k + 1)))
+
+    def _watched_spec_horizon(self) -> Optional[list[int]]:
+        """The watchdog on a draft the guard kept: the realized speculative
+        rate over rolling 512-token windows; the moment a full window runs
+        below the guard's own plain rate, speculation is turned off for good
+        (a wrong off loses a maybe-gain, a wrong on halves throughput)."""
+        before = self._tokens_emitted
+        t0 = time.perf_counter()
+        done = self._spec_horizon_decode(self._spec_rounds())
+        if done is None:
+            return None
+        w = self._spec_watch
+        w[0] += self._tokens_emitted - before
+        w[1] += time.perf_counter() - t0
+        if w[0] >= 512 and w[1] > 0:
+            realized = w[0] / w[1]
+            floor = float(self.spec_guard_decision.get("plain_tok_s", 0.0))
+            if realized < floor:
+                self.spec_active = False
+                self._retire_draft_scope()
+                self.spec_guard_decision["demoted"] = {
+                    "realized_spec_tok_s": round(realized, 1),
+                    "plain_floor_tok_s": round(floor, 1), "window_tokens": int(w[0])}
+            self._spec_watch = [0, 0.0]
+        return done
+
+    def _spec_horizon_fns(self, k: int, rounds: int) -> tuple:
+        """The graphed draft and verify rounds of a speculative horizon of
+        ``rounds`` rounds of ``k``, their output buffer and its pinned host
+        copy, made on first use."""
+        fns = self._hz_spec.get((k, rounds))
+        if fns is None:
+            S = self.pcfg.max_slots
+            props = torch.zeros((S, k + 1), dtype=torch.int32, device=self.device)
+            out = torch.zeros((rounds + 1, S + 1, max(k + 2, LANE_BUDGET)), dtype=torch.int32,
+                              device=self.device)
+            draft = GraphedStep(functools.partial(
+                _spec_draft_lanes, self.draft_params, self.dpools, dcfg=self.draft_cfg,
+                pcfg=self.pcfg, k=k), self._dev, self._cov, props)
+            verify = GraphedStep(functools.partial(
+                _spec_verify_lanes, self.params, self.pools, loras=self.loras, cfg=self.cfg,
+                pcfg=self.pcfg, k=k, lora_scale=self.lora_scale), self._dev, props, out,
+                self._round)
+            host = out if self.device.type == "cpu" else torch.empty(
+                out.shape, dtype=out.dtype, pin_memory=True)
+            fns = self._hz_spec[k, rounds] = (draft, verify, out, host)
+        return fns
+
+    def _spec_horizon_decode(self, rounds: int) -> Optional[list[int]]:
+        """``rounds`` draft + verify rounds with the lane state on the
+        device throughout (no host read between rounds); the host learns the
+        commits once, at the end. Lanes that cannot speculate (a last-token
+        budget, no coverage) commit their one plain token through the same
+        verify. None when a lane's lookahead cannot be funded."""
+        acts = self._decoding_slots()
+        k = self.spec_k
+        draft, verify, out, host = self._spec_horizon_fns(k, rounds)
+        cov = [0] * self.pcfg.max_slots
+        for i, s in acts:
+            rem = s.request.max_new_tokens - len(s.request.output)
+            spec_capable = rem >= 2
+            ahead = min(rounds * (k + 1), rem) if spec_capable else min(rounds, rem)
+            ok = self._fund_lookahead(s, ahead)
+            if not ok and spec_capable:
+                # degrade this lane to plain commits rather than give up
+                spec_capable = False
+                ok = self._fund_lookahead(s, min(rounds, rem))
+            if not ok:
+                return None
+            cov[i] = int(spec_capable)
+        self._sync_device_state()
+        self._cov.copy_(self._pinned(cov), non_blocking=True)
+        self._round.zero_()
+        for _ in range(rounds):
+            # draft and verify chain on the device; the host only enqueues,
+            # so these seconds are enqueue time (the wait is host_sync's)
+            t0 = time.perf_counter()
+            draft()
+            t1 = time.perf_counter()
+            verify()
+            self.phase_seconds["draft"] += t1 - t0
+            self.phase_seconds["verify"] += time.perf_counter() - t1
+        self.phase_counts["spec_rounds"] += rounds
+        self.phase_counts["horizons"] += 1
+        t0 = time.perf_counter()
+        if host is not out:
+            host.copy_(out, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+        got = host.numpy()
+        self.phase_seconds["host_sync"] += time.perf_counter() - t0
+        self.phase_counts["host_syncs"] += 1
+        S = self.pcfg.max_slots
+        done: list[int] = []
+        drafted = accepted = 0
+        for r in range(rounds):
+            drafted += int(got[r, S, 0])
+            accepted += int(got[r, S, 1])
+            for i, s in acts:
+                req = s.request
+                if req.done:
+                    continue
+                for t in range(int(got[r, i, k + 1])):
+                    s.seq_len += 1
+                    self._record(i, req, int(got[r, i, t]))
+                    if req.done:
+                        break
+        for i, s in acts:
+            if s.request.done:
+                done.append(s.request.rid)
+                self._retire(i)
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        state = got[rounds, :S, :LANE_BUDGET].T
+        self._mirror_from_device(*state)
+        return done
+
+    def _guarded_horizon(self) -> Optional[list[int]]:
+        """The payoff guard at horizon granularity: one speculative horizon
+        against one plain horizon of the full length (with the draft
+        catch-up, whose own seconds are taken out of the plain sample), in
+        turns, realized tokens/s sampled each way; the first sample of each
+        mode (the graphs' capture) is discarded. Decides once both modes
+        have half the guard's ticks (at least 2) of samples."""
+        mode = ("spec" if len(self._guard_samples["spec"]) <= len(self._guard_samples["plain"])
+                else "plain")
+        before = self._tokens_emitted
+        draft_before = self.phase_seconds["draft"]
+        t0 = time.perf_counter()
+        if mode == "spec":
+            done = self._spec_horizon_decode(self._spec_rounds())
+        else:
+            done = self._plain_horizon_decode(self.decode_horizon, draft_sync=True)
+        if done is None:
+            return None  # unfundable: no sample, the classic tick decides
+        dt = time.perf_counter() - t0
+        if mode == "plain":
+            # a draft-less engine never pays the catch-up
+            dt = max(dt - (self.phase_seconds["draft"] - draft_before), 1e-9)
+        emitted = self._tokens_emitted - before
+        samples = self._guard_samples[mode]
+        samples.append(emitted / dt if (samples and emitted and dt > 0) else -1.0)
+        need = max(2, -(-self.spec_guard_ticks // 2))
+        if all(len([x for x in self._guard_samples[m] if x > 0]) >= need
+               for m in ("spec", "plain")):
+            self._guard_decide()
+        return done
+
+    def _guarded_tick(self) -> list[int]:
+        """One measured classic tick of the guard: speculative and plain
+        (with the draft append) in turns; the first of each mode is
+        discarded. A horizon engine lands here only when a horizon could not
+        be funded: its tick is not sampled (another granularity)."""
+        mode = ("spec" if len(self._guard_samples["spec"]) <= len(self._guard_samples["plain"])
+                else "plain")
+        before = self._tokens_emitted
+        t0 = time.perf_counter()
+        done = self._spec_decode_once() if mode == "spec" else self._plain_with_draft_sync()
+        if self.decode_horizon > 1:
+            return done
+        dt = time.perf_counter() - t0
+        emitted = self._tokens_emitted - before
+        samples = self._guard_samples[mode]
+        samples.append(emitted / dt if (samples and emitted and dt > 0) else -1.0)
+        if all(len([x for x in self._guard_samples[m] if x > 0]) >= self.spec_guard_ticks
+               for m in ("spec", "plain")):
+            self._guard_decide()
+        return done
+
+    def _guard_decide(self) -> None:
+        """Keep the draft when the median speculative rate beats the median
+        plain rate by the margin; record the decision (JAX's fields)."""
+        spec_rate = median([x for x in self._guard_samples["spec"] if x > 0])
+        plain_rate = median([x for x in self._guard_samples["plain"] if x > 0])
+        keep = spec_rate >= plain_rate * (1.0 + self.spec_guard_margin)
+        self.spec_active = keep
+        if not keep:
+            self._retire_draft_scope()
+        self.spec_guard_decision = {
+            "active": keep,
+            "spec_tok_s": round(spec_rate, 1),
+            "plain_tok_s": round(plain_rate, 1),
+            "accept_rate": round(self.spec_accepted / max(1, self.spec_drafted), 3),
+            "spec_k": self.spec_k,
+            # the plain arm ran with the draft catch-up, which understates the
+            # draft-less plain path; the margin compensates
+            "margin": self.spec_guard_margin,
+            "plain_measured_via": "plain_with_draft_sync",
+        }
+
+    def _retire_draft_scope(self) -> None:
+        """After the draft is retired the JAX engine moves its shared prefix
+        exports to the draft-less namespace; the port shares no prefix
+        across engines (``set_prefix_sharing``), so there is nothing to
+        move."""
+
+    def _spec_coverage(self, slot: _SlotState, k: int) -> bool:
+        """Cover the verify's writes through ``seq_len + k - 1`` without
+        preemption; failure degrades this slot to plain decoding this
+        tick."""
+        need = self.pcfg.blocks_for(slot.seq_len + k)
+        if need <= len(slot.blocks):
+            return True
+        if need > self.pcfg.max_blocks_per_seq or slot.seq_len + k > self.pcfg.capacity:
+            return False
+        got = self.blocks.alloc(need - len(slot.blocks))
+        if got is None:
+            return False
+        slot.blocks.extend(got)
+        return True
+
+    def _spec_decode_once(self) -> list[int]:
+        """A classic speculative tick: the draft proposes spec_k tokens a
+        slot, one fused target step verifies them, and the speculative
+        horizon's accept (:func:`.spec_decode._spec_accept`, on the device)
+        picks the accept prefix and the correction (or bonus) token, cut by
+        eos and the budget; the host records them. A slot without coverage
+        or with one token of budget left commits the position-0 token, the
+        plain step's."""
+        k = self.spec_k
+        active_l = [s is not None and s.ingest_pos is None for s in self.slots]
+        spec_ok_l = [active_l[i]
+                     and s.request.max_new_tokens - len(s.request.output) >= 2
+                     and self._spec_coverage(s, k)
+                     for i, s in enumerate(self.slots)]
+        if not any(spec_ok_l):
+            # nothing to speculate: the plain step commits the same tokens
+            return self._plain_with_draft_sync()
+        t0 = time.perf_counter()
+        _, active, adapters = self._lane_arrays()
+        seq_lens = self._upload([s.seq_len if ok else 1 for s, ok in zip(self.slots, active_l)],
+                                torch.int32)
+        spec_ok = self._upload(spec_ok_l, torch.bool)
+        self.pools, self.dpools, props, choice = _spec_step(
+            self.params, self.draft_params, self.pools, self.dpools,
+            self._upload(self._last_tokens, torch.int32), seq_lens, active, spec_ok,
+            self._block_tables(), self.loras, adapters,
+            cfg=self.cfg, dcfg=self.draft_cfg, pcfg=self.pcfg, k=k, lora_scale=self.lora_scale)
+        self.phase_seconds["decode_device"] += time.perf_counter() - t0
+        self.phase_counts["spec_ticks"] += 1
+        reqs = [s.request if s is not None else None for s in self.slots]
+        c_out, ncommit, _, stats = _spec_accept(
+            props, choice, spec_ok, active,
+            self._upload([len(r.output) if r else 0 for r in reqs], torch.int32),
+            self._upload([r.max_new_tokens if r else 0 for r in reqs], torch.int32),
+            self._upload([r.eos_token if r and r.eos_token is not None else -1 for r in reqs],
+                         torch.int32), k=k)
+        t0 = time.perf_counter()
+        both = torch.cat([c_out, ncommit[:, None], stats[None].expand(len(reqs), 2)],
+                         dim=1).tolist()
+        self.phase_seconds["host_sync"] += time.perf_counter() - t0
+        self.spec_drafted += both[0][k + 2]
+        self.spec_accepted += both[0][k + 3]
+        done: list[int] = []
+        for i, slot in enumerate(self.slots):
+            if slot is None or slot.ingest_pos is not None:
+                continue
+            for tok in both[i][:both[i][k + 1]]:
+                slot.seq_len += 1
+                self._record(i, slot.request, tok)
+            if slot.request.done:
+                done.append(slot.request.rid)
+                self._retire(i)
+        return done
+
+    def _plain_with_draft_sync(self) -> list[int]:
+        """A plain tick on a draft engine: first the draft appends this
+        tick's input token (the ``i == 0`` write of the speculative tick),
+        or a slot that speculates on a later tick attends a hole at this
+        position and the accept rate collapses."""
+        active_l = [s is not None and s.ingest_pos is None for s in self.slots]
+        if any(active_l):
+            t0 = time.perf_counter()
+            seq_lens = self._upload(
+                [s.seq_len if ok else 1 for s, ok in zip(self.slots, active_l)], torch.int32)
+            self.dpools = _draft_append(self.draft_params, self.dpools,
+                                        self._upload(self._last_tokens, torch.int32), seq_lens,
+                                        self._upload(active_l, torch.bool), self._block_tables(),
+                                        dcfg=self.draft_cfg, pcfg=self.pcfg)
+            self.phase_seconds["draft"] += time.perf_counter() - t0
+            self.phase_counts["draft_appends"] += 1
+        return self._plain_decode_once()
 
 
 # ---------------------------------------------------------------------------
@@ -1098,6 +1574,72 @@ def _horizon_plain(params: dict[str, Any], pools: dict[str, torch.Tensor], lanes
         out[H + row] = value
     lanes[:, :LANE_BUDGET] = out[H:].T
     return out
+
+
+@torch.no_grad()
+def _spec_draft_lanes(draft_params: dict[str, Any], dpools: dict[str, torch.Tensor],
+                      lanes: torch.Tensor, cov: torch.Tensor, props: torch.Tensor, *,
+                      dcfg: LlamaConfig, pcfg: PagedConfig, k: int) -> torch.Tensor:
+    """The draft half of a speculative horizon's round over the device lane
+    state (:func:`.spec_decode._spec_draft`): writes the proposals into
+    ``props[:, :k]`` and whether each lane speculates into ``props[:, k]``.
+    Returns ``props``."""
+    # a lane speculates when it is live, its coverage was funded and at
+    # least 2 tokens of budget remain
+    act = lanes[:, LANE_ACT] != 0
+    spec_ok = act & (cov != 0) & (lanes[:, LANE_BUDGET] - lanes[:, LANE_EMITTED] >= 2)
+    dpools, proposals = _spec_draft(
+        draft_params, dpools, lanes[:, LANE_LAST], lanes[:, LANE_SEQ], act, spec_ok,
+        lanes[:, LANE_TABLE:].contiguous(), dcfg=dcfg, pcfg=pcfg, k=k)
+    props[:, :k] = proposals
+    props[:, k] = spec_ok.to(torch.int32)
+    return props
+
+
+@torch.no_grad()
+def _spec_verify_lanes(params: dict[str, Any], pools: dict[str, torch.Tensor],
+                       lanes: torch.Tensor, props: torch.Tensor, out: torch.Tensor,
+                       round_idx: torch.Tensor, loras: Optional[Any] = None, *,
+                       cfg: LlamaConfig, pcfg: PagedConfig, k: int,
+                       lora_scale: float = 1.0) -> torch.Tensor:
+    """The verify half of a speculative horizon's round
+    (:func:`.spec_decode._spec_verify`) over the device lane state: advances
+    last, seq, act and emitted in ``lanes``, and writes at round
+    ``round_idx`` (on the device, then advanced) of ``out`` [R + 1, S + 1,
+    W] the committed tokens (``[:S, :k + 1]``, -1 past the count), the
+    counts (``[:S, k + 1]``) and (drafted, accepted) (``[S, :2]``); row R
+    holds the lane state (last, seq, act, emitted) after the round. Returns
+    ``out``."""
+    S = lanes.shape[0]
+    adapters = lanes[:, LANE_ADAPTER] if loras is not None else None
+    (_, last, seq, act, emitted, c_out, ncommit, stats) = _spec_verify(
+        params, pools, props[:, :k], props[:, k] != 0, lanes[:, LANE_LAST], lanes[:, LANE_SEQ],
+        lanes[:, LANE_ACT] != 0, lanes[:, LANE_EMITTED], lanes[:, LANE_BUDGET],
+        lanes[:, LANE_EOS], adapters, lanes[:, LANE_TABLE:].contiguous(), loras, cfg=cfg,
+        pcfg=pcfg, k=k, lora_scale=lora_scale)
+    block = torch.zeros(out.shape[1:], dtype=torch.int32, device=out.device)
+    block[:S, :k + 1] = c_out
+    block[:S, k + 1] = ncommit
+    block[S, :2] = stats
+    out.index_copy_(0, round_idx, block[None])
+    round_idx.add_(1)
+    state = torch.stack([last, seq, act.to(torch.int32), emitted], dim=1)
+    out[-1, :S, :LANE_BUDGET] = state
+    lanes[:, :LANE_BUDGET] = state
+    return out
+
+
+@torch.no_grad()
+def _draft_sync_lanes(draft_params: dict[str, Any], dpools: dict[str, torch.Tensor],
+                      lanes: torch.Tensor, pre: torch.Tensor, out: torch.Tensor, *,
+                      dcfg: LlamaConfig, pcfg: PagedConfig, H: int) -> None:
+    """The draft's catch-up on one plain horizon
+    (:func:`.spec_decode._draft_sync_block`): the tokens ``out[:H]`` and the
+    emitted counts ``out[H + 3]`` of :func:`_horizon_plain`, over the lane
+    state ``pre`` [S, 4] saved before it."""
+    _draft_sync_block(draft_params, dpools, out[:H], pre[:, LANE_LAST], pre[:, LANE_SEQ],
+                      pre[:, LANE_EMITTED], out[H + LANE_EMITTED],
+                      lanes[:, LANE_TABLE:].contiguous(), dcfg=dcfg, pcfg=pcfg, H=H)
 
 
 def _write_layer(pools: dict[str, torch.Tensor], layer_i: int, k: torch.Tensor,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (bobrapet_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--quant-sweep]
 
 Phases, each fatal on failure (exit 1, and no result line):
 
@@ -15,15 +15,20 @@ Phases, each fatal on failure (exit 1, and no result line):
    with device lengths over the whole 192-row cache, RMSNorm alone and
    fused with the residual add, the engine's largest prefill bucket, an
    engine decode tick, phase 7's prefill chunk at q_offset 512 and its
-   decode tick over 41-block tables) plus long-cache decodes (dense over
-   2048 rows, paged up to 1024), ragged, fp32 and narrow-head cases: max abs error
+   decode tick over 41-block tables, phase 8's int8 products at the draft's
+   decode and prefill shapes, its T-query verify and draft catch-up over
+   the paged cache, and the standalone verify's 20 packed rows through the
+   cached entry) plus long-cache decodes (dense over 2048 rows, paged up to
+   1024), ragged, fp32 and narrow-head cases: max abs error
    against a stated tolerance, and the times (CUDA events, median of 50
    launches, L2 flushed before each) of the kernel, the plain version and
    one PyTorch library call for the same function (a yardstick only; the
    port never calls it), beside the least time the card could take (for
    RMSNorm also its time with the L2 left warm, and a PyTorch copy that
    moves the same bytes under the flushed timer); then the host's
-   microseconds per call of each kernel wrapper against torch.add;
+   microseconds per call of each kernel wrapper against torch.add; with
+   --quant-sweep also the bf16 int8 kernel's time at each forced cluster
+   split (1, 2, 4, 8) beside the split its rule picks;
 4. the greedy path: Llama-3-8B at full width and depth (bf16, random
    weights from --seed) serves one request through greedy_generate (a
    batch of 8 prompts of 128 tokens, 64 new tokens) four times in turns,
@@ -48,7 +53,9 @@ Phases, each fatal on failure (exit 1, and no result line):
    agree, and in fp32 the serving engine must give identical tokens,
    classic and at a horizon of 8, both plain and with prefix caching,
    chunked prefill and four LoRA adapters (card against CPU, and chunked
-   with prefixes against one-shot prefill on the card);
+   with prefixes against one-shot prefill on the card), and with a draft
+   (speculative decoding: card against CPU, and against the draft-less
+   engine);
 7. prefix caching, chunked prefill and multi-LoRA at full width: Llama-3-8B
    again, 8 slots over 512 blocks of 16 (41 a sequence), the unified leg
    of bench.py's config 14 (12 requests of a shared 128-token system
@@ -64,7 +71,25 @@ Phases, each fatal on failure (exit 1, and no result line):
    rank 8 on wq/wv), adapter i % 4: the zero adapter's requests give the
    LoRA-free engine's tokens bit for bit, every other adapter changes some
    request, and the horizon's ms with and without LoRA;
-8. one JSON line of kernels, the card line, and last
+8. speculative decoding at full width: Llama-3-8B on the same weights,
+   bench.py's serving-child traffic (16 requests of 32-128 tokens, 32 new
+   each, 8 slots over 256 blocks of 16, 16 a sequence, a horizon of 8):
+   the draft-less engine and the engine with the target's int8 tree as
+   its draft (spec_k 4, the payoff guard off, so the speculative horizon
+   is what runs) drained in turns (plain, spec, spec, plain), then an
+   engine with the guard warmed until it decides; tok/s, accept rate,
+   phase seconds, TTFT and TPOT, peak memory, the share of positions where
+   the speculative tokens equal the plain ones, and exact launch counts
+   (every verify through the T-query paged kernel, every int8 product
+   through the int8 kernel); at each request's first divergence from the
+   plain engine, the plain one-token step's logit of its token less that
+   of the speculative token must stay within twice the logit error between
+   the one-token and verify forms of the same context (recomputed through
+   the engine's own append, every alignment of verifies); then standalone
+   speculative_generate (the 8B target, a llama_tiny draft of its
+   vocabulary, a [1, 64] prompt, 64 new tokens, k 4) against
+   greedy_generate, its first divergence held the same way;
+9. one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
@@ -136,6 +161,38 @@ CROSS_PREFIX_PAGING = dict(max_slots=4, block_size=16, num_blocks=48, max_blocks
                            prefix_caching=True, prefill_chunk=16)
 CROSS_TAILS = ((5, 25, 40, 9), (30, 2))
 
+# phase 8: bench.py's serving child (bench.py:2386-2392) at full width, the
+# target's int8 tree as the draft. No prefix cache: the drains repeat the
+# same prompts, and a cache would turn the later drains into cache hits.
+SPEC_PAGING = dict(max_slots=8, block_size=16, num_blocks=256, max_blocks_per_seq=16,
+                   prefix_caching=False)
+SPEC_REQUESTS, SPEC_NEW, SPEC_K, SPEC_HORIZON = 16, 32, 4, 8
+SPEC_ORDER = ("plain", "spec", "spec", "plain")
+# the guarded engine's warm drains until the guard decides (bench.py's 4)
+GUARD_WARM_DRAINS = 4
+# the standalone speculative decode (bench.py:2509-2531)
+STANDALONE_PROMPT, STANDALONE_NEW = 64, 64
+# phase 3's int8 products: (name, M, K, N) at the draft's decode shapes
+# (8 slots) and at a prefill bucket of 128 rows
+QUANT_CASES = (("quant wq/wo decode", 8, 4096, 4096), ("quant wk/wv decode", 8, 4096, 1024),
+               ("quant w_gate/w_up decode", 8, 4096, 14336),
+               ("quant w_down decode", 8, 14336, 4096),
+               ("quant lm_head decode", 8, 4096, 128256),
+               ("quant w_gate prefill", 128, 4096, 14336))
+# --quant-sweep: the forced splits, and two products at a verify's rows
+# (8 slots x k + 1 = 5)
+QUANT_SPLITS = (1, 2, 4, 8)
+QUANT_VERIFY_CASES = (("quant wq/wo verify", 40, 4096, 4096),
+                      ("quant w_gate/w_up verify", 40, 4096, 14336))
+# how often each decode shape runs in one forward of a 32-layer model
+QUANT_PER_LAYER = {"quant wq/wo decode": 2, "quant wk/wv decode": 2,
+                   "quant w_gate/w_up decode": 2, "quant w_down decode": 1}
+# phase 3's T-query cases over phase 8's pools: a verify of k + 1 = 5
+# tokens and a draft catch-up of H = 8, lanes at lens = pos0 + T
+MULTI_LENS = (5, 37, 64, 69, 100, 129, 160, 192)
+# the standalone verify: 5 queries at the end of a 133-row cache
+STANDALONE_CAP = STANDALONE_PROMPT + STANDALONE_NEW + SPEC_K + 1
+
 
 def serve_prompt_len(i: int) -> int:
     return 8 + (i % 5) * 7
@@ -167,6 +224,12 @@ TOL = {
 # (cuBLAS vs the CPU), so 1-ulp flips carry through two layers into
 # logits of magnitude ~5; a kernel fault shows as errors of order 1.
 LOGIT_MAX_ERR, LOGIT_MEAN_ERR = 0.25, 0.02
+# the int8 product: bf16 rounds the product to bf16, then the scale product
+# again, and a sum in another order may move the first rounding by one ulp:
+# 2^-6 of |plain| plus 1e-3 (its values are ~1); fp32 sums in another
+# order: 1e-5 of |plain| plus 1e-4 (TF32's 10-bit mantissa would miss by
+# ~5e-4)
+QUANT_TOL = {"bfloat16": (1e-3, 2.0 ** -6), "float32": (1e-4, 1e-5)}
 
 
 def ptxas_instances(log: str) -> list[dict]:
@@ -246,7 +309,7 @@ def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
 
 
 def compare(torch, kind, name, out, ref, dtype_name) -> float:
-    atol, rtol = TOL[(kind, dtype_name)]
+    atol, rtol = QUANT_TOL[dtype_name] if kind == "quant" else TOL[(kind, dtype_name)]
     out, ref = out.float(), ref.float()
     if not torch.isfinite(out).all():
         fail(f"{name}: kernel output not finite")
@@ -514,6 +577,131 @@ def paged_case(torch, F, ops, flush, name, hq, hkv, d, dtype, gen, dev, block=16
     }
 
 
+def quant_bytes(m: int, k: int, n: int, es: int) -> int:
+    """The int8 product's bytes: the int8 weight, x and the scale read once,
+    the output written once."""
+    return k * n + (m * k + n + m * n) * es
+
+
+def quant_case(torch, ops, quant, flush, name, m, k, n, dtype, gen, dev):
+    """One int8 product x [M, K] @ q [K, N] * scale [N] against the plain
+    version (which widens the weight to x's type first). The yardstick is
+    torch.matmul on the weight dequantized ahead of time (its widening not
+    timed)."""
+    leaf = quant.quantize_array(
+        (torch.randn((k, n), generator=gen, device=dev) * (1.0 / 64)).to(dtype))
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    q, scale = leaf["q"], leaf["scale"]
+    dn = str(dtype).split(".")[-1]
+    err = compare(torch, "quant", name, ops.quant_matmul_cuda(x, q, scale),
+                  ops.quant_matmul_reference(x, q, scale), dn)
+    w = quant.dequantize_array(leaf)
+    b_ms, b_by = bound(quant_bytes(m, k, n, x.element_size()), 2 * m * k * n, dn)
+    return {
+        "case": name, "x": [m, k], "q": [k, n], "dtype": dn, "max_abs_err": err,
+        "ms": time_ms(torch, lambda: ops.quant_matmul_cuda(x, q, scale), flush),
+        "plain_ms": time_ms(torch, lambda: ops.quant_matmul_reference(x, q, scale), flush),
+        "library_ms": time_ms(torch, lambda: torch.matmul(x, w), flush),
+        "library": "torch.matmul on the weight dequantized ahead of time",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def multi_pairs(lens, t: int) -> int:
+    """Keys the queries of a T-query call see: query i of a lane sits at
+    lens - T + i and sees every key up to it."""
+    return sum(max(0, n - t + i + 1) for n in lens for i in range(t))
+
+
+def paged_multi_case(torch, F, ops, flush, name, t, hq, hkv, d, dtype, gen, dev, block=16,
+                     n_blocks=256, mb=16, lens=MULTI_LENS):
+    """T queries a slot over one layer's pools through tables of distinct
+    random live blocks, query i of slot s at lens[s] - T + i (a lane's
+    lens is at least T: the engine's first query sits at pos0 >= 0)."""
+    lens = tuple(max(n, t) for n in lens)
+    slots = len(lens)
+    q = torch.randn((slots, t, hq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((n_blocks, block, hkv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((n_blocks, block, hkv, d), generator=gen, device=dev).to(dtype)
+    ids = (torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1).tolist()
+    tables = torch.zeros((slots, mb), dtype=torch.int32)
+    pages = 0
+    for s_, n in enumerate(lens):
+        used = -(-n // block)
+        pages += used
+        tables[s_, :used] = torch.tensor(ids[:used], dtype=torch.int32)
+        ids = ids[used:]
+    tables = tables.to(dev)
+    n_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    dn = str(dtype).split(".")[-1]
+    args = (q, k, v, tables, n_t)
+    err = compare(torch, "attention", name, ops.paged_attention_multi_cuda(*args),
+                  ops.paged_attention_multi_reference(*args), dn)
+    es = q.element_size()
+    nbytes = (2 * sum(lens) * hkv * d + 2 * q.numel()) * es + 4 * (pages + slots)
+    b_ms, b_by = bound(nbytes, 4 * d * hq * multi_pairs(lens, t), dn)
+    cap = mb * block
+    kg = k[tables.long()].reshape(slots, cap, hkv, d).transpose(1, 2)
+    vg = v[tables.long()].reshape(slots, cap, hkv, d).transpose(1, 2)
+    q_pos = n_t[:, None].long() - t + torch.arange(t, device=dev)[None, :]
+    mask = (torch.arange(cap, device=dev)[None, None, :] <= q_pos[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kg, vg, attn_mask=mask, enable_gqa=True)
+    return {
+        "case": name, "q": [slots, t, hq, d], "pool": [n_blocks, block, hkv, d],
+        "tables": [slots, mb], "lens": list(lens), "dtype": dn, "max_abs_err": err,
+        "ms": time_ms(torch, lambda: ops.paged_attention_multi_cuda(*args), flush),
+        "plain_ms": time_ms(torch, lambda: ops.paged_attention_multi_reference(*args), flush),
+        "library_ms": time_ms(torch, lib, flush),
+        "library": "scaled_dot_product_attention over the gathered cache with a boolean mask, "
+                   "gather excluded",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def quant_step_ms(cases: list, n_layers: int, key: str) -> float:
+    """One decode step's int8 products of an n_layers model from the M = 8
+    cases: each layer's seven products and the LM head."""
+    by = {c["case"]: c[key] for c in cases}
+    return (n_layers * sum(by[name] * times for name, times in QUANT_PER_LAYER.items())
+            + by["quant lm_head decode"])
+
+
+def quant_sweep(torch, quant, flush, gen, dev) -> dict:
+    """``--quant-sweep``: the bf16 int8 kernel forced to each cluster split
+    of ``QUANT_SPLITS`` in turn (through its C entry, bypassing
+    ``ops.quant_matmul.quant_splits``) on the int8 cases and two products
+    at a verify's rows, each split held against the plain version and
+    timed, beside the split the rule picks and the bound."""
+    from bobrapet_tpu_torch.kernels import KERNEL_DTYPES, check_launch, kernel_function, launch
+    from bobrapet_tpu_torch.ops import quant_matmul as qm
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf16 = torch.bfloat16
+    fn = kernel_function("bobra_quant_matmul", qm._ARGTYPES)
+    cases = {}
+    for name, m, k, n in QUANT_CASES + QUANT_VERIFY_CASES:
+        leaf = quant.quantize_array(
+            (torch.randn((k, n), generator=gen, device=dev) * (1.0 / 64)).to(bf16))
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        out = torch.empty((m, n), dtype=bf16, device=dev)
+        ref = qm.quant_matmul_reference(x, leaf["q"], leaf["scale"])
+        times = {}
+        for splits in QUANT_SPLITS:
+            def call(splits=splits):
+                return launch(fn, dev.index or 0, x.data_ptr(), leaf["q"].data_ptr(),
+                              leaf["scale"].data_ptr(), out.data_ptr(), m, n, k, splits,
+                              KERNEL_DTYPES[bf16])
+            check_launch("quant_matmul", call())
+            compare(torch, "quant", f"{name} splits {splits}", out, ref, "bfloat16")
+            times[splits] = time_ms(torch, call, flush)
+        b_ms, _ = bound(quant_bytes(m, k, n, 2), 2 * m * k * n, "bfloat16")
+        cases[name] = {"x": [m, k], "q": [k, n], "ms_by_splits": times,
+                       "rule": qm.quant_splits(m, n, k, sms), "bound_ms": b_ms}
+    return cases
+
+
 def request_split(torch, llama, params, prompt, cfg, dev, cuda_graph: bool = True,
                   steps: int = 16, profiled: int = 4) -> dict:
     """Prefill ms, decode step ms (host clock, synchronised) and the
@@ -592,6 +780,14 @@ def port_kernel_shares(kernels, steps: int) -> dict:
     return out
 
 
+def marked_share(kernels, steps: int, mark: str) -> dict:
+    """Device ms and calls per step of the kernel instances with ``mark`` in
+    their name (``qmm``: the int8 product's)."""
+    hits = [e for e in kernels if mark in e.key]
+    return {"ms_per_step": sum(e.self_device_time_total for e in hits) / 1e3 / steps,
+            "calls_per_step": sum(e.count for e in hits) / steps}
+
+
 def elementwise_share(kernels, steps: int) -> dict:
     """Device ms and calls per step of PyTorch's elementwise kernels (adds,
     casts, copies, activations: names with ``elementwise_kernel``)."""
@@ -613,7 +809,8 @@ def p50(values) -> float:
 
 def zero_counts(ops) -> None:
     for fn in (ops.rmsnorm_cuda, ops.add_rmsnorm_cuda, ops.flash_attention_cuda,
-               ops.cached_attention_cuda, ops.paged_attention_cuda):
+               ops.cached_attention_cuda, ops.paged_attention_cuda,
+               ops.paged_attention_multi_cuda, ops.quant_matmul_cuda):
         fn.launches = 0
 
 
@@ -625,6 +822,52 @@ def read_counts(ops) -> dict:
             "flash_attention": ops.flash_attention_cuda.launches,
             "cached_attention": ops.cached_attention_cuda.launches,
             "paged_attention": ops.paged_attention_cuda.launches}
+
+
+def read_all_counts(ops) -> dict:
+    """:func:`read_counts` and the speculative path's two kernels: the
+    T-query paged entry and the int8 product."""
+    return {**read_counts(ops), "paged_attention_multi": ops.paged_attention_multi_cuda.launches,
+            "quant_matmul": ops.quant_matmul_cuda.launches}
+
+
+def spec_engine_launches(pc: dict, k: int, n_layers: int, draft_layers: int,
+                         target_int8: bool = False, draft_int8: bool = True) -> dict:
+    """The kernels of a draft engine's run, from its phase counts: the
+    target's forwards (prefills, one-token steps, and a ``k + 1``-token
+    verify per speculative round or tick) and the draft's (the mirror of
+    each prefill, ``k + 1`` one-token steps per round or tick, a T = H
+    catch-up after each plain horizon, a one-token append before each plain
+    tick). 2L + 1 norms a forward; one flash launch a layer a prefill; the
+    paged kernel on every one-token step, the T-query entry on every verify
+    and catch-up; 7L + 1 int8 products a forward of an int8 tree."""
+    spec = pc["spec_rounds"] + pc["spec_ticks"]
+    target = pc["prefills"] + pc["device_steps"] + spec
+    draft = pc["draft_prefills"] + spec * (k + 1) + pc["draft_syncs"] + pc["draft_appends"]
+    norms = target * (2 * n_layers + 1) + draft * (2 * draft_layers + 1)
+    return {
+        "rmsnorm": norms, "add_rmsnorm": target * 2 * n_layers + draft * 2 * draft_layers,
+        "flash_attention": pc["prefills"] * n_layers + pc["draft_prefills"] * draft_layers,
+        "cached_attention": 0,
+        "paged_attention": (pc["device_steps"] * n_layers
+                            + (spec * (k + 1) + pc["draft_appends"]) * draft_layers),
+        "paged_attention_multi": spec * n_layers + pc["draft_syncs"] * draft_layers,
+        "quant_matmul": ((target * (7 * n_layers + 1) if target_int8 else 0)
+                         + (draft * (7 * draft_layers + 1) if draft_int8 else 0)),
+    }
+
+
+def standalone_launches(rounds: int, k: int, n_layers: int, draft_layers: int) -> dict:
+    """The kernels of one speculative_generate run: the two prefills (one
+    flash launch a layer each), then per round k + 1 draft steps and one
+    verify, each attention through the device-length cached entry (which
+    the flash counter also counts); 2L + 1 norms a forward."""
+    t_fwd, d_fwd = 1 + rounds, 1 + rounds * (k + 1)
+    cached = rounds * (n_layers + (k + 1) * draft_layers)
+    return {"rmsnorm": t_fwd * (2 * n_layers + 1) + d_fwd * (2 * draft_layers + 1),
+            "add_rmsnorm": t_fwd * 2 * n_layers + d_fwd * 2 * draft_layers,
+            "flash_attention": n_layers + draft_layers + cached, "cached_attention": cached,
+            "paged_attention": 0, "paged_attention_multi": 0, "quant_matmul": 0}
 
 
 def greedy_launches(n_layers: int) -> dict:
@@ -734,6 +977,7 @@ def tick_profile(torch, eng, prompts, steps: int = 8, profiled: int = 4,
         "device_busy_share": (device_ms / step_ms) if device_ms else None,
         "kernels_per_step": sum(e.count for e in kernels) / profiled,
         "port_kernels": port_kernel_shares(kernels, profiled),
+        "int8_products": marked_share(kernels, profiled, "qmm"),
         "top_kernels": [
             {"name": e.key[:70], "ms_per_step": e.self_device_time_total / 1e3 / profiled,
              "calls_per_step": e.count / profiled} for e in top],
@@ -905,6 +1149,381 @@ def prefix_cross_check(torch, ops, llama, serving, lora_mod, cfg, seed: int, dev
         if not ok:
             fail(f"prefix/chunk/LoRA cross-check: {name} does not hold")
     return result
+
+
+def spec_cross_check(torch, ops, llama, quant, serving, cfg, seed: int, dev) -> dict:
+    """fp32, 2 layers at the 8B widths (TF32 off): the engine with a draft
+    (a llama_tiny of the target's vocabulary, the guard off), classic and at
+    a horizon of 8, on the card and on the CPU, must give the same tokens,
+    and the draft-less engine's; on the card with exact launch counts. Then
+    on the card the target's own int8 tree as the draft (the fp32 int8
+    kernel inside the engine) at the horizon of 8: the same tokens again."""
+    cfg3 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    dcfg = llama.llama_tiny(vocab_size=cfg3.vocab_size, max_seq_len=cfg3.max_seq_len)
+    params = llama.init_params(cfg3, torch.Generator(device=dev).manual_seed(seed + 4), dev)
+    draft = llama.init_params(dcfg, torch.Generator(device=dev).manual_seed(seed + 8), dev)
+    trees = {"card": (params, draft), "cpu": (tree_to(params, "cpu"), tree_to(draft, "cpu"))}
+    gen = torch.Generator().manual_seed(seed + 5)
+    prompts = [torch.randint(0, cfg3.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 12, 17, 30)]
+    pcfg = serving.PagedConfig(max_slots=4, block_size=16, num_blocks=32, max_blocks_per_seq=4,
+                               prefix_caching=False)
+    outs, counts = {}, {}
+    t0 = time.perf_counter()
+    runs = [(side, name, h) for h in (1, 8) for side, name in
+            (("card", "plain"), ("card", "spec"), ("cpu", "spec"))] + [("card", "int8", 8)]
+    for side, name, horizon in runs:
+        tree, dtree = trees[side]
+        kw = {}
+        if name == "spec":
+            kw = dict(draft_params=dtree, draft_cfg=dcfg, spec_k=SPEC_K, spec_guard=False)
+        elif name == "int8":
+            kw = dict(draft_params=quant.quantize_params(tree), draft_cfg=cfg3, spec_k=SPEC_K,
+                      spec_guard=False)
+        eng = serving.ServingEngine(tree, cfg3, pcfg, pipeline_decode=True,
+                                    decode_horizon=horizon, dispatch_depth=1, **kw)
+        for p in prompts:
+            eng.submit(p, CROSS_BUDGET[horizon])
+        zero_counts(ops)
+        eng.run()
+        outs[side, name, horizon] = [r.output for r in sorted(eng.finished, key=lambda r: r.rid)]
+        if side == "card" and name != "plain":
+            got = read_all_counts(ops)
+            want = spec_engine_launches(eng.phase_counts, SPEC_K, cfg3.n_layers,
+                                        cfg3.n_layers if name == "int8" else dcfg.n_layers,
+                                        draft_int8=name == "int8")
+            if got != want:
+                fail(f"the fp32 draft engine ({name}, H={horizon}) did not run the kernels "
+                     f"exactly: {got}, expected {want}")
+            if eng.spec_drafted == 0:
+                fail(f"the fp32 draft engine ({name}, H={horizon}) never speculated")
+            counts[f"{name}_h{horizon}"] = {**got, "spec_rounds": eng.phase_counts["spec_rounds"],
+                                            "spec_ticks": eng.phase_counts["spec_ticks"],
+                                            "drafted": eng.spec_drafted,
+                                            "accepted": eng.spec_accepted}
+    del params, draft, trees
+    checks = {
+        "card_equals_cpu": all(outs["card", "spec", h] == outs["cpu", "spec", h] for h in (1, 8)),
+        "spec_equals_draftless": all(outs["card", "spec", h] == outs["card", "plain", h]
+                                     for h in (1, 8)),
+        "int8_draft_equals_draftless": outs["card", "int8", 8] == outs["card", "plain", 8],
+    }
+    result = {"requests": len(prompts), "new_tokens": CROSS_BUDGET, "spec_k": SPEC_K,
+              "draft": "llama_tiny(vocab_size=128256)", **checks, "card_counts": counts,
+              "seconds": time.perf_counter() - t0}
+    print("engine with a draft (2 layers, 8B widths, fp32, card vs CPU): " + json.dumps(result),
+          flush=True)
+    for name, ok in checks.items():
+        if not ok:
+            fail(f"the fp32 speculative cross-check: {name} does not hold")
+    return result
+
+
+def spec_prompts(torch, cfg, seed: int, dev) -> list:
+    """bench.py's serving-child prompts: 32 + (i % 4) * 32 tokens."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randint(0, cfg.vocab_size, (32 + (i % 4) * 32,), generator=gen,
+                          device=dev).tolist() for i in range(SPEC_REQUESTS)]
+
+
+def spec_drain(torch, ops, eng, prompts, draft_int8: bool = True) -> dict:
+    """One measured drain of phase 8's traffic: counts set to 0 just before
+    and read just after, exact against the engine's phase counts; every
+    request ends with its SPEC_NEW in-range tokens."""
+    eng.reset_phase_stats()
+    drafted0, accepted0 = eng.spec_drafted, eng.spec_accepted
+    torch.cuda.synchronize()
+    zero_counts(ops)
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, SPEC_NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    got = read_all_counts(ops)
+    pc = dict(eng.phase_counts)
+    if eng.draft_params is None:
+        want = {**engine_launches(pc["prefills"], pc["device_steps"], eng.cfg.n_layers),
+                "paged_attention_multi": 0, "quant_matmul": 0}
+    else:
+        want = spec_engine_launches(pc, eng.spec_k, eng.cfg.n_layers, eng.draft_cfg.n_layers,
+                                    draft_int8=draft_int8)
+    print(f"  spec phase drain (draft={eng.draft_params is not None}, guard="
+          f"{eng.spec_guard}) launches {got}, expected {want}", flush=True)
+    if got != want:
+        fail("a phase-8 drain did not run every kernel of its path exactly")
+    by_rid = {r.rid: r for r in eng.finished}
+    reqs = [by_rid[rid] for rid in rids]
+    for req in reqs:
+        if len(req.output) != SPEC_NEW or min(req.output) < 0 \
+                or max(req.output) >= eng.cfg.vocab_size:
+            fail(f"phase 8: a request did not end with its {SPEC_NEW} in-range tokens")
+    tokens = SPEC_REQUESTS * SPEC_NEW
+    drafted, accepted = eng.spec_drafted - drafted0, eng.spec_accepted - accepted0
+    ph = eng.phase_seconds
+    return {
+        "drain_s": drain_s, "new_tokens": tokens, "tok_per_s": tokens / drain_s,
+        "drafted": drafted, "accepted": accepted,
+        "accept_rate": accepted / drafted if drafted else None,
+        "phase_seconds": dict(ph), "phase_counts": pc,
+        "horizon_ms": ((ph["decode_device"] + ph["host_sync"] + ph["draft"] + ph["verify"])
+                       / pc["horizons"] * 1e3) if pc["horizons"] else None,
+        "ttft_ms_p50": p50(r.ttft_seconds for r in reqs) * 1e3,
+        "tpot_ms_p50": p50(r.tpot_seconds for r in reqs) * 1e3,
+        "launches": got, "outputs": [r.output for r in reqs],
+    }
+
+
+def feed_windows(n_fed: int, first: int, width: int) -> list:
+    """Cut ``n_fed`` fed tokens into forwards of ``width`` rows, the first
+    holding ``first`` real tokens: ``(start, real)`` per forward, the last
+    holding what remains (its other rows are filler)."""
+    out, start, real = [], 0, min(first, n_fed)
+    while start < n_fed:
+        out.append((start, real))
+        start += real
+        real = min(width, n_fed - start)
+    return out
+
+
+def divergence_check(run, n_fed: int, k: int, want: int, got: int) -> dict:
+    """Is a first divergence (the one-token decode chose ``want`` after
+    ``n_fed`` fed tokens, the speculative path ``got``) a near-tie? ``run
+    (windows, T)`` feeds the tokens in those forwards of T rows from the
+    same prompt state and returns the last fed token's fp32 logits [V].
+    The one-token form feeds one a forward; each of the k + 1 alignments of
+    (k + 1)-token verifies feeds them as a verify does, the history's K/V
+    included. Each logit of the two forms may differ by the largest error
+    between them, so a divergence that rounding explains has ``margin``
+    (the one-token logit of ``want`` less that of ``got``) at most twice
+    that error."""
+    step = run(feed_windows(n_fed, 1, 1), 1)
+    err = max(float((run(feed_windows(n_fed, first, k + 1), k + 1) - step).abs().max())
+              for first in range(1, k + 2))
+    top = step.topk(2).values
+    return {"position": n_fed, "plain": want, "spec": got, "recomputed_argmax": int(step.argmax()),
+            "top2_margin": float(top[0] - top[1]), "margin": float(step[want] - step[got]),
+            "max_abs_logit_err": err}
+
+
+def paged_runner(torch, params, cfg, prompt: list, fed: list, dev):
+    """``run`` for :func:`divergence_check` through the engine's own append
+    (``spec_decode._model_append``) over fresh pools of phase 8's slots and
+    block size: lane 0 holds the request and the other lanes idle on the
+    scratch block, so every product has the engine's shape, and the tables
+    have the engine's width, so the kernel splits the keys as there. The
+    prompt is written once, in appends of 16, and each form starts from a
+    copy."""
+    from bobrapet_tpu_torch.serving import paged_cache, spec_decode
+
+    slots, bs = SPEC_PAGING["max_slots"], SPEC_PAGING["block_size"]
+    seq = list(prompt) + list(fed)
+    nb = SPEC_PAGING["max_blocks_per_seq"]
+    paging = paged_cache.PagedConfig(max_slots=slots, block_size=bs, num_blocks=nb + 1,
+                                     max_blocks_per_seq=nb, prefix_caching=False)
+    tables = torch.full((slots, nb), paged_cache.SCRATCH_BLOCK, dtype=torch.int32, device=dev)
+    tables[0] = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)
+
+    def append(pools, start: int, real: int, t: int):
+        toks = torch.zeros((slots, t), dtype=torch.int32, device=dev)
+        toks[0, :real] = torch.tensor(seq[start:start + real], dtype=torch.int32, device=dev)
+        pos0 = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        pos0[0] = start
+        wok = torch.zeros((slots, t), dtype=torch.bool, device=dev)
+        wok[0, :real] = True
+        _, logits = spec_decode._model_append(params, pools, toks, pos0, wok, tables, cfg=cfg,
+                                              pcfg=paging, T=t)
+        return logits[0, real - 1]
+
+    base = paged_cache.init_pools(cfg, paging, dev)
+    for start, real in feed_windows(len(prompt), 16, 16):
+        append(base, start, real, 16)
+
+    def run(windows, t: int):
+        pools = {name: pool.clone() for name, pool in base.items()}
+        for start, real in windows:
+            last = append(pools, len(prompt) + start, real, t)
+        return last
+
+    return run
+
+
+def contiguous_runner(torch, llama, params, cfg, prompt, fed: list, dev):
+    """``run`` for :func:`divergence_check` through ``llama.forward`` over
+    the contiguous cache with a device cursor, as ``greedy_generate`` and
+    ``speculative_generate`` run, each at its own capacity (the kernel
+    splits the keys by it): a prefill of the prompt, then the fed tokens,
+    the cursor set to each forward's first position."""
+    plen = prompt.shape[1]
+    seq = list(fed)
+
+    def run(windows, t: int):
+        cap = STANDALONE_PROMPT + STANDALONE_NEW if t == 1 else STANDALONE_CAP
+        cache = llama.init_cache(cfg, 1, cap, device=dev)
+        llama.forward(params, prompt, cfg, cache=cache,
+                      positions=torch.arange(plen, device=dev)[None, :])
+        cursor = llama.device_cursor(cache)
+        for start, real in windows:
+            toks = torch.zeros((1, t), dtype=torch.int32, device=dev)
+            toks[0, :real] = torch.tensor(seq[start:start + real], dtype=torch.int32, device=dev)
+            cursor.fill_(plen + start)
+            pos = plen + start + torch.arange(t, device=dev)[None, :]
+            logits, _ = llama.forward(params, toks, cfg, cache=cache, positions=pos)
+        return logits[0, real - 1]
+
+    return run
+
+
+def check_divergences(checks: list, what: str) -> None:
+    for c in checks:
+        if c["margin"] > 2 * c["max_abs_logit_err"]:
+            fail(f"{what}: at position {c['position']} of request {c.get('request', 0)} the "
+                 f"speculative token trails the one-token step's by {c['margin']}, beyond twice "
+                 f"the logit error {c['max_abs_logit_err']} between the two forms")
+
+
+def spec_phase(torch, ops, serving, llama, quant, params, cfg, seed: int, dev, card: str) -> dict:
+    """Phase 8: the draft-less engine against the engine with the target's
+    int8 tree as its draft (guard off), drained in turns, then the guarded
+    engine warmed until it decides, then standalone speculative_generate."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    draft = quant.quantize_params(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    warm = spec_prompts(torch, cfg, seed + 40, dev)
+    prompts = spec_prompts(torch, cfg, seed + 41, dev)
+    torch.cuda.reset_peak_memory_stats()
+    paging = serving.PagedConfig(**SPEC_PAGING)
+    common = dict(decode_horizon=SPEC_HORIZON, dispatch_depth=1)
+    engines = {"plain": serving.ServingEngine(params, cfg, paging, **common),
+               "spec": serving.ServingEngine(params, cfg, paging, draft_params=draft,
+                                             draft_cfg=cfg, spec_k=SPEC_K, spec_guard=False,
+                                             **common)}
+    for eng in engines.values():
+        for p in warm:
+            eng.submit(p, SPEC_NEW)
+        eng.run()
+    drains = {name: [] for name in engines}
+    for name in SPEC_ORDER:
+        drains[name].append(spec_drain(torch, ops, engines[name], prompts))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, runs in drains.items():
+        if runs[0]["outputs"] != runs[1]["outputs"]:
+            fail(f"phase 8: the {name} engine's two drains gave different tokens")
+    # each engine's steady horizon under the profiler (8 slots, budgets of
+    # 64: the speculative horizon commits up to rounds * (k + 1) = 10 a lane)
+    profiles = {name: tick_profile(torch, eng, warm, 2, 2, 1) for name, eng in engines.items()}
+    out_p, out_s = drains["plain"][0]["outputs"], drains["spec"][0]["outputs"]
+    if any(a[0] != b[0] for a, b in zip(out_p, out_s)):
+        fail("phase 8: a first token (the same prefill) differs with the draft")
+    same = sum(x == y for a, b in zip(out_p, out_s) for x, y in zip(a, b))
+    divergence = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                  for a, b in zip(out_p, out_s)]
+    for runs in drains.values():
+        for d in runs:
+            d.pop("outputs")
+    del engines
+    # every first divergence must be a near-tie of the one-token step
+    div_checks = []
+    for i, j in enumerate(divergence):
+        if j:
+            run = paged_runner(torch, params, cfg, prompts[i], out_p[i][:j], dev)
+            div_checks.append({"request": i, **divergence_check(run, j, SPEC_K, out_p[i][j],
+                                                                out_s[i][j])})
+    print("spec phase, first divergences: " + json.dumps(div_checks), flush=True)
+    check_divergences(div_checks, "phase 8")
+
+    # the guarded engine, warmed until the guard decides (bench.py's loop)
+    guard = serving.ServingEngine(params, cfg, paging, draft_params=draft, draft_cfg=cfg,
+                                  spec_k=SPEC_K, **common)
+    warm_drains = 0
+    for attempt in range(GUARD_WARM_DRAINS):
+        for p in spec_prompts(torch, cfg, seed + 50 + attempt, dev):
+            guard.submit(p, SPEC_NEW)
+        guard.run()
+        warm_drains += 1
+        if guard.spec_guard_decision is not None:
+            break
+    if guard.spec_guard_decision is None:
+        fail(f"phase 8: the payoff guard did not decide in {GUARD_WARM_DRAINS} drains")
+    guarded = spec_drain(torch, ops, guard, prompts)
+    guarded_same = sum(x == y for a, b in zip(out_p, guarded.pop("outputs"))
+                       for x, y in zip(a, b))
+    decision = dict(guard.spec_guard_decision)
+    del guard, draft
+    L = cfg.n_layers
+    result = {
+        "model": "llama3_8b", "dtype": "bfloat16", "draft": "quantize_params(target), int8",
+        "card": card, "paging": SPEC_PAGING, "decode_horizon": SPEC_HORIZON, "spec_k": SPEC_K,
+        "rounds_per_horizon": max(1, -(-SPEC_HORIZON // (SPEC_K + 1))),
+        "requests": SPEC_REQUESTS, "new_tokens": SPEC_NEW, "order": ", ".join(SPEC_ORDER),
+        "quantize_s": quant_s, "peak_memory_gb": peak_gb, "drains": drains,
+        "profiles": profiles,
+        "spec_equals_plain_token_share": same / (SPEC_REQUESTS * SPEC_NEW),
+        "first_divergence": divergence, "divergence_checks": div_checks,
+        "guard": {"warm_drains": warm_drains, "decision": decision, "drain": guarded,
+                  "equals_plain_token_share": guarded_same / (SPEC_REQUESTS * SPEC_NEW)},
+        # what one round and one catch-up launch at these widths
+        "launches_per_spec_round": {"paged_attention": (SPEC_K + 1) * L,
+                                    "paged_attention_multi": L,
+                                    "quant_matmul": (SPEC_K + 1) * (7 * L + 1)},
+        "launches_per_draft_sync": {"paged_attention_multi": L, "quant_matmul": 7 * L + 1},
+    }
+    print("spec phase, serving: " + json.dumps(result), flush=True)
+    result["standalone"] = standalone_spec(torch, ops, llama, params, cfg, seed, dev)
+    result["seconds"] = time.perf_counter() - t_phase
+    print("spec phase: " + json.dumps(result), flush=True)
+    return result
+
+
+def standalone_spec(torch, ops, llama, params, cfg, seed: int, dev) -> dict:
+    """speculative_generate of bench.py:2509-2531: the 8B target, a
+    llama_tiny draft of its vocabulary (random, fp32), a [1, 64] prompt, 64
+    new tokens, k 4; one warm run (the graphs' capture), one timed with the
+    counts exact; its tokens against greedy_generate's."""
+    from bobrapet_tpu_torch.models import speculative_generate
+
+    dcfg = llama.llama_tiny(vocab_size=cfg.vocab_size)
+    draft = llama.init_params(dcfg, torch.Generator(device=dev).manual_seed(seed + 7), dev)
+    prompt = torch.randint(0, cfg.vocab_size, (1, STANDALONE_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed + 9))
+    speculative_generate(params, draft, prompt, cfg, dcfg, max_new_tokens=STANDALONE_NEW,
+                         k=SPEC_K)
+    torch.cuda.synchronize()
+    zero_counts(ops)
+    t0 = time.perf_counter()
+    res = speculative_generate(params, draft, prompt, cfg, dcfg, max_new_tokens=STANDALONE_NEW,
+                               k=SPEC_K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_all_counts(ops)
+    want = standalone_launches(res.rounds, SPEC_K, cfg.n_layers, dcfg.n_layers)
+    print(f"  standalone speculative_generate launches {got}, expected {want}", flush=True)
+    if got != want:
+        fail("standalone speculative decoding did not run every kernel of its path exactly")
+    toks = res.tokens.tolist()
+    if len(toks) != STANDALONE_NEW or min(toks) < 0 or max(toks) >= cfg.vocab_size:
+        fail("standalone speculative decoding gave bad tokens")
+    greedy = llama.greedy_generate(params, prompt, cfg, max_new_tokens=STANDALONE_NEW)[0].tolist()
+    if toks[0] != greedy[0]:
+        fail("standalone speculative decoding: the first token (the same prefill) differs")
+    j = next((j for j, (a, b) in enumerate(zip(toks, greedy)) if a != b), None)
+    check = None
+    if j:
+        check = divergence_check(contiguous_runner(torch, llama, params, cfg, prompt,
+                                                   greedy[:j], dev),
+                                 j, SPEC_K, greedy[j], toks[j])
+        print("  standalone first divergence: " + json.dumps(check), flush=True)
+        check_divergences([check], "standalone speculative decoding")
+    out = {"k": SPEC_K, "prompt": STANDALONE_PROMPT, "new_tokens": STANDALONE_NEW,
+           "draft": "llama_tiny(vocab_size=128256), fp32, random", "wall_s": wall,
+           "tok_per_s": STANDALONE_NEW / wall, "rounds": res.rounds, "drafted": res.drafted,
+           "accepted": res.accepted, "accept_rate": res.accepted / max(1, res.drafted),
+           "launches": got,
+           "equals_greedy_token_share": sum(a == b for a, b in zip(toks, greedy)) / len(toks),
+           "first_divergence_from_greedy": j, "divergence_check": check}
+    print("  standalone speculative decoding: " + json.dumps(out), flush=True)
+    return out
 
 
 def tree_to(tree, device):
@@ -1178,6 +1797,8 @@ def lora_drains(torch, ops, serving, lora_mod, params, cfg, seed: int, dev) -> d
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--quant-sweep", action="store_true",
+                    help="also time the int8 kernel at every forced cluster split (phase 3)")
     args = ap.parse_args()
 
     import torch
@@ -1200,6 +1821,7 @@ def main() -> None:
         from bobrapet_tpu_torch.kernels import build as kbuild
         from bobrapet_tpu_torch.models import llama, tree_bytes
         from bobrapet_tpu_torch.models import lora as lora_mod
+        from bobrapet_tpu_torch.models import quant
     except ImportError as e:
         fail(f"the port is not importable here ({e}): run from the root of the repo")
 
@@ -1223,6 +1845,8 @@ def main() -> None:
         fail("a tensor-core attention kernel spills registers")
     if spills_in(instances, "rmsnorm_kernel"):
         fail(f"an RMSNorm instance spills registers: {spills_in(instances, 'rmsnorm_kernel')}")
+    if spills_in(instances, "qmm"):
+        fail(f"an int8 product instance spills registers: {spills_in(instances, 'qmm')}")
 
     # ---- 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1252,6 +1876,11 @@ def main() -> None:
                     hq, hkv, hd, f32, gen, dev),
         cached_case(torch, F, ops, flush, "cached decode D=32", (1, 33, 64), 64, 4, 2, 32, bf16,
                     gen, dev),
+        # the standalone verify: k + 1 = 5 queries x group 4 = 20 packed rows
+        cached_case(torch, F, ops, flush, "cached verify 20 rows", (STANDALONE_CAP - 8,),
+                    STANDALONE_CAP, hq, hkv, hd, bf16, gen, dev, sq=SPEC_K + 1),
+        cached_case(torch, F, ops, flush, "cached verify 20 rows fp32", (STANDALONE_CAP - 8,),
+                    STANDALONE_CAP, hq, hkv, hd, f32, gen, dev, sq=SPEC_K + 1),
     ]
     flash_cases = [
         flash_case(torch, F, ops, flush, "flash prefill", BATCH, PROMPT, PROMPT, hq, hkv, hd,
@@ -1281,10 +1910,33 @@ def main() -> None:
                    n_blocks=PREFIX_PAGING["num_blocks"], mb=PREFIX_PAGING["max_blocks_per_seq"],
                    lens=PREFIX_PAGED_LENS),
     ]
-    for c in rms_cases + flash_cases + cached_cases + paged_cases:
+    multi_cases = [
+        paged_multi_case(torch, F, ops, flush, "paged multi verify", SPEC_K + 1, hq, hkv, hd,
+                         bf16, gen, dev),
+        paged_multi_case(torch, F, ops, flush, "paged multi draft sync", SPEC_HORIZON, hq, hkv,
+                         hd, bf16, gen, dev),
+        paged_multi_case(torch, F, ops, flush, "paged multi verify fp32", SPEC_K + 1, hq, hkv,
+                         hd, f32, gen, dev),
+    ]
+    quant_cases = [quant_case(torch, ops, quant, flush, name, m, k, n, bf16, gen, dev)
+                   for name, m, k, n in QUANT_CASES]
+    quant_cases.append(quant_case(torch, ops, quant, flush, "quant wq/wo decode fp32", 8, 4096,
+                                  4096, f32, gen, dev))
+    for c in rms_cases + flash_cases + cached_cases + paged_cases + multi_cases + quant_cases:
         print(f"  {c['case']}: kernel {c['ms']:.5f} ms, plain {c['plain_ms']:.5f} ms, "
               f"library {c['library_ms']:.5f} ms, bound {c['bound_ms']:.6f} ms "
               f"({c['bound_by']})", flush=True)
+    # the int8 draft's decode step (M = 8): the 7 products of 32 layers and
+    # the LM head, kernel against the plain version (the repair's after and
+    # before), and the bound
+    quant_step = {key: quant_step_ms(quant_cases, 32, key)
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print("  int8 draft decode step's products (32 layers, M = 8), the sum of the per-shape "
+          f"medians (isolated launches, L2 flushed; not a step's time): {json.dumps(quant_step)}",
+          flush=True)
+    if args.quant_sweep:
+        print("quant sweep: " + json.dumps(quant_sweep(torch, quant, flush, gen, dev)),
+              flush=True)
     host_costs = wrapper_host_costs(torch, ops, gen, dev)
     del flush
 
@@ -1381,20 +2033,29 @@ def main() -> None:
     del params_cpu, gpu_logits
     engine_cross_check(torch, ops, llama, serving, cfg, args.seed, dev)
     prefix_cross_check(torch, ops, llama, serving, lora_mod, cfg, args.seed, dev)
+    spec_cross_check(torch, ops, llama, quant, serving, cfg, args.seed, dev)
 
     # ---- 7. prefix caching, chunked prefill and multi-LoRA at full width
     # (the weights of phases 4 and 5 again, from the same seed)
     params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     prefixed = prefix_phase(torch, ops, serving, llama, lora_mod, params, cfg, args.seed, dev,
                             card)
-    del params
     for name, runs in prefixed["drains"].items():
         launches_by_path[f"prefix_{name}"] = {
             k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
     for name, run in prefixed["lora"]["drains"].items():
         launches_by_path[f"multi_lora_{name}"] = run["launches"]
 
-    # ---- 8. result
+    # ---- 8. speculative decoding at full width (the same weights)
+    spec = spec_phase(torch, ops, serving, llama, quant, params, cfg, args.seed, dev, card)
+    del params
+    for name, runs in spec["drains"].items():
+        launches_by_path[f"spec_{name}"] = {
+            k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+    launches_by_path["spec_guarded"] = spec["guard"]["drain"]["launches"]
+    launches_by_path["spec_standalone"] = spec["standalone"]["launches"]
+
+    # ---- 9. result
     # each kernel's own launches: the flash counter also counts the
     # device-length entry's
     own = {k: {**path, "flash_attention": path["flash_attention"] - path["cached_attention"]}
@@ -1405,8 +2066,8 @@ def main() -> None:
         main_errs = [c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16"]
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(path[name] for path in own.values()),
-            "launches_by_path": {k: path[name] for k, path in own.items()},
+            "launches": sum(path.get(name, 0) for path in own.values()),
+            "launches_by_path": {k: path.get(name, 0) for k, path in own.items()},
             "max_abs_err": max(main_errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"], "cases": cases,
@@ -1423,6 +2084,10 @@ def main() -> None:
               "bobrapet_tpu/ops/attention.py:117", cached_cases, "cached decode"),
         entry("paged_attention", "bobrapet_tpu_torch/csrc/paged_attention.cu",
               "bobrapet_tpu/serving/engine.py:3106", paged_cases, "paged decode"),
+        entry("paged_attention_multi", "bobrapet_tpu_torch/csrc/paged_attention.cu",
+              "bobrapet_tpu/serving/spec_decode.py:47", multi_cases, "paged multi verify"),
+        entry("quant_matmul", "bobrapet_tpu_torch/csrc/quant_matmul.cu",
+              "bobrapet_tpu/models/quant.py:70", quant_cases, "quant wq/wo decode"),
     ], "build_s": build_s, "host_us_per_call": host_costs}
     print(json.dumps(kernels), flush=True)
     print(f"card: {card}", flush=True)

@@ -209,3 +209,136 @@ def test_chunk_case_bound(smoke):
 def test_pctl_is_the_nearest_rank(smoke):
     assert smoke.pctl([3, 1, 2, 4], 0.5) == 3 and smoke.pctl(range(20), 0.95) == 19
     assert smoke.pctl([5], 0.95) == 5
+
+
+def test_spec_engine_launches_count_each_forward(smoke):
+    # one prefill mirrored, one spec round of k = 4, one plain tick with its
+    # draft append, one plain horizon of 8 with its catch-up; 32 layers each
+    pc = {"prefills": 1, "draft_prefills": 1, "device_steps": 1 + 8, "spec_rounds": 1,
+          "spec_ticks": 0, "draft_syncs": 1, "draft_appends": 1}
+    got = smoke.spec_engine_launches(pc, 4, 32, 32)
+    target = 1 + 9 + 1                 # prefill, nine one-token steps, one verify
+    draft = 1 + 5 + 1 + 1              # mirror, five steps, catch-up, append
+    assert got == {"rmsnorm": (target + draft) * 65, "add_rmsnorm": (target + draft) * 64,
+                   "flash_attention": 2 * 32, "cached_attention": 0,
+                   "paged_attention": (9 + 5 + 1) * 32, "paged_attention_multi": 2 * 32,
+                   "quant_matmul": draft * 225}
+    # an int8 target's products count too; a bf16 draft's do not
+    both = smoke.spec_engine_launches(pc, 4, 32, 32, target_int8=True, draft_int8=False)
+    assert both["quant_matmul"] == target * 225
+
+
+def test_a_spec_round_and_a_catch_up_at_8b_widths(smoke):
+    # what phase 8 reports a round launches: k + 1 draft steps, one verify
+    round_pc = {"prefills": 0, "draft_prefills": 0, "device_steps": 0, "spec_rounds": 1,
+                "spec_ticks": 0, "draft_syncs": 0, "draft_appends": 0}
+    got = smoke.spec_engine_launches(round_pc, smoke.SPEC_K, 32, 32)
+    assert (got["paged_attention"], got["paged_attention_multi"], got["quant_matmul"]) == (
+        160, 32, 1125)
+    sync_pc = {**round_pc, "spec_rounds": 0, "draft_syncs": 1}
+    got = smoke.spec_engine_launches(sync_pc, smoke.SPEC_K, 32, 32)
+    assert (got["paged_attention_multi"], got["quant_matmul"], got["paged_attention"]) == (
+        32, 225, 0)
+
+
+def test_standalone_launches(smoke):
+    got = smoke.standalone_launches(13, 4, 32, 2)
+    cached = 13 * (32 + 5 * 2)
+    assert got == {"rmsnorm": 14 * 65 + 66 * 5, "add_rmsnorm": 14 * 64 + 66 * 4,
+                   "flash_attention": 34 + cached, "cached_attention": cached,
+                   "paged_attention": 0, "paged_attention_multi": 0, "quant_matmul": 0}
+
+
+def test_quant_bounds_are_the_int8_bytes(smoke):
+    # decode M = 8: the int8 weight dominates; bounded by bytes
+    nbytes = smoke.quant_bytes(8, 4096, 4096, 2)
+    assert nbytes == 4096 * 4096 + (8 * 4096 + 4096 + 8 * 4096) * 2
+    ms, by = smoke.bound(nbytes, 2 * 8 * 4096 * 4096, "bfloat16")
+    assert by == "bytes" and round(ms * 1e3, 2) == 5.05
+    # the LM head: 525 MB of int8, 157 us at 3.35 TB/s
+    ms, by = smoke.bound(smoke.quant_bytes(8, 4096, 128256, 2), 2 * 8 * 4096 * 128256,
+                         "bfloat16")
+    assert by == "bytes" and round(ms, 3) == 0.158
+    # the int8 draft's decode step: 32 layers of 7 products and the head
+    cases = [{"case": name, "ms": 1.0} for name, *_ in smoke.QUANT_CASES]
+    assert smoke.quant_step_ms(cases, 32, "ms") == 32 * 7 + 1
+
+
+def test_multi_pairs_and_the_verify_bound(smoke):
+    # query i of a lane at lens - T + i sees lens - T + i + 1 keys
+    assert smoke.multi_pairs((5,), 5) == 1 + 2 + 3 + 4 + 5
+    assert smoke.multi_pairs((1, 3), 2) == (0 + 1) + (2 + 3)
+    lens, t = smoke.MULTI_LENS, smoke.SPEC_K + 1
+    pages = sum(-(-n // 16) for n in lens)
+    nbytes = (2 * sum(lens) * 8 * 128 + 2 * 8 * t * 32 * 128) * 2 + 4 * (pages + 8)
+    ms, by = smoke.bound(nbytes, 4 * 128 * 32 * smoke.multi_pairs(lens, t), "bfloat16")
+    assert sum(lens) == 756  # valid K/V rows
+    assert by == "bytes" and round(nbytes / 1e6, 2) == 3.75 and round(ms * 1e3, 2) == 1.12
+    # every lane fits the 16-block tables of phase 8's pools
+    assert max(lens) <= 16 * 16 and smoke.SPEC_PAGING["max_blocks_per_seq"] == 16
+
+
+def test_spec_traffic_is_the_serving_child(smoke):
+    paging = smoke.SPEC_PAGING
+    lens = [32 + (i % 4) * 32 for i in range(smoke.SPEC_REQUESTS)]
+    assert smoke.SPEC_REQUESTS == 16 and smoke.SPEC_NEW == 32 and smoke.SPEC_K == 4
+    assert (paging["max_slots"], paging["block_size"], paging["num_blocks"],
+            paging["max_blocks_per_seq"]) == (8, 16, 256, 16)
+    # a speculative horizon funds up to rounds * (k + 1) = 10 tokens past the
+    # budget's end: every lane still fits its table and all 8 the pool
+    rounds = -(-smoke.SPEC_HORIZON // (smoke.SPEC_K + 1))
+    most = max(-(-(n + smoke.SPEC_NEW + rounds * (smoke.SPEC_K + 1)) // 16) for n in lens)
+    assert most <= paging["max_blocks_per_seq"]
+    assert paging["max_slots"] * most <= paging["num_blocks"] - 1
+    assert smoke.STANDALONE_CAP == 64 + 64 + 5
+
+
+def test_cached_verify_bound(smoke):
+    # the standalone verify: q [1,5,32,128] + out, 125 valid K/V rows of
+    # [8,128] in a 133-row cache, bf16; queries at 120..124
+    lens, sq = (smoke.STANDALONE_CAP - 8,), smoke.SPEC_K + 1
+    assert lens == (125,) and sq == 5
+    pairs = smoke.attention_pairs(sq, lens[0], True, lens[0] - sq)
+    assert pairs == 121 + 122 + 123 + 124 + 125
+    nbytes = (2 * 125 * 8 * 128 + 2 * 5 * 32 * 128) * 2 + 4
+    ms, by = smoke.bound(nbytes, 4 * 128 * 32 * pairs, "bfloat16")
+    assert by == "bytes" and round(ms * 1e6, 1) == 177.3
+
+
+@pytest.mark.parametrize("n_fed,first,width,windows", [
+    (7, 2, 5, [(0, 2), (2, 5)]),
+    (1, 3, 5, [(0, 1)]),
+    (4, 1, 1, [(0, 1), (1, 1), (2, 1), (3, 1)]),
+    (12, 5, 5, [(0, 5), (5, 5), (10, 2)]),
+])
+def test_feed_windows_cover_every_fed_token_once(smoke, n_fed, first, width, windows):
+    assert smoke.feed_windows(n_fed, first, width) == windows
+
+
+@pytest.mark.parametrize("runner", ["paged", "contiguous"])
+def test_divergence_check_tells_a_near_tie_from_a_fault(smoke, runner):
+    # fp32 on the CPU: the one-token and verify forms agree to rounding, so
+    # the true next token passes and a token far below it fails
+    import torch
+
+    from bobrapet_tpu_torch.models import llama
+
+    cfg = llama.llama_tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (1, 21), generator=torch.Generator().manual_seed(1))
+    fed = llama.greedy_generate(params, prompt, cfg, max_new_tokens=7, cuda_graph=False)[0]
+    fed = fed.tolist()
+    if runner == "paged":
+        run = smoke.paged_runner(torch, params, cfg, prompt[0].tolist(), fed[:6], "cpu")
+    else:
+        run = smoke.contiguous_runner(torch, llama, params, cfg, prompt, fed[:6], "cpu")
+    step = run(smoke.feed_windows(6, 1, 1), 1)
+    worst = int(step.argmin())
+    ok = smoke.divergence_check(run, 6, smoke.SPEC_K, fed[6], fed[6])
+    assert ok["recomputed_argmax"] == fed[6] and ok["margin"] == 0.0
+    assert 0.0 <= ok["max_abs_logit_err"] < 1e-3
+    bad = smoke.divergence_check(run, 6, smoke.SPEC_K, fed[6], worst)
+    assert bad["margin"] > 2 * bad["max_abs_logit_err"]
+    with pytest.raises(SystemExit):
+        smoke.check_divergences([bad], "test")
+    smoke.check_divergences([ok], "test")

@@ -94,11 +94,11 @@ def test_cached_attention_kernel_matches_plain(cuda, dtype, case):
 
 
 def test_cached_attention_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 5, 4, 32, dtype=torch.bfloat16, device=cuda)  # 20 packed rows
+    q = torch.zeros(1, 5, 4, 32, dtype=torch.bfloat16, device=cuda)  # 20 packed rows: taken
     kv = torch.zeros(1, 16, 1, 32, dtype=torch.bfloat16, device=cuda)
     n = torch.tensor([16], dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="packed rows"):
-        cached_attention_cuda(q, kv, kv, n)
+    with pytest.raises(ValueError, match="head dim"):
+        cached_attention_cuda(*[torch.zeros(1, 5, 4, 48, dtype=torch.bfloat16, device=cuda)] * 3, n)
     with pytest.raises(TypeError, match="int32"):
         cached_attention_cuda(q[:, :1], kv, kv, n.long())
     with pytest.raises(ValueError):

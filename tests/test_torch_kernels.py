@@ -23,14 +23,22 @@ import torch
 
 from bobrapet_tpu_torch.kernels import kernel_function
 from bobrapet_tpu_torch.models import llama
+from bobrapet_tpu_torch.models import quant
 from bobrapet_tpu_torch.ops import (
     add_rmsnorm_cuda,
     attention,
     attention_reference,
+    cached_attention_cuda,
+    cached_attention_reference,
     flash_attention_cuda,
     paged_attention,
     paged_attention_cuda,
+    paged_attention_multi,
+    paged_attention_multi_cuda,
+    paged_attention_multi_reference,
     paged_attention_reference,
+    quant_matmul_cuda,
+    quant_matmul_reference,
     rmsnorm_cuda,
     rmsnorm_reference,
 )
@@ -424,3 +432,191 @@ def test_tiny_model_fuses_every_norm_after_a_residual_add(cuda):
     forwards = 1 + 6
     assert rmsnorm_cuda.launches == (2 * cfg.n_layers + 1) * forwards
     assert add_rmsnorm_cuda.launches == 2 * cfg.n_layers * forwards
+
+
+# ---------------------------------------------------------------------------
+# the speculative path's kernels: T-query paged attention, the cached entry
+# above 16 packed rows, the int8 weight-only product
+# ---------------------------------------------------------------------------
+
+
+def _multi_inputs(case, t, dtype, cuda, seed=0):
+    """``case`` of PAGED_CASES with T queries a slot: every lane's ``lens``
+    (pos0 + T) is its seq_len, so query t sits at seq_len - T + t."""
+    q1, k, v, tables, lens = _paged_inputs(case, dtype, cuda, seed)
+    slots, hq, _, d = case[0], case[1], case[2], case[3]
+    q = _randn((slots, t, hq, d), dtype, cuda, seed + 7)
+    return q, k, v, tables, torch.clamp(lens, min=t)
+
+
+@pytest.mark.parametrize("t", [1, 2, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [PAGED_CASES[0], PAGED_CASES[1], PAGED_CASES[3], PAGED_CASES[4]],
+                         ids=str)
+def test_paged_multi_kernel_matches_plain(cuda, dtype, case, t):
+    q, k, v, tables, lens = _multi_inputs(case, t, dtype, cuda)
+    before = paged_attention_multi_cuda.launches
+    out = paged_attention_multi_cuda(q, k, v, tables, lens)
+    torch.cuda.synchronize()
+    assert paged_attention_multi_cuda.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    _close(out, paged_attention_multi_reference(q, k, v, tables, lens), dtype, 2.0 ** -7, 1e-3,
+           2e-4)
+    assert torch.equal(paged_attention_multi(q, k, v, tables, lens), out)
+    assert torch.equal(paged_attention_multi_cuda(q, k, v, tables, lens), out)  # same bits twice
+    if t == 1:  # the one-query kernel, bit for bit
+        assert torch.equal(out[:, 0], paged_attention_cuda(q[:, 0].contiguous(), k, v, tables,
+                                                           lens))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_multi_kernel_reads_no_key_past_its_query(cuda, dtype):
+    # keys past each lane's last query (pos0 + T - 1) never move the output,
+    # and query t sees its own key and nothing after it
+    q, k, v, tables, lens = _multi_inputs(PAGED_CASES[0], 5, dtype, cuda, seed=4)
+    out = paged_attention_multi_cuda(q, k, v, tables, lens)
+    k2, v2 = k.clone(), v.clone()
+    block = k.shape[1]
+    for s, n in enumerate(lens.tolist()):
+        for pos in range(n, tables.shape[1] * block):
+            blk = int(tables[s, pos // block])
+            if blk:
+                k2[blk, pos % block] = float("nan")
+                v2[blk, pos % block] = float("nan")
+    assert torch.equal(paged_attention_multi_cuda(q, k2, v2, tables, lens), out)
+    # a lane whose queries sit before every key of the table but its first
+    lens1 = lens.clone()
+    lens1[3] = 5  # queries at 0..4
+    got = paged_attention_multi_cuda(q, k, v, tables, lens1)
+    _close(got, paged_attention_multi_reference(q, k, v, tables, lens1), dtype, 2.0 ** -7, 1e-3,
+           2e-4)
+
+
+def test_paged_multi_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, tables, lens = _multi_inputs(PAGED_CASES[1], 2, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        paged_attention_multi_cuda(q, k, v, tables, lens.long())
+    with pytest.raises(ValueError, match="bad shapes"):
+        paged_attention_multi_cuda(q[:, 0], k, v, tables, lens)
+    with pytest.raises(ValueError):
+        paged_attention_multi_cuda(q, k, v, tables.cpu(), lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [
+    # b, sq, cap, hq, hkv, d, lens; packed rows = sq * hq / hkv
+    (1, 5, 96, 32, 8, 128, (69,)),                   # the standalone verify: 20 rows
+    (2, 8, 192, 32, 8, 128, (100, 192)),             # 32 rows: two tiles
+    (3, 5, 64, 8, 2, 32, (5, 33, 64)),               # 20 rows, llama_tiny widths
+    (2, 3, 2048, 32, 8, 128, (7, 2048)),             # 12 rows over a long cache
+], ids=str)
+def test_cached_kernel_above_sixteen_rows_matches_plain(cuda, dtype, case):
+    b, sq, cap, hq, hkv, d, lens = case
+    q = _randn((b, sq, hq, d), dtype, cuda, 21)
+    k = _randn((b, cap, hkv, d), dtype, cuda, 22)
+    v = _randn((b, cap, hkv, d), dtype, cuda, 23)
+    n = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = cached_attention_cuda.launches
+    out = cached_attention_cuda(q, k, v, n)
+    torch.cuda.synchronize()
+    assert cached_attention_cuda.launches == before + 1
+    _close(out, cached_attention_reference(q, k, v, n), dtype, 2.0 ** -7, 1e-3, 2e-4)
+    assert torch.equal(cached_attention_cuda(q, k, v, n), out)
+
+
+#: (K, N) of every int8 product of a Llama-3-8B forward: wq and wo, wk and
+#: wv, w_gate and w_up, w_down, lm_head
+QUANT_SHAPES_8B = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+
+
+def _quant_close(out, ref, dtype):
+    """bf16: the product is rounded to bf16, then scaled and rounded again,
+    so a sum in another order may move it by one ulp before the scale: 2^-6
+    of |plain|, plus 1e-4 of the largest |plain| for fp32 sums of opposite
+    terms that nearly cancel. fp32: 1e-5 of the largest |plain| (TF32, with
+    10 mantissa bits, would miss by ~1e-3)."""
+    out, ref = out.float(), ref.float()
+    assert torch.isfinite(out).all()
+    big = float(ref.abs().max())
+    if dtype == torch.bfloat16:
+        bound = 1e-4 * big + 2.0 ** -6 * ref.abs()
+    else:
+        bound = torch.full_like(ref, 1e-5 * big)
+    assert bool(((out - ref).abs() <= bound).all()), float((out - ref).abs().max())
+
+
+@pytest.mark.parametrize("m", [8, 40, 64, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kn", QUANT_SHAPES_8B, ids=str)
+def test_quant_matmul_kernel_matches_plain(cuda, dtype, kn, m):
+    k, n = kn
+    leaf = quant.quantize_array(_randn((k, n), dtype, cuda, 31) * (1.0 / 64))
+    x = _randn((m, k), dtype, cuda, 32)
+    before = quant_matmul_cuda.launches
+    out = quant_matmul_cuda(x, leaf["q"], leaf["scale"])
+    torch.cuda.synchronize()
+    assert quant_matmul_cuda.launches == before + 1
+    assert out.shape == (m, n) and out.dtype == dtype
+    _quant_close(out, quant_matmul_reference(x, leaf["q"], leaf["scale"]), dtype)
+    assert torch.equal(quant_matmul_cuda(x, leaf["q"], leaf["scale"]), out)  # same bits twice
+    assert torch.equal(quant.matmul(x, leaf), out)  # the model's hook takes the kernel
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 128), (2, 1, 64), (7, 48)])
+def test_quant_matmul_kernel_ragged_rows_and_narrow_widths(cuda, shape):
+    # batch dims are folded into the rows; M, K and N off the tiles' sizes
+    k, n = shape[-1], 80
+    leaf = quant.quantize_array(_randn((k, n), torch.bfloat16, cuda, 33))
+    x = _randn(shape, torch.bfloat16, cuda, 34)
+    out = quant_matmul_cuda(x, leaf["q"], leaf["scale"])
+    assert out.shape == (*shape[:-1], n)
+    _quant_close(out, quant_matmul_reference(x, leaf["q"], leaf["scale"]), torch.bfloat16)
+
+
+def test_quant_matmul_refuses_what_it_does_not_take(cuda):
+    leaf = quant.quantize_array(_randn((64, 64), torch.bfloat16, cuda, 35))
+    x = _randn((4, 64), torch.bfloat16, cuda, 36)
+    with pytest.raises(TypeError):
+        quant_matmul_cuda(x.float(), leaf["q"], leaf["scale"])  # the scale is bf16
+    with pytest.raises(TypeError):
+        quant_matmul_cuda(x, leaf["q"].to(torch.int16), leaf["scale"])
+    with pytest.raises(ValueError, match="multiples of 16"):
+        quant_matmul_cuda(x[:, :40].contiguous(), leaf["q"][:40], leaf["scale"])
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul_cuda(_randn((64, 4), torch.bfloat16, cuda, 37).T, leaf["q"], leaf["scale"])
+    with pytest.raises(ValueError):
+        quant_matmul_cuda(x, leaf["q"].cpu(), leaf["scale"])
+
+
+@pytest.mark.parametrize("horizon", [1, 4])
+def test_tiny_spec_engine_on_the_card_matches_the_cpu(cuda, horizon):
+    """A draft engine (the target's own int8 tree as the draft: the fp32
+    int8 kernel, the T-query paged kernel) gives the CPU's tokens and the
+    draft-less engine's, every verify through the T-query entry."""
+    cfg = llama.llama_tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    pcfg = PagedConfig(max_slots=3, block_size=8, num_blocks=40, max_blocks_per_seq=6,
+                       prefix_caching=False)
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in (5, 12, 9)]
+    outs = {}
+    for name, tree in (("cpu", params), ("card", _to(params, cuda))):
+        for spec in (False, True):
+            kw = dict(draft_params=quant.quantize_params(tree), draft_cfg=cfg, spec_k=3,
+                      spec_guard=False) if spec else {}
+            eng = ServingEngine(tree, cfg, pcfg, decode_horizon=horizon, dispatch_depth=1, **kw)
+            for p in prompts:
+                eng.submit(p, 14)
+            paged_attention_multi_cuda.launches = quant_matmul_cuda.launches = 0
+            eng.run()
+            outs[name, spec] = {r.rid: r.output for r in eng.finished}
+            pc = eng.phase_counts
+            verifies = pc["spec_rounds"] + pc["spec_ticks"]
+            if name == "card" and spec:
+                assert eng.spec_drafted > 0 and verifies > 0
+                assert paged_attention_multi_cuda.launches == cfg.n_layers * (
+                    verifies + pc["draft_syncs"])
+                drafts = (pc["draft_prefills"] + verifies * 4 + pc["draft_syncs"]
+                          + pc["draft_appends"])
+                assert quant_matmul_cuda.launches == drafts * (7 * cfg.n_layers + 1)
+    assert outs["card", True] == outs["card", False] == outs["cpu", True] == outs["cpu", False]

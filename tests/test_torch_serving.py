@@ -398,7 +398,9 @@ class TestEngineSurface:
     @pytest.mark.parametrize("kwargs,pcfg_kw,match", [
         ({"decode_horizon": 8, "dispatch_depth": 2}, {}, "dispatch_depth=1"),
         ({"dispatch_depth": 2}, {}, "dispatch_depth=1"),
-        ({"draft_params": {}}, {}, "draft_params=None"),
+        # a draft engine serves at depth 1; its depth-N pipeline is unported
+        ({"draft_params": {}, "dispatch_depth": 2}, {},
+         "draft engine's depth-N pipeline .*speculative commit watch.* pass dispatch_depth=1"),
         ({"role": "prefill"}, {}, "role='unified'"),
         ({"role": "decode"}, {}, "role='unified'"),
         ({"moe": True}, {}, "dense LlamaConfig"),

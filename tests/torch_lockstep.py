@@ -4,8 +4,10 @@ Both engines get the same requests in the same order and are stepped
 together; after every ``step()`` the scheduler and prefix-cache state must
 be the same: finished rids, slots (rid, blocks, seq_len, ingest_pos,
 shared tokens, outputs), the free list, the queue, the prefix cache's hash
-maps, refcounts and hit/miss tokens, and the horizon and host-sync counts.
-Used by tests/test_torch_prefix.py and tests/test_torch_lora.py.
+maps, refcounts and hit/miss tokens, the speculative drafted and accepted
+counts, and the horizon and host-sync counts. Used by
+tests/test_torch_prefix.py, tests/test_torch_lora.py and
+tests/test_torch_spec.py.
 """
 
 import jax
@@ -28,11 +30,15 @@ def prompt(rng, n, vocab):
 def engines(params_j, params_t, cfg_j, cfg_t, pcfg: dict, horizon: int, **kw):
     """A JAX engine and a port engine on the same config, at ``dispatch_depth=1``
     with the dispatch-ahead tick off (``kw``: ``loras`` as a pair (JAX tree,
-    port tree), ``lora_scale``)."""
+    port tree), ``lora_scale``; ``draft`` as (JAX tree, port tree, JAX
+    config, port config), with ``spec_k`` and the guard's arguments)."""
     loras = kw.pop("loras", (None, None))
+    draft = kw.pop("draft", (None, None, None, None))
     common = dict(pipeline_decode=False, decode_horizon=horizon, dispatch_depth=1, **kw)
-    jeng = JServingEngine(params_j, cfg_j, JPagedConfig(**pcfg), loras=loras[0], **common)
-    teng = ServingEngine(params_t, cfg_t, PagedConfig(**pcfg), loras=loras[1], **common)
+    jeng = JServingEngine(params_j, cfg_j, JPagedConfig(**pcfg), loras=loras[0],
+                          draft_params=draft[0], draft_cfg=draft[2], **common)
+    teng = ServingEngine(params_t, cfg_t, PagedConfig(**pcfg), loras=loras[1],
+                         draft_params=draft[1], draft_cfg=draft[3], **common)
     return jeng, teng
 
 
@@ -56,6 +62,7 @@ def assert_same_state(jeng, teng):
     assert [r.rid for r in teng.pending] == [r.rid for r in jeng.pending]
     assert cache_view(teng) == cache_view(jeng)
     assert outputs(teng) == outputs(jeng)
+    assert (teng.spec_drafted, teng.spec_accepted) == (jeng.spec_drafted, jeng.spec_accepted)
     # (the port's device_steps also counts classic ticks; JAX's counts
     # only horizon steps)
     for key in ("horizons", "host_syncs"):
