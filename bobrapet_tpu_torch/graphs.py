@@ -26,14 +26,16 @@ may read the host (``.tolist()``, ``int(t)``), record an event or keep
 a tensor it allocates anywhere but in its return value: a capture that
 fails raises.
 
-The kernel wrappers' Python ``launches`` counters run only while ``fn``'s
-Python runs, that is during the capture and not during a replay. So the
-capture's increase of each counter is taken back and added again on every
-replay: a counter then counts the kernels the card ran, eager or graphed.
+The kernel wrappers' Python ``launches`` counters (and the int8 product's
+``routes``) run only while ``fn``'s Python runs, that is during the
+capture and not during a replay. So the capture's increase of each counter
+is taken back and added again on every replay: a counter then counts the
+kernels the card ran, eager or graphed.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable
 
 import torch
@@ -62,8 +64,9 @@ class GraphedStep:
         self.graphed = enabled and self.device.type == "cuda"
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs: Any = None
-        #: (wrapper, launches of one execution) recorded at capture
-        self.launches: list[tuple[Any, int]] = []
+        #: (wrapper, launches of one execution, and by route where the
+        #: wrapper counts routes) recorded at capture
+        self.launches: list[tuple[Any, int, dict[str, int]]] = []
         #: replays since the capture
         self.replays = 0
 
@@ -74,8 +77,10 @@ class GraphedStep:
             return self._warm_up_and_capture()
         self.graph.replay()
         self.replays += 1
-        for wrapper, n in self.launches:
+        for wrapper, n, routes in self.launches:
             wrapper.launches += n
+            for route, c in routes.items():
+                wrapper.routes[route] += c
         return self.outputs
 
     def _warm_up_and_capture(self) -> Any:
@@ -85,16 +90,26 @@ class GraphedStep:
         with torch.cuda.stream(side):
             warm = self.fn(*self.inputs)
         current.wait_stream(side)
-        before = [w.launches for w in COUNTED]
+        before = [(w.launches, dict(getattr(w, "routes", {}))) for w in COUNTED]
         graph = torch.cuda.CUDAGraph()
+        # no automatic collection while capturing: a graph kept alive only
+        # by a reference cycle (a step holds its owner's bound method) and
+        # freed by the collector mid-capture would end the capture
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self.outputs = self.fn(*self.inputs)
         finally:
+            if collecting:
+                gc.enable()
             # nothing ran while capturing: take the capture's counts back
-            captured = [w.launches - n for w, n in zip(COUNTED, before)]
-            for w, n in zip(COUNTED, before):
+            captured = []
+            for w, (n, routes) in zip(COUNTED, before):
+                captured.append((w.launches - n, {r: w.routes[r] - c for r, c in routes.items()}))
                 w.launches = n
-        self.launches = [(w, n) for w, n in zip(COUNTED, captured) if n]
+                if routes:
+                    w.routes.update(routes)
+        self.launches = [(w, n, routes) for w, (n, routes) in zip(COUNTED, captured) if n]
         self.graph = graph
         return warm

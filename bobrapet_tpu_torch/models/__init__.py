@@ -13,17 +13,19 @@ from .llama import (
     llama3_8b,
     llama_tiny,
 )
-from .quant import quantize_params, tree_bytes
+from .quant import dequantize_params, init_quantized_params, quantize_params, tree_bytes
 from .speculative import SpecResult, speculative_generate
 
 __all__ = [
     "SpecResult",
     "speculative_generate",
     "LlamaConfig",
+    "dequantize_params",
     "forward",
     "greedy_generate",
     "init_cache",
     "init_params",
+    "init_quantized_params",
     "lora",
     "llama3_1b",
     "llama3_8b",

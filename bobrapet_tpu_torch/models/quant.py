@@ -10,14 +10,19 @@ version on the CPU and the port's int8 kernel on a card
 never writes the widened weight, as XLA's fused product does not); a
 product with a plain weight stays ``torch.matmul``, as the JAX package
 leaves it to XLA.
+
+:func:`init_quantized_params` draws an int8 tree directly (the tree
+``bench.py`` builds for its int8 legs), without the bf16 tree first.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 
+from ..device import DeviceLike, resolve_device
 from ..ops.quant_matmul import quant_matmul_cuda, quant_matmul_reference
 
 #: param-tree keys never quantized (gather tables + tied heads)
@@ -86,6 +91,75 @@ def quantize_params(params: dict[str, Any]) -> dict[str, Any]:
         return node
 
     return {k: v if k in _SKIP_NAMES else walk(v, k) for k, v in params.items()}
+
+
+def dequantize_params(qparams: Any) -> Any:
+    """The widened view of an int8 tree: every int8 leaf becomes
+    :func:`dequantize_array` of it (in its scale's dtype), everything else
+    stays as it is."""
+
+    def walk(node: Any) -> Any:
+        if is_quantized(node):
+            return dequantize_array(node)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(qparams)
+
+
+def init_quantized_params(cfg: Any, generator: torch.Generator,
+                          device: DeviceLike = None) -> dict[str, Any]:
+    """An int8 tree drawn directly, with the structure, shapes, dtypes and
+    skip list ``quantize_params(llama.init_params(...))`` gives, without the
+    widened tree first (the JAX package's ``init_quantized_params``). For
+    throughput the values do not matter: int8 leaves are uniform in
+    [-127, 127] with every scale ``1 / (127 sqrt(in))``, the embedding table
+    normal with std ``1 / sqrt(dim)``, the norm gains ones. Draws come from
+    ``generator``, which must live on ``device``; they differ from JAX's."""
+    device = resolve_device(device)
+
+    def q(shape) -> dict[str, torch.Tensor]:
+        return {
+            "q": torch.randint(-127, 128, shape, generator=generator, dtype=torch.int8,
+                               device=device),
+            "scale": torch.full((shape[-1],), 1.0 / (127.0 * math.sqrt(shape[0])),
+                                dtype=cfg.dtype, device=device),
+        }
+
+    def ones() -> torch.Tensor:
+        return torch.ones((cfg.dim,), dtype=cfg.dtype, device=device)
+
+    embed = torch.randn((cfg.vocab_size, cfg.dim), generator=generator, dtype=torch.float32,
+                        device=device)
+    kv_dim = cfg.n_kv_heads * cfg.head_dim
+    params: dict[str, Any] = {
+        # the embedding stays in the model's dtype (a gather table, _SKIP_NAMES)
+        "embed": {"weight": (embed * (1.0 / math.sqrt(cfg.dim))).to(cfg.dtype)},
+        "layers": [],
+        "final_norm": {"weight": ones()},
+    }
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "attn_norm": {"weight": ones()},
+            "attn": {
+                "wq": q((cfg.dim, cfg.dim)),
+                "wk": q((cfg.dim, kv_dim)),
+                "wv": q((cfg.dim, kv_dim)),
+                "wo": q((cfg.dim, cfg.dim)),
+            },
+            "mlp_norm": {"weight": ones()},
+            "mlp": {
+                "w_gate": q((cfg.dim, cfg.ffn_hidden)),
+                "w_up": q((cfg.dim, cfg.ffn_hidden)),
+                "w_down": q((cfg.ffn_hidden, cfg.dim)),
+            },
+        })
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"weight": q((cfg.dim, cfg.vocab_size))}
+    return params
 
 
 def tree_bytes(params: Any) -> int:

@@ -16,9 +16,11 @@ Phases, each fatal on failure (exit 1, and no result line):
    fused with the residual add, the engine's largest prefill bucket, an
    engine decode tick, phase 7's prefill chunk at q_offset 512 and its
    decode tick over 41-block tables, phase 8's int8 products at the draft's
-   decode and prefill shapes, its T-query verify and draft catch-up over
-   the paged cache, and the standalone verify's 20 packed rows through the
-   cached entry) plus long-cache decodes (dense over 2048 rows, paged up to
+   decode shapes (route D), a draft catch-up's 64 rows, a prefill bucket
+   of 128 rows and the int8 greedy prefill's 1024 on the five Llama-3-8B
+   shapes (route P), its T-query verify and draft catch-up over the paged
+   cache, and the standalone verify's 20 packed rows through the cached
+   entry) plus long-cache decodes (dense over 2048 rows, paged up to
    1024), ragged, fp32 and narrow-head cases: max abs error
    against a stated tolerance, and the times (CUDA events, median of 50
    launches, L2 flushed before each) of the kernel, the plain version and
@@ -27,8 +29,10 @@ Phases, each fatal on failure (exit 1, and no result line):
    RMSNorm also its time with the L2 left warm, and a PyTorch copy that
    moves the same bytes under the flushed timer); then the host's
    microseconds per call of each kernel wrapper against torch.add; with
-   --quant-sweep also the bf16 int8 kernel's time at each forced cluster
-   split (1, 2, 4, 8) beside the split its rule picks;
+   --quant-sweep also the bf16 int8 kernel's time on route D at each forced
+   cluster split (1, 2, 4, 8) and on route P at each tile (128 or 256
+   weight columns), each held against the plain version, beside the route,
+   split and tile its rules pick (what the crossover was set from);
 4. the greedy path: Llama-3-8B at full width and depth (bf16, random
    weights from --seed) serves one request through greedy_generate (a
    batch of 8 prompts of 128 tokens, 64 new tokens) four times in turns,
@@ -50,7 +54,9 @@ Phases, each fatal on failure (exit 1, and no result line):
    under the profiler;
 6. a 2-layer model at the 8B widths, the same seeded weights on the card
    (kernels) and on the CPU (plain versions): bf16 prefill logits must
-   agree, and in fp32 the serving engine must give identical tokens,
+   agree, and so must its int8 tree's prefill logits (8 x 24 rows: every
+   product on route P) and next decode step's (8 rows: route D); in fp32
+   the serving engine must give identical tokens,
    classic and at a horizon of 8, both plain and with prefix caching,
    chunked prefill and four LoRA adapters (card against CPU, and chunked
    with prefixes against one-shot prefill on the card), and with a draft
@@ -71,11 +77,16 @@ Phases, each fatal on failure (exit 1, and no result line):
    rank 8 on wq/wv), adapter i % 4: the zero adapter's requests give the
    LoRA-free engine's tokens bit for bit, every other adapter changes some
    request, and the horizon's ms with and without LoRA;
-8. speculative decoding at full width: Llama-3-8B on the same weights,
-   bench.py's serving-child traffic (16 requests of 32-128 tokens, 32 new
-   each, 8 slots over 256 blocks of 16, 16 a sequence, a horizon of 8):
-   the draft-less engine and the engine with the target's int8 tree as
-   its draft (spec_k 4, the payoff guard off, so the speculative horizon
+8. the int8 tree at full width: quantize_params of the same weights, built
+   once; first the int8 greedy leg (bench.py's BENCH_QUANT=int8 generate
+   step: phase 4's traffic through greedy_generate, eager, graphed,
+   graphed, eager): identical tokens, exact launch counts (every prefill
+   product on route P, every decode product on route D), then prefill ms,
+   step ms, busy share and the int8 products' device ms of a step; then
+   speculative decoding: Llama-3-8B on the same weights, bench.py's
+   serving-child traffic (16 requests of 32-128 tokens, 32 new each, 8
+   slots over 256 blocks of 16, 16 a sequence, a horizon of 8): the
+   draft-less engine and the engine with that int8 tree as its draft (spec_k 4, the payoff guard off, so the speculative horizon
    is what runs) drained in turns (plain, spec, spec, plain), then an
    engine with the guard warmed until it decides; tok/s, accept rate,
    phase seconds, TTFT and TPOT, peak memory, the share of positions where
@@ -179,11 +190,23 @@ QUANT_CASES = (("quant wq/wo decode", 8, 4096, 4096), ("quant wk/wv decode", 8, 
                ("quant w_down decode", 8, 14336, 4096),
                ("quant lm_head decode", 8, 4096, 128256),
                ("quant w_gate prefill", 128, 4096, 14336))
-# --quant-sweep: the forced splits, and two products at a verify's rows
-# (8 slots x k + 1 = 5)
+# (K, N) of the five int8 products of a Llama-3-8B forward
+QUANT_SHAPES = (("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024), ("w_gate/w_up", 4096, 14336),
+                ("w_down", 14336, 4096), ("lm_head", 4096, 128256))
+# the products at a draft catch-up's rows (8 slots x H = 8; route D) and at
+# the int8 greedy prefill's (8 x 128; route P)
+QUANT_CATCHUP_CASES = tuple((f"quant {w} catch-up", 64, k, n) for w, k, n in QUANT_SHAPES[:3])
+QUANT_PREFILL_CASES = tuple((f"quant {w} prefill 1024", BATCH * PROMPT, k, n)
+                            for w, k, n in QUANT_SHAPES)
+# --quant-sweep: route D's forced splits and route P's tiles (weight
+# columns), and two products at a verify's rows (8 slots x k + 1 = 5)
 QUANT_SPLITS = (1, 2, 4, 8)
+QUANT_TILES = (128, 256)
 QUANT_VERIFY_CASES = (("quant wq/wo verify", 40, 4096, 4096),
                       ("quant w_gate/w_up verify", 40, 4096, 14336))
+# phase 6's int8 hold: a prefill of 8 x 24 tokens (192 rows, above the
+# crossover: every product on route P), then one decode step (route D)
+INT8_CHECK_TOKENS = 24
 # how often each decode shape runs in one forward of a 32-layer model
 QUANT_PER_LAYER = {"quant wq/wo decode": 2, "quant wk/wv decode": 2,
                    "quant w_gate/w_up decode": 2, "quant w_down decode": 1}
@@ -585,20 +608,25 @@ def quant_bytes(m: int, k: int, n: int, es: int) -> int:
 
 def quant_case(torch, ops, quant, flush, name, m, k, n, dtype, gen, dev):
     """One int8 product x [M, K] @ q [K, N] * scale [N] against the plain
-    version (which widens the weight to x's type first). The yardstick is
-    torch.matmul on the weight dequantized ahead of time (its widening not
-    timed)."""
+    version (which widens the weight to x's type first), on the route the
+    wrapper picks. The yardstick is torch.matmul on the weight dequantized
+    ahead of time (its widening not timed)."""
     leaf = quant.quantize_array(
         (torch.randn((k, n), generator=gen, device=dev) * (1.0 / 64)).to(dtype))
     x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
     q, scale = leaf["q"], leaf["scale"]
     dn = str(dtype).split(".")[-1]
+    routes = dict(getattr(ops.quant_matmul_cuda, "routes", {}))
     err = compare(torch, "quant", name, ops.quant_matmul_cuda(x, q, scale),
                   ops.quant_matmul_reference(x, q, scale), dn)
+    # the route that carried it (None for a kernel without routes)
+    route = next((r for r, c in getattr(ops.quant_matmul_cuda, "routes", {}).items()
+                  if c != routes[r]), None)
     w = quant.dequantize_array(leaf)
     b_ms, b_by = bound(quant_bytes(m, k, n, x.element_size()), 2 * m * k * n, dn)
     return {
-        "case": name, "x": [m, k], "q": [k, n], "dtype": dn, "max_abs_err": err,
+        "case": name, "x": [m, k], "q": [k, n], "dtype": dn, "route": route,
+        "max_abs_err": err,
         "ms": time_ms(torch, lambda: ops.quant_matmul_cuda(x, q, scale), flush),
         "plain_ms": time_ms(torch, lambda: ops.quant_matmul_reference(x, q, scale), flush),
         "library_ms": time_ms(torch, lambda: torch.matmul(x, w), flush),
@@ -669,11 +697,13 @@ def quant_step_ms(cases: list, n_layers: int, key: str) -> float:
 
 
 def quant_sweep(torch, quant, flush, gen, dev) -> dict:
-    """``--quant-sweep``: the bf16 int8 kernel forced to each cluster split
-    of ``QUANT_SPLITS`` in turn (through its C entry, bypassing
-    ``ops.quant_matmul.quant_splits``) on the int8 cases and two products
-    at a verify's rows, each split held against the plain version and
-    timed, beside the split the rule picks and the bound."""
+    """``--quant-sweep``: the bf16 int8 kernel forced through its C entry
+    (bypassing ``ops.quant_matmul``'s rules) onto route D at each cluster
+    split of ``QUANT_SPLITS`` (products of up to 128 rows) and onto route P
+    at each tile of ``QUANT_TILES`` (products of 40 rows and more), on the
+    int8 cases, a verify's and a catch-up's rows: each held against the
+    plain version and timed, beside the route, split and tile the rules
+    pick (the crossover is set from these) and the bound."""
     from bobrapet_tpu_torch.kernels import KERNEL_DTYPES, check_launch, kernel_function, launch
     from bobrapet_tpu_torch.ops import quant_matmul as qm
 
@@ -681,24 +711,32 @@ def quant_sweep(torch, quant, flush, gen, dev) -> dict:
     bf16 = torch.bfloat16
     fn = kernel_function("bobra_quant_matmul", qm._ARGTYPES)
     cases = {}
-    for name, m, k, n in QUANT_CASES + QUANT_VERIFY_CASES:
+    for name, m, k, n in (QUANT_CASES + QUANT_VERIFY_CASES + QUANT_CATCHUP_CASES
+                          + QUANT_PREFILL_CASES):
         leaf = quant.quantize_array(
             (torch.randn((k, n), generator=gen, device=dev) * (1.0 / 64)).to(bf16))
         x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
         out = torch.empty((m, n), dtype=bf16, device=dev)
         ref = qm.quant_matmul_reference(x, leaf["q"], leaf["scale"])
+        choices = ([("D", splits, qm.decode_rows(m)) for splits in QUANT_SPLITS] if m <= 128
+                   else [])
+        choices += [("P", 1, tile) for tile in QUANT_TILES] if m >= 40 else []
         times = {}
-        for splits in QUANT_SPLITS:
-            def call(splits=splits):
+        for route, splits, tile in choices:
+            def call(route=route, splits=splits, tile=tile):
                 return launch(fn, dev.index or 0, x.data_ptr(), leaf["q"].data_ptr(),
-                              leaf["scale"].data_ptr(), out.data_ptr(), m, n, k, splits,
+                              leaf["scale"].data_ptr(), out.data_ptr(), m, n, k,
+                              qm.ROUTE_CODES[route], splits, tile, qm.FLAG_PDL,
                               KERNEL_DTYPES[bf16])
+            key = f"D splits {splits}" if route == "D" else f"P tile {tile}"
             check_launch("quant_matmul", call())
-            compare(torch, "quant", f"{name} splits {splits}", out, ref, "bfloat16")
-            times[splits] = time_ms(torch, call, flush)
-        b_ms, _ = bound(quant_bytes(m, k, n, 2), 2 * m * k * n, "bfloat16")
-        cases[name] = {"x": [m, k], "q": [k, n], "ms_by_splits": times,
-                       "rule": qm.quant_splits(m, n, k, sms), "bound_ms": b_ms}
+            compare(torch, "quant", f"{name} {key}", out, ref, "bfloat16")
+            times[key] = time_ms(torch, call, flush)
+        b_ms, b_by = bound(quant_bytes(m, k, n, 2), 2 * m * k * n, "bfloat16")
+        route = qm.quant_route(m, n, bf16, sms)
+        cases[name] = {"x": [m, k], "q": [k, n], "ms": times, "rule": {
+            "route": route, "splits_tile": list(qm.route_args(route, m, n, k, sms))},
+            "bound_ms": b_ms, "bound_by": b_by}
     return cases
 
 
@@ -754,6 +792,7 @@ def request_split(torch, llama, params, prompt, cfg, dev, cuda_graph: bool = Tru
         "decode_device_busy_share": (device_ms / step_ms) if device_ms else None,
         "decode_kernels_per_step": sum(e.count for e in kernels) / profiled,
         "decode_port_kernels": port_kernel_shares(kernels, profiled),
+        "decode_int8_products": marked_share(kernels, profiled, "qmm"),
         "decode_top_kernels": [
             {"name": e.key[:70], "ms_per_step": e.self_device_time_total / 1e3 / profiled,
              "calls_per_step": e.count / profiled} for e in top],
@@ -812,6 +851,13 @@ def zero_counts(ops) -> None:
                ops.cached_attention_cuda, ops.paged_attention_cuda,
                ops.paged_attention_multi_cuda, ops.quant_matmul_cuda):
         fn.launches = 0
+    for route in ops.quant_matmul_cuda.routes:
+        ops.quant_matmul_cuda.routes[route] = 0
+
+
+def read_routes(ops) -> dict:
+    """The int8 product's launches by route (D, P, F)."""
+    return dict(ops.quant_matmul_cuda.routes)
 
 
 def read_counts(ops) -> dict:
@@ -1197,7 +1243,11 @@ def spec_cross_check(torch, ops, llama, quant, serving, cfg, seed: int, dev) -> 
                      f"exactly: {got}, expected {want}")
             if eng.spec_drafted == 0:
                 fail(f"the fp32 draft engine ({name}, H={horizon}) never speculated")
-            counts[f"{name}_h{horizon}"] = {**got, "spec_rounds": eng.phase_counts["spec_rounds"],
+            routes = read_routes(ops)
+            if routes != {"D": 0, "P": 0, "F": got["quant_matmul"]}:
+                fail(f"the fp32 int8 products did not all take route F: {routes}")
+            counts[f"{name}_h{horizon}"] = {**got, "routes": routes,
+                                            "spec_rounds": eng.phase_counts["spec_rounds"],
                                             "spec_ticks": eng.phase_counts["spec_ticks"],
                                             "drafted": eng.spec_drafted,
                                             "accepted": eng.spec_accepted}
@@ -1251,6 +1301,9 @@ def spec_drain(torch, ops, eng, prompts, draft_int8: bool = True) -> dict:
           f"{eng.spec_guard}) launches {got}, expected {want}", flush=True)
     if got != want:
         fail("a phase-8 drain did not run every kernel of its path exactly")
+    routes = read_routes(ops)
+    if sum(routes.values()) != got["quant_matmul"] or routes["F"]:
+        fail(f"phase 8: the int8 products' routes {routes} do not add up to their launches")
     by_rid = {r.rid: r for r in eng.finished}
     reqs = [by_rid[rid] for rid in rids]
     for req in reqs:
@@ -1269,7 +1322,7 @@ def spec_drain(torch, ops, eng, prompts, draft_int8: bool = True) -> dict:
                        / pc["horizons"] * 1e3) if pc["horizons"] else None,
         "ttft_ms_p50": p50(r.ttft_seconds for r in reqs) * 1e3,
         "tpot_ms_p50": p50(r.tpot_seconds for r in reqs) * 1e3,
-        "launches": got, "outputs": [r.output for r in reqs],
+        "launches": got, "routes": routes, "outputs": [r.output for r in reqs],
     }
 
 
@@ -1381,13 +1434,129 @@ def check_divergences(checks: list, what: str) -> None:
                  f"the logit error {c['max_abs_logit_err']} between the two forms")
 
 
-def spec_phase(torch, ops, serving, llama, quant, params, cfg, seed: int, dev, card: str) -> dict:
+def int8_launches(n_layers: int) -> dict:
+    """Launch counts of one greedy_generate request over an int8 tree: the
+    bf16 request's norms and attention, and 7L + 1 int8 products a forward,
+    the prefill's (8 x 128 rows) all on route P and every decode step's (8
+    rows) on route D."""
+    per = 7 * n_layers + 1
+    return {**greedy_launches(n_layers), "quant_matmul": (1 + NEW_TOKENS) * per,
+            "routes": {"D": NEW_TOKENS * per, "P": per, "F": 0}}
+
+
+def int8_step_bound_ms(n_layers: int) -> float:
+    """The least time of one int8 decode step's products (M = 8): the int8
+    weights' bytes, x, the scales and the outputs, at the card's memory
+    rate."""
+    per = {w: bound(quant_bytes(BATCH, k, n, 2), 2 * BATCH * k * n, "bfloat16")[0]
+           for w, k, n in QUANT_SHAPES}
+    return (n_layers * (2 * per["wq/wo"] + 2 * per["wk/wv"] + 2 * per["w_gate/w_up"]
+                        + per["w_down"]) + per["lm_head"])
+
+
+def int8_phase(torch, ops, llama, qparams, cfg, prompt, dev, card: str) -> dict:
+    """Phase 8's first leg, the int8 headline leg (bench.py's BENCH_QUANT=int8
+    generate step): phase 4's request through greedy_generate over the int8
+    tree, eager, graphed, graphed, eager; identical tokens and exact launch
+    counts by route, then the parts of a request in the same turns."""
+    t_phase = time.perf_counter()
+    expected = int8_launches(cfg.n_layers)
+    runs, outputs = [], []
+    for graph in GREEDY_RUNS:
+        zero_counts(ops)
+        t0 = time.perf_counter()
+        toks = llama.greedy_generate(qparams, prompt, cfg, max_new_tokens=NEW_TOKENS,
+                                     cuda_graph=graph)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {**read_counts(ops), "quant_matmul": ops.quant_matmul_cuda.launches,
+                    "routes": read_routes(ops)}
+        print(f"int8 greedy leg (cuda_graph={graph}) launches {launches}, expected {expected}",
+              flush=True)
+        if launches != expected:
+            fail("the int8 greedy leg did not run every product through the kernel on its route")
+        if (tuple(toks.shape) != (BATCH, NEW_TOKENS) or toks.dtype != torch.int32
+                or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size):
+            fail(f"int8 greedy leg: bad generated tokens {toks.dtype} {tuple(toks.shape)}")
+        outputs.append(toks)
+        runs.append({"cuda_graph": graph, "request_s": seconds,
+                     "tok_per_s": BATCH * NEW_TOKENS / seconds, "launches": launches})
+    if any(not torch.equal(o, outputs[0]) for o in outputs):
+        fail("int8 greedy leg: the CUDA-graphed decode changed the tokens")
+    splits = [request_split(torch, llama, qparams, prompt, cfg, dev, cuda_graph=graph)
+              for graph in GREEDY_RUNS]
+    result = {
+        "model": "llama3_8b", "weights": "quantize_params, int8", "dtype": "bfloat16",
+        "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
+        "order": "eager, graph, graph, eager", "identical_tokens": True, "runs": runs,
+        "splits": [{**sp, "decode_tok_per_s": BATCH / sp["decode_step_ms"] * 1e3}
+                   for sp in splits],
+        "int8_products_step_bound_ms": int8_step_bound_ms(cfg.n_layers), "card": card,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    print("int8 greedy leg: " + json.dumps(result), flush=True)
+    return result
+
+
+def int8_whole_path(torch, ops, llama, quant, cfg2, seed: int, dev) -> dict:
+    """Phase 6's hold of the int8 routes inside the model: a 2-layer int8
+    tree at the 8B widths, prefill of 8 x 24 tokens (192 rows: every
+    product on route P) and the next decode step (8 rows: route D) on the
+    card, against the same tree's plain versions on the CPU fed the card's
+    next tokens."""
+    params = llama.init_params(cfg2, torch.Generator(device=dev).manual_seed(seed + 4), dev)
+    qparams = quant.quantize_params(params)
+    del params
+    toks = torch.randint(0, cfg2.vocab_size, (BATCH, INT8_CHECK_TOKENS), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(seed + 5))
+    pos = torch.arange(INT8_CHECK_TOKENS, device=dev).expand(BATCH, INT8_CHECK_TOKENS)
+    per = 7 * cfg2.n_layers + 1
+    out = {}
+    with torch.no_grad():
+        zero_counts(ops)
+        cache = llama.init_cache(cfg2, BATCH, INT8_CHECK_TOKENS + 1, device=dev)
+        pre, _ = llama.forward(qparams, toks, cfg2, cache=cache, positions=pos)
+        nxt = pre[:, -1:].argmax(-1)
+        dec, _ = llama.forward(qparams, nxt, cfg2, cache=cache,
+                               positions=torch.full((BATCH, 1), INT8_CHECK_TOKENS, device=dev))
+        routes = read_routes(ops)
+        if routes != {"D": per, "P": per, "F": 0}:
+            fail(f"int8 whole-path check: routes {routes}, expected P and D {per} each")
+        cpu_tree = tree_to(qparams, "cpu")
+        del qparams
+        t0 = time.perf_counter()
+        cache = llama.init_cache(cfg2, BATCH, INT8_CHECK_TOKENS + 1, device="cpu")
+        cpu_pre, _ = llama.forward(cpu_tree, toks.cpu(), cfg2, cache=cache, positions=pos.cpu())
+        cpu_dec, _ = llama.forward(cpu_tree, nxt.cpu(), cfg2, cache=cache,
+                                   positions=torch.full((BATCH, 1), INT8_CHECK_TOKENS))
+        cpu_s = time.perf_counter() - t0
+    for name, card_logits, cpu_logits in (("prefill", pre, cpu_pre), ("decode", dec, cpu_dec)):
+        if not torch.isfinite(card_logits).all():
+            fail(f"int8 whole-path check: non-finite {name} logits on the card")
+        err = (card_logits.cpu() - cpu_logits).abs()
+        out[name] = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+                     "max_abs_logit": float(cpu_logits.abs().max()),
+                     "argmax_agree": float((card_logits.cpu().argmax(-1) == cpu_logits.argmax(-1))
+                                           .float().mean())}
+        if out[name]["max_abs_err"] > LOGIT_MAX_ERR or out[name]["mean_abs_err"] > LOGIT_MEAN_ERR:
+            fail(f"int8 whole-path check: card and CPU {name} logits disagree")
+    result = {**out, "routes": routes, "tolerance": [LOGIT_MAX_ERR, LOGIT_MEAN_ERR],
+              "cpu_s": cpu_s}
+    print("int8 whole path (2 layers, 8B widths, card vs CPU): " + json.dumps(result),
+          flush=True)
+    return result
+
+
+def spec_phase(torch, ops, serving, llama, quant, params, cfg, seed: int, dev, card: str,
+               draft=None) -> dict:
     """Phase 8: the draft-less engine against the engine with the target's
     int8 tree as its draft (guard off), drained in turns, then the guarded
-    engine warmed until it decides, then standalone speculative_generate."""
+    engine warmed until it decides, then standalone speculative_generate.
+    ``draft``: that tree when the caller built it already."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    draft = quant.quantize_params(params)
+    if draft is None:
+        draft = quant.quantize_params(params)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     warm = spec_prompts(torch, cfg, seed + 40, dev)
@@ -1919,11 +2088,12 @@ def main() -> None:
                          hd, f32, gen, dev),
     ]
     quant_cases = [quant_case(torch, ops, quant, flush, name, m, k, n, bf16, gen, dev)
-                   for name, m, k, n in QUANT_CASES]
+                   for name, m, k, n in QUANT_CASES + QUANT_CATCHUP_CASES + QUANT_PREFILL_CASES]
     quant_cases.append(quant_case(torch, ops, quant, flush, "quant wq/wo decode fp32", 8, 4096,
                                   4096, f32, gen, dev))
     for c in rms_cases + flash_cases + cached_cases + paged_cases + multi_cases + quant_cases:
-        print(f"  {c['case']}: kernel {c['ms']:.5f} ms, plain {c['plain_ms']:.5f} ms, "
+        route = f" (route {c['route']})" if c.get("route") else ""
+        print(f"  {c['case']}{route}: kernel {c['ms']:.5f} ms, plain {c['plain_ms']:.5f} ms, "
               f"library {c['library_ms']:.5f} ms, bound {c['bound_ms']:.6f} ms "
               f"({c['bound_by']})", flush=True)
     # the int8 draft's decode step (M = 8): the 7 products of 32 layers and
@@ -2031,9 +2201,10 @@ def main() -> None:
     if whole["max_abs_err"] > LOGIT_MAX_ERR or whole["mean_abs_err"] > LOGIT_MEAN_ERR:
         fail("card and CPU logits disagree")
     del params_cpu, gpu_logits
+    int8_whole = int8_whole_path(torch, ops, llama, quant, cfg2, args.seed, dev)
     engine_cross_check(torch, ops, llama, serving, cfg, args.seed, dev)
     prefix_cross_check(torch, ops, llama, serving, lora_mod, cfg, args.seed, dev)
-    spec_cross_check(torch, ops, llama, quant, serving, cfg, args.seed, dev)
+    spec_cross = spec_cross_check(torch, ops, llama, quant, serving, cfg, args.seed, dev)
 
     # ---- 7. prefix caching, chunked prefill and multi-LoRA at full width
     # (the weights of phases 4 and 5 again, from the same seed)
@@ -2046,9 +2217,28 @@ def main() -> None:
     for name, run in prefixed["lora"]["drains"].items():
         launches_by_path[f"multi_lora_{name}"] = run["launches"]
 
-    # ---- 8. speculative decoding at full width (the same weights)
-    spec = spec_phase(torch, ops, serving, llama, quant, params, cfg, args.seed, dev, card)
-    del params
+    # ---- 8. the int8 tree at full width (the same weights), built once: the
+    # int8 greedy leg, then speculative decoding with it as the draft
+    t0 = time.perf_counter()
+    qparams = quant.quantize_params(params)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    int8_leg = int8_phase(torch, ops, llama, qparams, cfg, prompt, dev, card)
+    int8_leg["quantize_s"] = quantize_s
+    spec = spec_phase(torch, ops, serving, llama, quant, params, cfg, args.seed, dev, card,
+                      draft=qparams)
+    del params, qparams
+    launches_by_path["int8_greedy"] = {
+        k: sum(r["launches"][k] for r in int8_leg["runs"]) for k in int8_leg["runs"][0]["launches"]
+        if k != "routes"}
+    routes_by_path = {
+        "int8_greedy": {r: sum(run["launches"]["routes"][r] for run in int8_leg["runs"])
+                        for r in ("D", "P", "F")},
+        **{f"spec_{name}": {r: sum(d["routes"][r] for d in runs) for r in ("D", "P", "F")}
+           for name, runs in spec["drains"].items()},
+        "spec_guarded": spec["guard"]["drain"]["routes"],
+        "int8_whole_path": int8_whole["routes"],
+        "fp32_int8_draft": spec_cross["card_counts"]["int8_h8"]["routes"]}
     for name, runs in spec["drains"].items():
         launches_by_path[f"spec_{name}"] = {
             k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
@@ -2073,6 +2263,21 @@ def main() -> None:
             "bound_by": top["bound_by"], "library_ms": top["library_ms"], "cases": cases,
         }
 
+    def route_entry(route, main_case):
+        """The int8 product's entry for one route: its cases and launches."""
+        cases = [c for c in quant_cases if c["route"] == route]
+        top = next(c for c in cases if c["case"] == main_case)
+        return {
+            "name": f"quant_matmul route {route}", "route": "cuda",
+            "source": "bobrapet_tpu_torch/csrc/quant_matmul.cu",
+            "replaces": "bobrapet_tpu/models/quant.py:70",
+            "launches": sum(path[route] for path in routes_by_path.values()),
+            "launches_by_path": {k: path[route] for k, path in routes_by_path.items()},
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"], "cases": cases,
+        }
+
     rms_entry = entry("rmsnorm", "bobrapet_tpu_torch/csrc/rmsnorm.cu",
                       "bobrapet_tpu/ops/rmsnorm.py:33", rms_cases, "rmsnorm decode")
     rms_entry["launches_add_mode"] = sum(path["add_rmsnorm"] for path in own.values())
@@ -2086,8 +2291,9 @@ def main() -> None:
               "bobrapet_tpu/serving/engine.py:3106", paged_cases, "paged decode"),
         entry("paged_attention_multi", "bobrapet_tpu_torch/csrc/paged_attention.cu",
               "bobrapet_tpu/serving/spec_decode.py:47", multi_cases, "paged multi verify"),
-        entry("quant_matmul", "bobrapet_tpu_torch/csrc/quant_matmul.cu",
-              "bobrapet_tpu/models/quant.py:70", quant_cases, "quant wq/wo decode"),
+        route_entry("D", "quant wq/wo decode"),
+        route_entry("P", "quant w_gate/w_up prefill 1024"),
+        route_entry("F", "quant wq/wo decode fp32"),
     ], "build_s": build_s, "host_us_per_call": host_costs}
     print(json.dumps(kernels), flush=True)
     print(f"card: {card}", flush=True)

@@ -2,7 +2,7 @@
 """Per-step kernel profile of the port's greedy decode step and serving
 tick on one CUDA card, for any checkout of the port.
 
-    python3 step_profile.py [--tree DIR] [--seed N] [--graph | --wrappers]
+    python3 step_profile.py [--tree DIR] [--seed N] [--graph | --wrappers | --quant [--no-pdl]]
 
 Imports ``bobrapet_tpu_torch`` from DIR (default: this script's own
 checkout) and builds its kernels, makes Llama-3-8B at full width and
@@ -17,8 +17,15 @@ are counted by one definition: every kernel, PyTorch's elementwise
 kernels (``elementwise_kernel`` in the name) and the port's kernels, each
 per step. With --wrappers it times instead each kernel wrapper's host
 microseconds per call (``wrapper_host_costs`` of the same
-``chip_smoke.py``) beside ``torch.add``, and makes no model. Prints one
-JSON line. Imports nothing of JAX.
+``chip_smoke.py``) beside ``torch.add``, and makes no model. With --quant
+it times instead the int8 product at every int8 case of chip_smoke.py's
+phase 3 (``quant_case``: kernel, plain version, torch.matmul on a widened
+weight, bound; the route where the tree's kernel has routes), then
+profiles the int8 greedy decode step (``quantize_params`` of the 8B
+weights through ``request_split``; --graph for the replayed graph), with
+--no-pdl launching the products without programmatic dependent launch
+where the tree's kernel has it. Prints one JSON line. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -49,6 +56,11 @@ def main() -> None:
                     help="profile the greedy step as a CUDA graph")
     ap.add_argument("--wrappers", action="store_true",
                     help="time the kernel wrappers' host cost per call instead")
+    ap.add_argument("--quant", action="store_true",
+                    help="time the int8 product and profile the int8 greedy step instead")
+    ap.add_argument("--no-pdl", action="store_true",
+                    help="with --quant: launch the int8 products without programmatic "
+                         "dependent launch")
     args = ap.parse_args()
     smoke = smoke_helpers()
 
@@ -75,6 +87,9 @@ def main() -> None:
     params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     prompt = torch.randint(0, cfg.vocab_size, (smoke.BATCH, smoke.PROMPT), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
+    if args.quant:
+        quant_profile(smoke, torch, args, llama, params, prompt, cfg, dev)
+        return
     split = smoke.request_split(torch, llama, params, prompt, cfg, dev, cuda_graph=args.graph)
     eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**smoke.SERVE_PAGING),
                                 pipeline_decode=False, decode_horizon=1, dispatch_depth=1)
@@ -89,6 +104,35 @@ def main() -> None:
         "greedy_step": {k: split[f"decode_{k}"] for k in keys[:4]}
         | {"step_ms": split["decode_step_ms"]},
         "serving_tick": {k: tick[k] for k in keys},
+    }), flush=True)
+
+
+def quant_profile(smoke, torch, args, llama, params, prompt, cfg, dev) -> None:
+    """``--quant``: the int8 cases, then the int8 greedy step."""
+    from bobrapet_tpu_torch import ops
+    from bobrapet_tpu_torch.models import quant
+
+    pdl = getattr(ops.quant_matmul_cuda, "pdl", None)
+    if pdl is not None and args.no_pdl:
+        ops.quant_matmul_cuda.pdl = pdl = False
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cases = [smoke.quant_case(torch, ops, quant, flush, name, m, k, n, torch.bfloat16, gen, dev)
+             for name, m, k, n in (smoke.QUANT_CASES + smoke.QUANT_CATCHUP_CASES
+                                   + smoke.QUANT_PREFILL_CASES)]
+    cases.append(smoke.quant_case(torch, ops, quant, flush, "quant wq/wo decode fp32", 8, 4096,
+                                  4096, torch.float32, gen, dev))
+    del flush
+    qparams = quant.quantize_params(params)
+    del params
+    split = smoke.request_split(torch, llama, qparams, prompt, cfg, dev, cuda_graph=args.graph)
+    print(json.dumps({
+        "tree": str(args.tree), "card": smoke.card_line(), "pdl": pdl, "cases": cases,
+        "int8_step_products": {key: smoke.quant_step_ms(cases, cfg.n_layers, key)
+                               for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "int8_greedy_step": {k: split[k] for k in (
+            "cuda_graph", "prefill_ms", "decode_step_ms", "decode_step_device_ms",
+            "decode_device_busy_share", "decode_int8_products", "decode_kernels_per_step")},
     }), flush=True)
 
 
