@@ -16,6 +16,7 @@ from .paged_attention import (
     paged_attention_multi_reference,
     paged_attention_reference,
 )
+from .pick_tokens import pick_tokens, pick_tokens_cuda, pick_tokens_reference
 from .quant_matmul import quant_matmul_cuda, quant_matmul_reference
 from .rmsnorm import (
     add_rmsnorm,
@@ -43,6 +44,9 @@ __all__ = [
     "paged_attention_multi_cuda",
     "paged_attention_multi_reference",
     "paged_attention_reference",
+    "pick_tokens",
+    "pick_tokens_cuda",
+    "pick_tokens_reference",
     "quant_matmul_cuda",
     "quant_matmul_reference",
     "rmsnorm",

@@ -1,12 +1,12 @@
 """Continuous-batching serving engine over the paged KV cache.
 
-Counterpart of ``bobrapet_tpu/serving/engine.py``, sub-slices (a), (b),
-(d) and (e): the classic single-step engine and the fused decode horizon,
-at ``dispatch_depth=1``, greedy, with prefix caching, chunked prefill,
-multi-LoRA and speculative decoding. Requests stream through a fixed set
-of slots: a request is admitted the moment a slot and enough KV blocks
-are free, decodes fused with every other live request, and leaves the
-instant it finishes.
+Counterpart of ``bobrapet_tpu/serving/engine.py``: the classic single-step
+engine, the fused decode horizon and its depth-N dispatch pipeline, greedy
+and sampled decoding, with prefix caching, chunked prefill, multi-LoRA and
+speculative decoding. Requests stream through a fixed set of slots: a
+request is admitted the moment a slot and enough KV blocks are free,
+decodes fused with every other live request, and leaves the instant it
+finishes.
 
 - One decode step for every slot: liveness is a mask, never a shape;
   inactive slots compute garbage that lands in the scratch block.
@@ -25,6 +25,11 @@ instant it finishes.
   adapter): a prefill takes its request's adapter; every decode step
   gathers each slot's adapter by an index on the device, so one step (one
   graph) serves any adapter mix.
+- Sampling (``submit(temperature=T)``): every token the engine commits is
+  picked by :func:`~bobrapet_tpu_torch.ops.pick_tokens`, the argmax at
+  T = 0 and a Gumbel-max draw keyed by (rid, token index) at T > 0, so a
+  sampled stream is a pure function of the request: the same across slots,
+  co-tenants, preemption, horizons, dispatch depth and speculation.
 - The host scheduler (admit, retire, grow, preempt, block accounting)
   touches only small int lists; the pools are written in place.
 - Preemption is recompute: the youngest slot's blocks are freed and it
@@ -35,32 +40,45 @@ instant it finishes.
   extra lane's token is dropped. Small host arrays go up from pinned
   memory without blocking, and each tick's tokens come back through a
   pinned buffer behind an event, so nothing else waits on the card.
-- ``decode_horizon`` H > 1: H greedy steps per engine tick with the lane
-  state (last token, length, liveness, emitted count, budget, eos, block
-  table) resident on the device; eos and budgets deactivate lanes there,
-  a dead lane writes the scratch block and emits -1. Each lane's table is
-  funded H tokens ahead first (without preemption: when that fails the
-  classic tick runs, which may preempt). Only the lanes the host changed
-  are patched before a horizon, and one copy brings back the tokens
-  ``[H, S]`` and the lane state after it. On a card the horizon is one
-  CUDA graph per H (:class:`~bobrapet_tpu_torch.graphs.GraphedStep`),
-  replayed once per tick: the JAX engine's ``lax.scan``.
+- ``decode_horizon`` H > 1: H steps per engine tick with the lane state
+  (last token, length, liveness, emitted count, budget, eos, adapter,
+  temperature, rid, block table) resident on the device; eos and budgets
+  deactivate lanes there, a dead lane writes the scratch block and emits
+  -1. Each lane's table is funded H tokens ahead first (without
+  preemption: when that fails the classic tick runs, which may preempt).
+  Only the lanes the host changed are patched before a horizon, and one
+  copy brings back the tokens ``[H, S]`` and the lane state after it. On a
+  card the horizon is one CUDA graph per H
+  (:class:`~bobrapet_tpu_torch.graphs.GraphedStep`), replayed once per
+  tick: the JAX engine's ``lax.scan``.
+- ``dispatch_depth`` N > 1 (with H > 1): up to N horizons in flight. A
+  tick commits the oldest horizon, admits, ingests chunks and retires
+  while the others replay, then tops the queue up; new and retired lanes
+  are patched into the next horizon (stream order keeps every patch
+  behind the replays already queued). Each horizon's output, rewritten by
+  the next replay of its graph, is copied right after its own replay into
+  a pinned buffer of its own behind an event; a commit folds a lane's
+  device state into the host mirror only while the lane's patch epoch is
+  the one the horizon was dispatched with. Funding that needs preemption
+  drains the queue to the classic tick.
 - Speculative decoding (``draft_params``, ``draft_cfg``, ``spec_k``;
   :mod:`.spec_decode`): a draft model over its own pools (every prefill is
-  mirrored into them) proposes ``spec_k`` tokens a slot, one ``k + 1``-token
-  target step verifies them, and the greedy-exact accept prefix is
-  committed. The classic tick speculates once per tick; a horizon runs
-  ``ceil(H / (k + 1))`` draft + verify rounds with the lane state on the
-  device, one CUDA graph each for draft and verify per ``(k, rounds)``,
-  and the host reads the commits once a horizon. A plain tick or horizon
-  on a draft engine catches the draft pools up. The payoff guard first
-  alternates speculative and plain decoding, measuring tokens per second
-  each way, and keeps the draft only if it pays (``spec_guard``).
+  mirrored into them) proposes ``spec_k`` tokens a greedy slot, one
+  ``k + 1``-token target step verifies them, and the greedy-exact accept
+  prefix is committed; a sampled slot commits one token a round from the
+  position-0 logits. The classic tick speculates once per tick; a horizon
+  runs ``ceil(H / (k + 1))`` draft + verify rounds with the lane state on
+  the device, one CUDA graph each for draft and verify per ``(k,
+  rounds)``, and the host reads the commits once a horizon. A plain tick
+  or horizon on a draft engine catches the draft pools up. The payoff
+  guard first alternates speculative and plain decoding, measuring tokens
+  per second each way, and keeps the draft only if it pays
+  (``spec_guard``).
 
 On a card every norm (each but the first fused with the residual add
 before it), the prefill attention, the decode attention (one query a slot,
-or T: a verify, a draft catch-up) and every int8 product launch the port's
-kernels; on the CPU their plain versions run.
+or T: a verify, a draft catch-up), every int8 product and every token pick
+launch the port's kernels; on the CPU their plain versions run.
 """
 
 from __future__ import annotations
@@ -88,6 +106,7 @@ from ..models.llama import (
 )
 from ..models.lora import select_adapter
 from ..ops.paged_attention import paged_attention
+from ..ops.pick_tokens import pick_tokens
 from .paged_cache import (
     SCRATCH_BLOCK,
     BlockAllocator,
@@ -110,7 +129,7 @@ from .spec_decode import (
 @dataclasses.dataclass
 class Request:
     """The JAX engine's request, field for field and in its order. The port
-    serves greedy requests (``temperature`` 0) under any adapter of the
+    serves it at any ``temperature`` (0: greedy) under any adapter of the
     engine's stack; ``tenant`` and ``trace`` are carried for a router."""
 
     rid: int
@@ -178,10 +197,17 @@ class _SlotState:
 
 #: columns of the device lane state [S, LANE_TABLE + max_blocks_per_seq]
 #: int32: the four the horizon advances, then budget, eos, the LoRA
-#: adapter, the block table
-(LANE_LAST, LANE_SEQ, LANE_ACT, LANE_EMITTED, LANE_BUDGET, LANE_EOS, LANE_ADAPTER,
- LANE_TABLE) = range(8)
-LANE_FIELDS = ("last", "seq", "act", "emitted", "budget", "eos", "adapter")
+#: adapter, the temperature (its fp32 bits), the rid, the block table
+(LANE_LAST, LANE_SEQ, LANE_ACT, LANE_EMITTED, LANE_BUDGET, LANE_EOS, LANE_ADAPTER, LANE_TEMP,
+ LANE_RID, LANE_TABLE) = range(10)
+LANE_FIELDS = ("last", "seq", "act", "emitted", "budget", "eos", "adapter", "temp", "rid")
+#: a free lane's values (inactive; its table all scratch)
+_FREE_LANE = {"last": 0, "seq": 1, "act": False, "emitted": 0, "budget": 0, "eos": -1,
+              "adapter": 0, "temp": 0.0, "rid": 0, "table": ()}
+#: a pipelined dispatch found a lane's lookahead unfundable without
+#: preemption: the pipeline drains to the classic tick, the one place that
+#: preempts
+_UNFUNDABLE = object()
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -208,10 +234,10 @@ def _weights_device(tree: Any) -> torch.device:
     return devices.pop()
 
 
-def _not_ported(what: str, instead: str, sub_slice: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: pass {instead} (it comes with ROADMAP Queue 1, "
-        f"engine sub-slice {sub_slice})")
+def _f32_bits(value: float) -> int:
+    """The int32 whose bits are ``value`` as fp32 (a temperature in the
+    int32 lane state)."""
+    return int(np.float32(value).view(np.int32))
 
 
 def _is_moe(cfg: Any) -> bool:
@@ -244,11 +270,6 @@ class ServingEngine:
         if role not in self.ROLES:
             raise ValueError(f"role must be one of {sorted(self.ROLES)}, got {role!r}")
         pcfg = pcfg or PagedConfig()
-        if dispatch_depth > 1:
-            if draft_params is not None:
-                raise _not_ported("a draft engine's depth-N pipeline (its speculative commit "
-                                  "watch)", "dispatch_depth=1", "(c)")
-            raise _not_ported("the depth-N dispatch pipeline", "dispatch_depth=1", "(c)")
         if draft_params is not None:
             # the JAX engine's checks, in its order
             if draft_cfg is None:
@@ -298,9 +319,25 @@ class ServingEngine:
         #: one adapter's tree per index, selected out of the stack once
         self._adapter_cache: dict[int, Any] = {}
         self.pipeline_decode = pipeline_decode
-        #: greedy steps per horizon; 1 = the classic single-step engine
+        #: decode steps per horizon; 1 = the classic single-step engine
         self.decode_horizon = int(decode_horizon)
+        #: horizons kept in flight on the card (with H > 1): while one
+        #: replays, the host commits the one before, admits and enqueues the
+        #: next; 1 = dispatch, then commit, nothing overlapped
         self.dispatch_depth = int(dispatch_depth)
+        #: dispatched but uncommitted horizons, oldest first: commit order
+        #: is dispatch order
+        self._inflight: deque[dict] = deque()
+        #: per lane: bumped by every patch that rewrites the lane's scalar
+        #: state, so that a commit folds the device values of a horizon into
+        #: the mirror only while the lane is the one it was dispatched with
+        self._patch_epoch = [0] * pcfg.max_slots
+        #: when the decode pipeline last went empty with work left (the next
+        #: horizon dispatch books the gap into ``host_gap``)
+        self._dev_idle_at: Optional[float] = None
+        #: the previous pipelined speculative commit (the watchdog's window
+        #: runs commit to commit)
+        self._watch_commit_t: Optional[float] = None
         self.device = _weights_device(params)
         if loras is not None and _weights_device(loras) != self.device:
             raise ValueError(f"the adapters must live with the weights on {self.device}")
@@ -353,17 +390,18 @@ class ServingEngine:
         self._lane_key: Optional[tuple] = None
         #: the horizon's device lane state, one static int32 buffer
         #: [S, LANE_TABLE + MB] (last, seq, act, emitted, budget, eos,
-        #: adapter, then the block table): patched lane by lane, advanced in
-        #: place
+        #: adapter, temperature bits, rid, then the block table): patched
+        #: lane by lane, advanced in place
         self._dev = torch.zeros((S, LANE_TABLE + MB), dtype=torch.int32, device=self.device)
         #: what the device holds per lane, as the host last wrote or read it
         self._dev_mirror: list[Optional[dict]] = [None] * S
-        #: per horizon length: the graphed horizon, its output [H + 4, S]
-        #: and the pinned host buffer it is read back through
-        self._hz: dict[int, tuple[GraphedStep, torch.Tensor]] = {}
+        #: per horizon length: the graphed horizon (its output [H + 4, S])
+        #: and the free host buffers its outputs are read back through, one
+        #: taken by each horizon in flight
+        self._hz: dict[int, tuple[GraphedStep, list[torch.Tensor]]] = {}
         #: the speculative horizon per (k, rounds): its graphed draft and
         #: verify rounds, their output [rounds + 1, S + 1, max(k + 2, 4)]
-        #: and its pinned host buffer; the draft catch-up per H
+        #: and its free host buffers; the draft catch-up per H
         self._hz_spec: dict[tuple[int, int], tuple] = {}
         self._hz_sync: dict[int, GraphedStep] = {}
         #: a horizon's funded lookahead per lane, the round index of the
@@ -378,9 +416,14 @@ class ServingEngine:
         #: horizons: every launch or replay is enqueued here), ``host_sync``
         #: (waiting for their tokens), ``draft`` and ``verify`` (issuing the
         #: speculative horizon's draft and verify rounds, and the draft's
-        #: catch-up after a plain horizon)
+        #: catch-up after a plain horizon); in the pipeline
+        #: ``decode_device`` is the wait for a horizon at its commit,
+        #: ``host_overlap`` the host's work while a horizon was in flight and
+        #: ``host_gap`` the time the decode pipeline sat empty with work left
+        #: (JAX's names)
         self.phase_seconds = {"prefill": 0.0, "decode_device": 0.0, "host_sync": 0.0,
-                              "draft": 0.0, "verify": 0.0}
+                              "draft": 0.0, "verify": 0.0, "host_gap": 0.0,
+                              "host_overlap": 0.0}
         #: ``device_steps`` counts the target's one-token decode steps
         #: dispatched (H per plain horizon), ``horizons`` the horizons (plain
         #: and speculative), ``prefills`` the prefill dispatches (one-shot or
@@ -388,19 +431,22 @@ class ServingEngine:
         #: draft + verify rounds of speculative horizons (JAX's names); the
         #: port also counts ``spec_ticks`` (classic speculative ticks),
         #: ``draft_prefills`` (the draft's mirror of a prefill),
-        #: ``draft_syncs`` (T = H catch-ups after a plain horizon) and
-        #: ``draft_appends`` (T = 1 catch-ups before a plain tick)
+        #: ``draft_syncs`` (T = H catch-ups after a plain horizon),
+        #: ``draft_appends`` (T = 1 catch-ups before a plain tick) and
+        #: ``prefill_picks`` (first tokens picked at the end of a prefill)
         self.phase_counts = {"host_syncs": 0, "horizons": 0, "device_steps": 0,
                              "prefills": 0, "chunks": 0, "spec_rounds": 0, "spec_ticks": 0,
-                             "draft_prefills": 0, "draft_syncs": 0, "draft_appends": 0}
+                             "draft_prefills": 0, "draft_syncs": 0, "draft_appends": 0,
+                             "prefill_picks": 0}
 
     # -- public API --------------------------------------------------------
 
     def submit(self, prompt: list[int], max_new_tokens: int,
                temperature: float = 0.0, eos_token: Optional[int] = None,
                adapter: Optional[int] = None) -> int:
-        """Queue a greedy request under LoRA ``adapter`` (None or 0: the
-        base model); returns its rid."""
+        """Queue a request under LoRA ``adapter`` (None or 0: the base
+        model), greedy at ``temperature`` 0, else sampled at it; returns its
+        rid."""
         if self.draining:
             raise ValueError(
                 "engine is draining (scale-down or role change in progress): "
@@ -418,10 +464,6 @@ class ServingEngine:
             raise ValueError(
                 f"adapter {adapter} out of range (engine has {self.n_adapters} incl. the base "
                 "at 0)")
-        if temperature > 0:
-            raise NotImplementedError(
-                "sampled decoding is not ported yet: pass temperature=0 (greedy); "
-                "it comes with its own invariant in ROADMAP Queue 1 item 12")
         rid = self._next_rid
         self._next_rid += 1
         self.pending.append(Request(rid, list(prompt), max_new_tokens, temperature, eos_token,
@@ -436,9 +478,10 @@ class ServingEngine:
         while (self.pending or any(self.slots)) and steps < max_steps:
             self.step()
             steps += 1
-        # a pipelined tick may still be pending at loop exit
+        # a pipelined tick or horizons may still be in flight at loop exit
         self._commit_tick(self._pending_tick)
         self._pending_tick = None
+        self._drain_inflight()
         return self.finished
 
     @property
@@ -474,6 +517,15 @@ class ServingEngine:
         raise NotImplementedError(
             "cross-engine prefix sharing is not ported yet: pass False (the shared "
             "registry and its spill come with ROADMAP Queue 1 item 7, the port's engram)")
+
+    def set_dispatch_depth(self, depth: int) -> None:
+        """Live: a smaller depth commits the pipeline down to it at the next
+        tick, a larger one fills at the next dispatch. Every record carries
+        its own bookkeeping and commits are in dispatch order, so the
+        streams are the same at every depth."""
+        if depth < 1:
+            raise ValueError("dispatch_depth must be >= 1")
+        self.dispatch_depth = int(depth)
 
     def set_decode_horizon(self, horizon: int) -> None:
         """Live: takes effect at the next tick. One graph is kept per
@@ -511,6 +563,7 @@ class ServingEngine:
         self.spec_guard_decision = None
         self._guard_samples = {"spec": [], "plain": []}
         self._spec_watch = [0, 0.0]
+        self._watch_commit_t = None
         self.spec_active = True
 
     def reset_phase_stats(self) -> None:
@@ -519,15 +572,25 @@ class ServingEngine:
             self.phase_seconds[k] = 0.0
         for k in self.phase_counts:
             self.phase_counts[k] = 0
+        # a stale idle stamp would book the window before the reset into
+        # the first measured dispatch's host_gap
+        self._dev_idle_at = None
 
     # -- scheduler ---------------------------------------------------------
 
     def step(self) -> list[int]:
-        """One engine tick. Steady decode state with ``pipeline_decode``
-        (and H = 1; a horizon subsumes it): dispatch tick N+1, then read
-        back tick N. Otherwise: commit any pending tick, then the settled
-        sequence (admit -> retire finished -> a horizon, or grow/preempt ->
-        decode -> retire). Returns rids that finished."""
+        """One engine tick. With H > 1 and depth > 1: a tick of the dispatch
+        pipeline (:meth:`_pipelined_step`). Steady decode state with
+        ``pipeline_decode`` (and H = 1; a horizon subsumes it): dispatch tick
+        N+1, then read back tick N. Otherwise: commit whatever is in flight,
+        then the settled sequence (admit -> retire finished -> a horizon, or
+        grow/preempt -> decode -> retire). Returns rids that finished."""
+        if self._pipeline_ready():
+            return self._pipelined_step()
+        # a mode change (depth, horizon, the guard re-armed): commit what the
+        # pipeline left in flight, so the mirror and the host state are exact
+        # before the diff-based sync
+        pre = self._drain_inflight() if self._inflight else []
         # the dispatch-ahead tick composes with a draft engine only after the
         # payoff guard turned speculation off: from then on no tick drafts
         if (self.decode_horizon <= 1 and self.pipeline_decode
@@ -536,10 +599,10 @@ class ServingEngine:
             prev = self._pending_tick
             self._pending_tick = None
             new_tick = self._dispatch_plain(prev)
-            done = self._commit_tick(prev)
+            done = pre + self._commit_tick(prev)
             self._pending_tick = new_tick
             return done
-        done = self._commit_tick(self._pending_tick)
+        done = pre + self._commit_tick(self._pending_tick)
         self._pending_tick = None
         done.extend(self._settled_step())
         return done
@@ -782,7 +845,7 @@ class ServingEngine:
         logits = self._run_chunk_graph(effective, prefix_blocks, start, p, slot.blocks,
                                        req.adapter)
         t0 = time.perf_counter()
-        tok = self._sample_host(logits)
+        tok = self._sample_host(logits, req)
         self.phase_seconds["prefill"] += time.perf_counter() - t0
         slot.ingest_pos = None
         slot.seq_len = p + 1
@@ -825,7 +888,7 @@ class ServingEngine:
         logits = self._dispatch_prefill(effective[start:end] + [0] * (bucket - sp), shared,
                                         shared_tokens, fresh[:n_sfx_blocks], bucket, req.adapter)
         t0 = time.perf_counter()
-        tok = self._sample_host(logits[0, sp - 1])
+        tok = self._sample_host(logits[0, sp - 1], req)
         self.phase_seconds["prefill"] += time.perf_counter() - t0
         self.slots[slot_idx] = _SlotState(req, shared + fresh, p + 1)
         self._record(slot_idx, req, tok)
@@ -897,10 +960,14 @@ class ServingEngine:
         seq_lens are advanced by the commit its harvest will apply."""
         t0 = time.perf_counter()
         pend_idx = self._pending_indices(prev)
-        active_l, active, adapters = self._lane_arrays()
-        seq_lens = self._upload(
-            [(s.seq_len + (1 if i in pend_idx else 0)) if (s and s.ingest_pos is None) else 1
-             for i, s in enumerate(self.slots)], torch.int32)
+        active_l, active, adapters, temps, rids = self._lane_arrays()
+        # seq_lens, and with a sampled lane each request's token index: the
+        # tokens already committed, plus the one a pending tick will commit
+        ahead = [(s.seq_len + (1 if i in pend_idx else 0), len(s.request.output)
+                  + (1 if i in pend_idx else 0)) if ok else (1, 0)
+                 for i, (s, ok) in enumerate(zip(self.slots, active_l))]
+        lanes = self._upload([list(col) for col in zip(*ahead)], torch.int32)
+        seq_lens, emitted = lanes[0], (lanes[1] if temps is not None else None)
         if prev is None:
             tokens = self._upload(self._last_tokens, torch.int32)
         else:
@@ -912,7 +979,8 @@ class ServingEngine:
         self.pools, next_tokens = _decode_step(self.params, self.pools, tokens, seq_lens,
                                                active, tables, self.loras, adapters,
                                                cfg=self.cfg, pcfg=self.pcfg,
-                                               lora_scale=self.lora_scale)
+                                               lora_scale=self.lora_scale, temps=temps,
+                                               rids=rids, emitted=emitted)
         host, ready = next_tokens, None
         if next_tokens.device.type == "cuda":
             host = torch.empty(next_tokens.shape, dtype=next_tokens.dtype, pin_memory=True)
@@ -925,19 +993,27 @@ class ServingEngine:
         self.phase_counts["device_steps"] += 1
         return {"next": next_tokens, "host": host, "ready": ready, "snapshot": snapshot}
 
-    def _lane_arrays(self) -> tuple[list[bool], torch.Tensor, Optional[torch.Tensor]]:
-        """The [S] active mask and (with LoRA) the [S] adapters, kept on the
-        device between occupancy changes. An ingesting slot is not in the
+    def _lane_arrays(self) -> tuple[list[bool], torch.Tensor, Optional[torch.Tensor],
+                                    Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """The [S] active mask, (with LoRA) the [S] adapters and (with a
+        sampled request in a slot) the [S] temperatures and rids, kept on
+        the device between occupancy changes. An ingesting slot is not in the
         decode batch: its cache is mid-prefill."""
         key = tuple((s.request.rid, s.ingest_pos is None) if s is not None else None
                     for s in self.slots)
         if self._lane_key != key:
             active_l = [s is not None and s.ingest_pos is None for s in self.slots]
-            adapters = None
+            adapters = temps = rids = None
             if self.loras is not None:
                 adapters = self._upload([s.request.adapter if s else 0 for s in self.slots],
                                         torch.int32)
-            self._lane_cache = (active_l, self._upload(active_l, torch.bool), adapters)
+            if any(s is not None and s.request.temperature > 0 for s in self.slots):
+                keyed = self._upload(
+                    [[_f32_bits(s.request.temperature) if s else 0 for s in self.slots],
+                     [s.request.rid if s else 0 for s in self.slots]], torch.int32)
+                temps, rids = keyed[0].view(torch.float32), keyed[1]
+            self._lane_cache = (active_l, self._upload(active_l, torch.bool), adapters, temps,
+                                rids)
             self._lane_key = key
         return self._lane_cache
 
@@ -976,10 +1052,18 @@ class ServingEngine:
                 len(req.output) >= req.max_new_tokens):
             req.done = True
 
-    @staticmethod
-    def _sample_host(logits: torch.Tensor) -> int:
-        """The next token from one row of logits (greedy)."""
-        return int(torch.argmax(logits))
+    def _sample_host(self, logits: torch.Tensor, req: Request) -> int:
+        """The request's next token from one row of logits (a prefill's
+        first token), keyed by (rid, token index) as every fused pick is,
+        so the stream does not depend on the schedule."""
+        self.phase_counts["prefill_picks"] += 1
+        if req.temperature > 0:
+            keyed = self._upload([[_f32_bits(req.temperature)], [req.rid], [len(req.output)]],
+                                 torch.int32)
+            tok = pick_tokens(logits[None], keyed[0].view(torch.float32), keyed[1], keyed[2])
+        else:
+            tok = pick_tokens(logits[None])
+        return int(tok[0])
 
     def _block_tables(self) -> torch.Tensor:
         """[S, max_blocks_per_seq] int32, scratch-padded: the one static
@@ -1027,6 +1111,20 @@ class ServingEngine:
             slot.blocks.extend(got)
         return True
 
+    def _lane_want(self, i: int) -> dict:
+        """What lane ``i`` of the device state should hold for the host's
+        slot: a decoding slot's values, else its last values inactive."""
+        s = self.slots[i]
+        if s is not None and s.ingest_pos is None:
+            req = s.request
+            return {"last": int(self._last_tokens[i]), "seq": int(s.seq_len), "act": True,
+                    "emitted": len(req.output), "budget": int(req.max_new_tokens),
+                    "eos": -1 if req.eos_token is None else int(req.eos_token),
+                    "adapter": int(req.adapter), "temp": float(req.temperature),
+                    "rid": int(req.rid), "table": tuple(s.blocks)}
+        prev = self._dev_mirror[i]
+        return {**(prev if prev is not None else _FREE_LANE), "act": False}
+
     def _sync_device_state(self) -> None:
         """Reconcile the device lane state with the host scheduler: diff
         each lane against the mirror of what the device holds and patch
@@ -1034,42 +1132,30 @@ class ServingEngine:
         (admission, retire, preempt, growth, classic ticks between
         horizons) without invalidation hooks. A free lane keeps its last
         values, inactive."""
-        for i, s in enumerate(self.slots):
-            if s is not None and s.ingest_pos is None:
-                req = s.request
-                want = {"last": int(self._last_tokens[i]), "seq": int(s.seq_len), "act": True,
-                        "emitted": len(req.output), "budget": int(req.max_new_tokens),
-                        "eos": -1 if req.eos_token is None else int(req.eos_token),
-                        "adapter": int(req.adapter), "table": tuple(s.blocks)}
-            else:
-                prev = self._dev_mirror[i]
-                want = dict(prev) if prev is not None else {
-                    "last": 0, "seq": 1, "act": False, "emitted": 0, "budget": 0, "eos": -1,
-                    "adapter": 0, "table": ()}
-                want["act"] = False
+        for i in range(self.pcfg.max_slots):
+            want = self._lane_want(i)
             if want != self._dev_mirror[i]:
                 self._patch_lane(i, want)
                 self._dev_mirror[i] = want
 
     def _patch_lane(self, i: int, lane: dict) -> None:
         """Write lane ``i`` of the device state in place: one copy of its
-        row from pinned memory, on the stream the horizon replays on."""
+        row from pinned memory, on the stream the horizon replays on (so it
+        lands after every horizon already queued)."""
         row = np.full(self._dev.shape[1], SCRATCH_BLOCK, np.int32)
-        row[:LANE_TABLE] = [int(lane[name]) for name in LANE_FIELDS]
+        row[:LANE_TEMP] = [int(lane[name]) for name in LANE_FIELDS[:LANE_TEMP]]
+        row[LANE_TEMP], row[LANE_RID] = _f32_bits(lane["temp"]), lane["rid"]
         row[LANE_TABLE:LANE_TABLE + len(lane["table"])] = lane["table"]
         self._dev[i].copy_(self._pinned(row), non_blocking=True)
 
-    def _mirror_from_device(self, last_h, seq_h, act_h, em_h) -> None:
-        """After a horizon the device's lane values are authoritative: copy
-        them into the mirror, so the next sync patches only what the host
-        scheduler really changed."""
-        for i in range(self.pcfg.max_slots):
-            m = self._dev_mirror[i]
-            m["last"], m["seq"] = int(last_h[i]), int(seq_h[i])
-            m["act"], m["emitted"] = bool(act_h[i]), int(em_h[i])
+    def _patch_lane_act(self, i: int, act: bool) -> None:
+        """Set lane ``i``'s active flag alone: its last, seq and emitted may
+        be ahead on the device of what the host has committed, and writing
+        the host's values would rewind a live lane."""
+        self._dev[i, LANE_ACT] = int(act)
 
-    def _horizon_step(self, horizon: int) -> tuple[GraphedStep, torch.Tensor]:
-        """The graphed horizon of this length and its pinned host buffer,
+    def _horizon_step(self, horizon: int) -> tuple[GraphedStep, list[torch.Tensor]]:
+        """The graphed horizon of this length and its free host buffers,
         made on first use."""
         hz = self._hz.get(horizon)
         if hz is None:
@@ -1078,10 +1164,23 @@ class ServingEngine:
             fn = functools.partial(_horizon_plain, self.params, self.pools, loras=self.loras,
                                    cfg=self.cfg, pcfg=self.pcfg, H=horizon,
                                    lora_scale=self.lora_scale)
-            host = out if self.device.type == "cpu" else torch.empty(
-                out.shape, dtype=out.dtype, pin_memory=True)
-            hz = self._hz[horizon] = (GraphedStep(fn, self._dev, out), host)
+            hz = self._hz[horizon] = (GraphedStep(fn, self._dev, out), [])
         return hz
+
+    def _read_back(self, out: torch.Tensor, free: list[torch.Tensor]
+                   ) -> tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        """Enqueue the copy of a horizon's output right behind its replay,
+        into a host buffer of its own (pinned on a card: a free one of
+        ``free``, or a new one), since the next replay rewrites ``out``.
+        Returns the buffer and, on a card, the event after the copy."""
+        host = free.pop() if free else torch.empty(
+            out.shape, dtype=out.dtype, pin_memory=self.device.type == "cuda")
+        host.copy_(out, non_blocking=True)
+        if self.device.type == "cpu":
+            return host, None
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
 
     def _horizon_decode(self) -> Optional[list[int]]:
         """One horizon: speculative on a draft engine (through the payoff
@@ -1104,15 +1203,18 @@ class ServingEngine:
         classic tick. Always the full horizon: a lane that ends early is
         deactivated on the device and its later steps are no-ops. With
         ``draft_sync`` (a draft engine decoding plainly: the guard's plain
-        arm) the horizon's tokens are then appended to the draft pools in
-        one T = H pass, keeping the draft cache lag-one current."""
+        arm) and a greedy lane, the horizon's tokens are then appended to the
+        draft pools in one T = H pass, keeping the draft cache lag-one
+        current (a sampled lane never speculates)."""
         acts = self._decoding_slots()
         for _, s in acts:
             rem = s.request.max_new_tokens - len(s.request.output)
             if not self._fund_lookahead(s, min(horizon, rem)):
                 return None
         self._sync_device_state()
-        step, host = self._horizon_step(horizon)
+        step, free = self._horizon_step(horizon)
+        draft_sync = draft_sync and any(s.request.temperature == 0 for _, s in acts)
+        self._note_dispatch_gap()
         t0 = time.perf_counter()
         if draft_sync:
             self._pre.copy_(self._dev[:, :LANE_BUDGET])
@@ -1124,34 +1226,351 @@ class ServingEngine:
             self.phase_seconds["draft"] += time.perf_counter() - t0
             self.phase_counts["draft_syncs"] += 1
         t0 = time.perf_counter()
-        ready = None
-        if host is not out:
-            host.copy_(out, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
+        rec = self._record_horizon({"kind": "plain", "H": horizon}, out, free, acts, {})
         self.phase_seconds["decode_device"] += time.perf_counter() - t0
         self.phase_counts["horizons"] += 1
         self.phase_counts["device_steps"] += horizon
         t0 = time.perf_counter()
-        if ready is not None:
-            ready.synchronize()
-        got = host.numpy()
-        toks_h, (last_h, seq_h, act_h, em_h) = got[:horizon], got[horizon:]
+        if rec["ready"] is not None:
+            rec["ready"].synchronize()
         self.phase_seconds["host_sync"] += time.perf_counter() - t0
-        self.phase_counts["host_syncs"] += 1
+        return self._land_horizon(rec)[0]
+
+    # -- the depth-N dispatch pipeline ---------------------------------------
+
+    def _pipeline_ready(self) -> bool:
+        """True when this tick may run the pipeline: a horizon, depth > 1,
+        and on a draft engine a settled payoff guard (its samples time a
+        dispatch and its commit as one unit, which the pipeline would smear
+        over the horizons beside it)."""
+        if self.decode_horizon <= 1 or self.dispatch_depth <= 1:
+            return False
+        return not (self.draft_params is not None and self.spec_active
+                    and self.spec_guard and self.spec_guard_decision is None)
+
+    def _pipelined_step(self) -> list[int]:
+        """One tick of the pipeline: commit the oldest horizons down to
+        depth - 1 in flight, run the host's scheduling (admission, chunked
+        ingest, retirement) while the others replay, then top the pipeline
+        up. New and retired lanes are patched into the next horizon
+        (:meth:`_patch_pipeline_lanes`), with no drain. The pipeline drains
+        only when a lane's lookahead cannot be funded without preemption:
+        eviction stays with the classic tick, which needs the exact host
+        state."""
+        # a dispatch-ahead tick left by a live change of the horizon commits
+        # first: the horizon starts from the host's committed state
+        done = self._commit_tick(self._pending_tick)
+        self._pending_tick = None
+        while len(self._inflight) >= self.dispatch_depth:
+            done.extend(self._commit_horizon(self._inflight.popleft()))
+        # everything below overlaps the horizons still in flight
+        overlap = bool(self._inflight)
+        t_host = time.perf_counter()
+        self._admit()
+        for i, slot in enumerate(self.slots):
+            if slot is not None and slot.ingest_pos is not None:
+                self._ingest_chunk(i)
+        # a request can finish on its prefill token
+        for i, slot in enumerate(self.slots):
+            if slot is not None and slot.request.done:
+                done.append(slot.request.rid)
+                self._retire(i)
+        dispatched = unfundable = False
+        while len(self._inflight) < self.dispatch_depth:
+            rec = self._dispatch_horizon()
+            if rec is None:
+                break
+            if rec is _UNFUNDABLE:
+                unfundable = True
+                break
+            self._inflight.append(rec)
+            dispatched = True
+        if overlap:
+            self.phase_seconds["host_overlap"] += time.perf_counter() - t_host
+        if unfundable:
+            # the lookahead needs preemption: drain, so that the classic
+            # tick's eviction sees the exact committed state
+            done.extend(self._drain_inflight())
+            if self._decoding_slots():
+                self._ensure_growth()
+                if self._decoding_slots():
+                    done.extend(self._decode_once())
+            return done
+        if not dispatched and self._inflight:
+            # every budget token left is in flight already: commit the
+            # oldest, so that the loop always moves toward retirement
+            done.extend(self._commit_horizon(self._inflight.popleft()))
+        return done
+
+    def _drain_inflight(self) -> list[int]:
+        """Commit every horizon in flight, in dispatch order (mode changes,
+        unfundable lookahead, the end of :meth:`run`). After a drain the
+        mirror is the host's committed view, so the diff-based sync is
+        exact again."""
         done: list[int] = []
+        while self._inflight:
+            done.extend(self._commit_horizon(self._inflight.popleft()))
+        return done
+
+    def _inflight_ahead(self, i: int, rid: int) -> int:
+        """Tokens dispatched but not committed for slot ``i`` as request
+        ``rid``, at most (a replaced rid's records are discarded at their
+        commit and do not count)."""
+        return sum(rec["ahead"].get(i, 0) for rec in self._inflight if rec["rids"].get(i) == rid)
+
+    def _dispatch_horizon(self):
+        """Enqueue one horizon without waiting for it. Returns its record,
+        None when there is nothing to dispatch (no decoding lane, or every
+        token left already in flight), or ``_UNFUNDABLE`` when a lane's
+        lookahead needs preemption."""
+        if not self._decoding_slots():
+            return None
+        if self.draft_params is not None and self.spec_active:
+            return self._dispatch_spec_horizon(self._spec_rounds())
+        return self._dispatch_plain_horizon(self.decode_horizon)
+
+    def _dispatch_plain_horizon(self, horizon: int):
+        """The dispatch half of :meth:`_plain_horizon_decode`: fund each
+        lane's committed + in-flight + this horizon's tokens, patch the
+        changed lanes, replay the horizon and enqueue the copy of its
+        output; returns the record."""
+        acts = self._decoding_slots()
+        ahead: dict[int, int] = {}
         for i, s in acts:
             req = s.request
-            for t in range(int(em_h[i]) - self._dev_mirror[i]["emitted"]):
-                s.seq_len += 1
-                self._record(i, req, int(toks_h[t][i]))
-                if req.done:
-                    break
-            if req.done:
-                done.append(req.rid)
-                self._retire(i)
-        self._mirror_from_device(last_h, seq_h, act_h, em_h)
+            pend = self._inflight_ahead(i, req.rid)
+            ahead[i] = max(0, min(horizon, req.max_new_tokens - len(req.output) - pend))
+        if all(a == 0 for a in ahead.values()):
+            return None
+        for i, s in acts:
+            if not self._fund_lookahead(s, self._inflight_ahead(i, s.request.rid) + ahead[i]):
+                return _UNFUNDABLE
+        self._patch_pipeline_lanes()
+        step, free = self._horizon_step(horizon)
+        self._note_dispatch_gap()
+        rec = self._record_horizon({"kind": "plain", "H": horizon}, step(), free, acts, ahead)
+        self.phase_counts["horizons"] += 1
+        self.phase_counts["device_steps"] += horizon
+        return rec
+
+    def _dispatch_spec_horizon(self, rounds: int):
+        """The dispatch half of :meth:`_spec_horizon_decode`: ``rounds``
+        draft + verify rounds ride the pipeline as a plain horizon does;
+        the commits and the speculation counts are read at the commit."""
+        acts = self._decoding_slots()
+        if all(self._budget_left(i, s) == 0 for i, s in acts):
+            return None
+        k = self.spec_k
+        funded = self._fund_spec_lanes(acts, rounds, k)
+        if funded is None:
+            return _UNFUNDABLE
+        cov, ahead = funded
+        self._patch_pipeline_lanes()
+        draft, verify, out, free = self._spec_horizon_fns(k, rounds)
+        self._note_dispatch_gap()
+        self._run_spec_rounds(draft, verify, cov, rounds)
+        return self._record_horizon({"kind": "spec", "k": k, "rounds": rounds}, out, free, acts,
+                                    ahead)
+
+    def _budget_left(self, i: int, s: _SlotState) -> int:
+        """Tokens slot ``i``'s request may still commit beyond those in
+        flight."""
+        req = s.request
+        return max(0, req.max_new_tokens - len(req.output) - self._inflight_ahead(i, req.rid))
+
+    def _fund_spec_lanes(self, acts: list, rounds: int, k: int
+                         ) -> Optional[tuple[list[int], dict[int, int]]]:
+        """Fund a speculative horizon's lookahead past what is in flight: a
+        greedy lane with 2 tokens of budget left speculates (``rounds *
+        (k + 1)`` tokens ahead), any other commits one token a round; a lane
+        whose speculative lookahead cannot be funded degrades to one a
+        round. Returns (cov [S], tokens ahead by lane), or None when a lane
+        cannot be funded even so."""
+        cov = [0] * self.pcfg.max_slots
+        ahead: dict[int, int] = {}
+        for i, s in acts:
+            rem, pend = self._budget_left(i, s), self._inflight_ahead(i, s.request.rid)
+            spec_capable = s.request.temperature == 0 and rem >= 2
+            want = min(rounds * (k + 1), rem) if spec_capable else min(rounds, rem)
+            ok = self._fund_lookahead(s, pend + want)
+            if not ok and spec_capable:
+                spec_capable = False
+                want = min(rounds, rem)
+                ok = self._fund_lookahead(s, pend + want)
+            if not ok:
+                return None
+            cov[i] = int(spec_capable)
+            ahead[i] = want
+        return cov, ahead
+
+    def _record_horizon(self, rec: dict, out: torch.Tensor, free: list[torch.Tensor],
+                        acts: list, ahead: dict[int, int]) -> dict:
+        """A dispatched horizon's record: ``rec`` (its kind and shape) with
+        the copy of its output ``out`` enqueued (:meth:`_read_back`), the
+        lanes it decodes, their tokens ahead and the patch epochs."""
+        host, ready = self._read_back(out, free)
+        return {**rec, "host": host, "ready": ready, "free": free,
+                "snapshot": [(i, s.request.rid) for i, s in acts],
+                "rids": {i: s.request.rid for i, s in acts}, "ahead": ahead,
+                "epochs": list(self._patch_epoch)}
+
+    def _commit_horizon(self, rec: dict) -> list[int]:
+        """Wait for one horizon in flight and commit its tokens. Dispatch
+        order is load-bearing: a commit assumes every earlier record of the
+        same request has landed in ``req.output``. Lanes whose slot churned
+        since the dispatch (retired, replaced) are discarded; their tokens
+        come again, the same, wherever the request runs next, since a token
+        is a function of (rid, token index). The wait for the card is
+        ``decode_device`` (what the overlapped host work did not hide), the
+        read of the ready buffer ``host_sync``."""
+        t0 = time.perf_counter()
+        if rec["ready"] is not None:
+            rec["ready"].synchronize()
+        self.phase_seconds["decode_device"] += time.perf_counter() - t0
+        done, tokens = self._land_horizon(rec)
+        if rec["kind"] == "spec":
+            self._watch_spec_commit(tokens)
         return done
+
+    def _land_horizon(self, rec: dict) -> tuple[list[int], int]:
+        """Commit a finished horizon's tokens (its copy has run): read its
+        host buffer, record each live lane's tokens (a plain horizon's lane
+        took the tokens its device ``emitted`` counts beyond the request's
+        output, every earlier record having landed; a speculative one's
+        commits round by round), retire the finished, and fold the device's
+        lane state into the mirror for each lane not re-patched since the
+        dispatch. Returns (finished rids, tokens committed)."""
+        t0 = time.perf_counter()
+        S = self.pcfg.max_slots
+        got = rec["host"].numpy()
+        if rec["kind"] == "plain":
+            H = rec["H"]
+            toks_h, (last_h, seq_h, act_h, em_h) = got[:H].tolist(), got[H:].tolist()
+        else:
+            rounds, k = rec["rounds"], rec["k"]
+            rounds_h = [(got[r, :S, :k + 1].tolist(), got[r, :S, k + 1].tolist(),
+                         got[r, S, :2].tolist()) for r in range(rounds)]
+            last_h, seq_h, act_h, em_h = got[rounds, :S, :LANE_BUDGET].T.tolist()
+        rec["free"].append(rec["host"])
+        self.phase_seconds["host_sync"] += time.perf_counter() - t0
+        self.phase_counts["host_syncs"] += 1
+        before = self._tokens_emitted
+        live = [(i, self.slots[i]) for i, rid in rec["snapshot"]
+                if self.slots[i] is not None and self.slots[i].request.rid == rid]
+        if rec["kind"] == "plain":
+            for i, s in live:
+                for t in range(em_h[i] - len(s.request.output)):
+                    s.seq_len += 1
+                    self._record(i, s.request, toks_h[t][i])
+                    if s.request.done:
+                        break
+        else:
+            for c_out, ncommit, (drafted, accepted) in rounds_h:
+                self.spec_drafted += drafted
+                self.spec_accepted += accepted
+                for i, s in live:
+                    for t in range(0 if s.request.done else ncommit[i]):
+                        s.seq_len += 1
+                        self._record(i, s.request, c_out[i][t])
+                        if s.request.done:
+                            break
+        done: list[int] = []
+        for i, s in live:
+            if s.request.done:
+                done.append(s.request.rid)
+                self._retire(i)
+        for i in range(S):
+            if rec["epochs"][i] == self._patch_epoch[i]:  # not re-patched since
+                m = self._dev_mirror[i]
+                m["last"], m["seq"] = last_h[i], seq_h[i]
+                m["act"], m["emitted"] = bool(act_h[i]), em_h[i]
+        if not self._inflight:
+            self._stamp_dev_idle()
+        return done, self._tokens_emitted - before
+
+    def _watch_spec_commit(self, tokens: int) -> None:
+        """The pipeline's speculation watchdog: the one-way demotion of
+        :meth:`_watched_spec_horizon`, over commit-to-commit windows (a
+        record's dispatch and commit overlap other records, so a per-record
+        time would count the pipeline twice). A gap over a second is idle
+        time between workloads, not cadence, and is left out."""
+        if not (self.spec_guard and self.spec_guard_decision is not None and self.spec_active):
+            self._watch_commit_t = None
+            return
+        now = time.perf_counter()
+        t_prev, self._watch_commit_t = self._watch_commit_t, now
+        if t_prev is not None and now - t_prev <= 1.0:
+            self._watch_window(tokens, now - t_prev)
+
+    def _patch_pipeline_lanes(self) -> None:
+        """The pipeline's :meth:`_sync_device_state`: fold the host's lane
+        changes into the next horizon while earlier ones are in flight.
+        Three cases a lane:
+
+        - the host freed it (or it ingests) but the device lane may be live:
+          set its active flag alone (a dead lane is a fixed point of the
+          horizon; a lane retired by the host would otherwise decode into
+          blocks the allocator handed out again);
+        - a decoding slot whose scalar state differs from the mirror (an
+          admission): write the whole lane (its device values are a dead
+          lane's, or an old rid's whose commits the snapshot discards);
+        - only its table grew (funding ahead of a lane the device has
+          advanced): rewrite the tables alone, since a whole-lane write
+          would rewind last, seq and emitted behind the device.
+
+        The first two bump the lane's epoch, so that commits in flight fold
+        nothing stale into the new lane's mirror; a table patch does not:
+        the lane's scalar state is the in-flight horizons' to report. On an
+        empty pipeline the mirror is exact and the full diff runs."""
+        if not self._inflight:
+            self._sync_device_state()
+            return
+        tables_dirty = False
+        for i, s in enumerate(self.slots):
+            m = self._dev_mirror[i]
+            if s is None or s.ingest_pos is not None:
+                if m is not None and m["act"]:
+                    self._patch_lane_act(i, False)
+                    m["act"] = False
+                    self._patch_epoch[i] += 1
+                continue
+            want = self._lane_want(i)
+            if m == want:
+                continue
+            if m is not None and all(m[f] == want[f] for f in m if f != "table"):
+                m["table"] = want["table"]
+                tables_dirty = True
+            else:
+                self._patch_lane(i, want)
+                self._dev_mirror[i] = want
+                self._patch_epoch[i] += 1
+        if tables_dirty:
+            # one copy for every table grown this pass, from the mirrors (the
+            # device never writes a table); a dead or ingesting lane's row
+            # reads scratch, where an inactive lane writes anyway
+            tab = np.full((self.pcfg.max_slots, self.pcfg.max_blocks_per_seq), SCRATCH_BLOCK,
+                          np.int32)
+            for i, s in self._decoding_slots():
+                row = self._dev_mirror[i]["table"]
+                tab[i, :len(row)] = row
+            self._dev[:, LANE_TABLE:].copy_(self._pinned(tab), non_blocking=True)
+
+    def _stamp_dev_idle(self) -> None:
+        """Mark the decode pipeline empty, while decode work remains (queued
+        or slotted requests): an idle engine's wait for its next workload is
+        no host gap."""
+        busy = self.pending or any(s is not None for s in self.slots)
+        self._dev_idle_at = time.perf_counter() if busy else None
+
+    def _note_dispatch_gap(self) -> None:
+        """Book the time since the decode pipeline went empty into
+        ``host_gap``: at depth 1 the whole host round trip between horizons,
+        what the pipeline exists to hide (prefills inside it count: the
+        decode pipeline sat empty through them)."""
+        if self._dev_idle_at is None:
+            return
+        self.phase_seconds["host_gap"] += time.perf_counter() - self._dev_idle_at
+        self._dev_idle_at = None
 
 
     # -- speculative decoding ----------------------------------------------
@@ -1181,9 +1600,16 @@ class ServingEngine:
         done = self._spec_horizon_decode(self._spec_rounds())
         if done is None:
             return None
+        self._watch_window(self._tokens_emitted - before, time.perf_counter() - t0)
+        return done
+
+    def _watch_window(self, tokens: int, seconds: float) -> None:
+        """Add to the watchdog's window; when it holds 512 tokens, demote the
+        draft for good if its realized rate is under the guard's plain
+        rate, and start a new window."""
         w = self._spec_watch
-        w[0] += self._tokens_emitted - before
-        w[1] += time.perf_counter() - t0
+        w[0] += tokens
+        w[1] += seconds
         if w[0] >= 512 and w[1] > 0:
             realized = w[0] / w[1]
             floor = float(self.spec_guard_decision.get("plain_tok_s", 0.0))
@@ -1194,12 +1620,11 @@ class ServingEngine:
                     "realized_spec_tok_s": round(realized, 1),
                     "plain_floor_tok_s": round(floor, 1), "window_tokens": int(w[0])}
             self._spec_watch = [0, 0.0]
-        return done
 
     def _spec_horizon_fns(self, k: int, rounds: int) -> tuple:
         """The graphed draft and verify rounds of a speculative horizon of
-        ``rounds`` rounds of ``k``, their output buffer and its pinned host
-        copy, made on first use."""
+        ``rounds`` rounds of ``k``, their output buffer and its free host
+        buffers, made on first use."""
         fns = self._hz_spec.get((k, rounds))
         if fns is None:
             S = self.pcfg.max_slots
@@ -1213,39 +1638,18 @@ class ServingEngine:
                 _spec_verify_lanes, self.params, self.pools, loras=self.loras, cfg=self.cfg,
                 pcfg=self.pcfg, k=k, lora_scale=self.lora_scale), self._dev, props, out,
                 self._round)
-            host = out if self.device.type == "cpu" else torch.empty(
-                out.shape, dtype=out.dtype, pin_memory=True)
-            fns = self._hz_spec[k, rounds] = (draft, verify, out, host)
+            fns = self._hz_spec[k, rounds] = (draft, verify, out, [])
         return fns
 
-    def _spec_horizon_decode(self, rounds: int) -> Optional[list[int]]:
-        """``rounds`` draft + verify rounds with the lane state on the
-        device throughout (no host read between rounds); the host learns the
-        commits once, at the end. Lanes that cannot speculate (a last-token
-        budget, no coverage) commit their one plain token through the same
-        verify. None when a lane's lookahead cannot be funded."""
-        acts = self._decoding_slots()
-        k = self.spec_k
-        draft, verify, out, host = self._spec_horizon_fns(k, rounds)
-        cov = [0] * self.pcfg.max_slots
-        for i, s in acts:
-            rem = s.request.max_new_tokens - len(s.request.output)
-            spec_capable = rem >= 2
-            ahead = min(rounds * (k + 1), rem) if spec_capable else min(rounds, rem)
-            ok = self._fund_lookahead(s, ahead)
-            if not ok and spec_capable:
-                # degrade this lane to plain commits rather than give up
-                spec_capable = False
-                ok = self._fund_lookahead(s, min(rounds, rem))
-            if not ok:
-                return None
-            cov[i] = int(spec_capable)
-        self._sync_device_state()
+    def _run_spec_rounds(self, draft: GraphedStep, verify: GraphedStep, cov: list[int],
+                         rounds: int) -> None:
+        """Enqueue a speculative horizon: its lanes' coverage, then
+        ``rounds`` draft and verify rounds chained on the device. The host
+        only enqueues, so the ``draft`` and ``verify`` seconds are enqueue
+        time."""
         self._cov.copy_(self._pinned(cov), non_blocking=True)
         self._round.zero_()
         for _ in range(rounds):
-            # draft and verify chain on the device; the host only enqueues,
-            # so these seconds are enqueue time (the wait is host_sync's)
             t0 = time.perf_counter()
             draft()
             t1 = time.perf_counter()
@@ -1254,37 +1658,30 @@ class ServingEngine:
             self.phase_seconds["verify"] += time.perf_counter() - t1
         self.phase_counts["spec_rounds"] += rounds
         self.phase_counts["horizons"] += 1
+
+    def _spec_horizon_decode(self, rounds: int) -> Optional[list[int]]:
+        """``rounds`` draft + verify rounds with the lane state on the
+        device throughout (no host read between rounds); the host learns the
+        commits once, at the end. Lanes that cannot speculate (sampled, a
+        last-token budget, no coverage) commit their one token a round
+        through the same verify. None when a lane's lookahead cannot be
+        funded."""
+        acts = self._decoding_slots()
+        k = self.spec_k
+        funded = self._fund_spec_lanes(acts, rounds, k)
+        if funded is None:
+            return None
+        self._sync_device_state()
+        draft, verify, out, free = self._spec_horizon_fns(k, rounds)
+        self._note_dispatch_gap()
+        self._run_spec_rounds(draft, verify, funded[0], rounds)
         t0 = time.perf_counter()
-        if host is not out:
-            host.copy_(out, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
-        got = host.numpy()
+        rec = self._record_horizon({"kind": "spec", "k": k, "rounds": rounds}, out, free, acts,
+                                   {})
+        if rec["ready"] is not None:
+            rec["ready"].synchronize()
         self.phase_seconds["host_sync"] += time.perf_counter() - t0
-        self.phase_counts["host_syncs"] += 1
-        S = self.pcfg.max_slots
-        done: list[int] = []
-        drafted = accepted = 0
-        for r in range(rounds):
-            drafted += int(got[r, S, 0])
-            accepted += int(got[r, S, 1])
-            for i, s in acts:
-                req = s.request
-                if req.done:
-                    continue
-                for t in range(int(got[r, i, k + 1])):
-                    s.seq_len += 1
-                    self._record(i, req, int(got[r, i, t]))
-                    if req.done:
-                        break
-        for i, s in acts:
-            if s.request.done:
-                done.append(s.request.rid)
-                self._retire(i)
-        self.spec_drafted += drafted
-        self.spec_accepted += accepted
-        state = got[rounds, :S, :LANE_BUDGET].T
-        self._mirror_from_device(*state)
-        return done
+        return self._land_horizon(rec)[0]
 
     def _guarded_horizon(self) -> Optional[list[int]]:
         """The payoff guard at horizon granularity: one speculative horizon
@@ -1385,12 +1782,12 @@ class ServingEngine:
         slot, one fused target step verifies them, and the speculative
         horizon's accept (:func:`.spec_decode._spec_accept`, on the device)
         picks the accept prefix and the correction (or bonus) token, cut by
-        eos and the budget; the host records them. A slot without coverage
-        or with one token of budget left commits the position-0 token, the
-        plain step's."""
+        eos and the budget; the host records them. A sampled slot, a slot
+        without coverage or with one token of budget left commits the
+        position-0 token, the plain step's."""
         k = self.spec_k
         active_l = [s is not None and s.ingest_pos is None for s in self.slots]
-        spec_ok_l = [active_l[i]
+        spec_ok_l = [active_l[i] and s.request.temperature == 0
                      and s.request.max_new_tokens - len(s.request.output) >= 2
                      and self._spec_coverage(s, k)
                      for i, s in enumerate(self.slots)]
@@ -1398,24 +1795,25 @@ class ServingEngine:
             # nothing to speculate: the plain step commits the same tokens
             return self._plain_with_draft_sync()
         t0 = time.perf_counter()
-        _, active, adapters = self._lane_arrays()
-        seq_lens = self._upload([s.seq_len if ok else 1 for s, ok in zip(self.slots, active_l)],
-                                torch.int32)
+        _, active, adapters, temps, rids = self._lane_arrays()
+        reqs = [s.request if s is not None else None for s in self.slots]
+        lanes = self._upload(
+            [[s.seq_len if ok else 1 for s, ok in zip(self.slots, active_l)],
+             [len(r.output) if r else 0 for r in reqs],
+             [r.max_new_tokens if r else 0 for r in reqs],
+             [r.eos_token if r and r.eos_token is not None else -1 for r in reqs]], torch.int32)
+        seq_lens, emitted, budget, eos = lanes.unbind(0)
         spec_ok = self._upload(spec_ok_l, torch.bool)
         self.pools, self.dpools, props, choice = _spec_step(
             self.params, self.draft_params, self.pools, self.dpools,
             self._upload(self._last_tokens, torch.int32), seq_lens, active, spec_ok,
             self._block_tables(), self.loras, adapters,
-            cfg=self.cfg, dcfg=self.draft_cfg, pcfg=self.pcfg, k=k, lora_scale=self.lora_scale)
+            cfg=self.cfg, dcfg=self.draft_cfg, pcfg=self.pcfg, k=k, lora_scale=self.lora_scale,
+            temps=temps, rids=rids, emitted=emitted if temps is not None else None)
         self.phase_seconds["decode_device"] += time.perf_counter() - t0
         self.phase_counts["spec_ticks"] += 1
-        reqs = [s.request if s is not None else None for s in self.slots]
-        c_out, ncommit, _, stats = _spec_accept(
-            props, choice, spec_ok, active,
-            self._upload([len(r.output) if r else 0 for r in reqs], torch.int32),
-            self._upload([r.max_new_tokens if r else 0 for r in reqs], torch.int32),
-            self._upload([r.eos_token if r and r.eos_token is not None else -1 for r in reqs],
-                         torch.int32), k=k)
+        c_out, ncommit, _, stats = _spec_accept(props, choice, spec_ok, active, emitted, budget,
+                                                eos, k=k)
         t0 = time.perf_counter()
         both = torch.cat([c_out, ncommit[:, None], stats[None].expand(len(reqs), 2)],
                          dim=1).tolist()
@@ -1436,17 +1834,20 @@ class ServingEngine:
 
     def _plain_with_draft_sync(self) -> list[int]:
         """A plain tick on a draft engine: first the draft appends this
-        tick's input token (the ``i == 0`` write of the speculative tick),
-        or a slot that speculates on a later tick attends a hole at this
-        position and the accept rate collapses."""
-        active_l = [s is not None and s.ingest_pos is None for s in self.slots]
-        if any(active_l):
+        tick's input token (the ``i == 0`` write of the speculative tick)
+        for every greedy slot, or a slot that speculates on a later tick
+        attends a hole at this position and the accept rate collapses. A
+        sampled slot never speculates, so an all-sampled batch skips the
+        draft."""
+        greedy_l = [s is not None and s.ingest_pos is None and s.request.temperature == 0
+                    for s in self.slots]
+        if any(greedy_l):
             t0 = time.perf_counter()
             seq_lens = self._upload(
-                [s.seq_len if ok else 1 for s, ok in zip(self.slots, active_l)], torch.int32)
+                [s.seq_len if ok else 1 for s, ok in zip(self.slots, greedy_l)], torch.int32)
             self.dpools = _draft_append(self.draft_params, self.dpools,
                                         self._upload(self._last_tokens, torch.int32), seq_lens,
-                                        self._upload(active_l, torch.bool), self._block_tables(),
+                                        self._upload(greedy_l, torch.bool), self._block_tables(),
                                         dcfg=self.draft_cfg, pcfg=self.pcfg)
             self.phase_seconds["draft"] += time.perf_counter() - t0
             self.phase_counts["draft_appends"] += 1
@@ -1503,13 +1904,18 @@ def _decode_step(params: dict[str, Any], pools: dict[str, torch.Tensor],
                  tokens: torch.Tensor, seq_lens: torch.Tensor, active: torch.Tensor,
                  block_tables: torch.Tensor, loras: Optional[Any] = None,
                  adapter_idx: Optional[torch.Tensor] = None, *, cfg: LlamaConfig,
-                 pcfg: PagedConfig, lora_scale: float = 1.0):
-    """One fused greedy token step for every slot: the incoming token sits
-    at position ``seq_len - 1``; its K/V is written into the pools before
-    the layer's attention reads them. With a stacked ``loras`` tree each
-    slot adds its own adapter's deltas (``adapter_idx`` [S] on the device,
-    :func:`models.lora.lora_delta_slots`). Returns ``(pools, next tokens
-    [S] int32)``, all on the device."""
+                 pcfg: PagedConfig, lora_scale: float = 1.0,
+                 temps: Optional[torch.Tensor] = None, rids: Optional[torch.Tensor] = None,
+                 emitted: Optional[torch.Tensor] = None):
+    """One fused token step for every slot: the incoming token sits at
+    position ``seq_len - 1``; its K/V is written into the pools before the
+    layer's attention reads them. With a stacked ``loras`` tree each slot
+    adds its own adapter's deltas (``adapter_idx`` [S] on the device,
+    :func:`models.lora.lora_delta_slots`). The next token is
+    :func:`~bobrapet_tpu_torch.ops.pick_tokens` of the logits: greedy
+    without ``temps``, else keyed by ``rids`` and the token indices
+    ``emitted`` (each [S] on the device). Returns ``(pools, next tokens [S]
+    int32)``, all on the device."""
     S = tokens.shape[0]
     freqs = _freqs_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, cfg.rope_scaling,
                          tokens.device)
@@ -1534,20 +1940,21 @@ def _decode_step(params: dict[str, Any], pools: dict[str, torch.Tensor],
         x, delta = _mlp_block(layer, x, delta, cfg, *lora)
 
     logits = _logits(params, x, delta, cfg)[:, 0]  # [S, V]
-    return pools, logits.argmax(dim=-1).to(torch.int32)
+    return pools, pick_tokens(logits, temps, rids, emitted)
 
 
 @torch.no_grad()
 def _horizon_plain(params: dict[str, Any], pools: dict[str, torch.Tensor], lanes: torch.Tensor,
                    out: torch.Tensor, loras: Optional[Any] = None, *, cfg: LlamaConfig,
                    pcfg: PagedConfig, H: int, lora_scale: float = 1.0) -> torch.Tensor:
-    """H fused greedy steps over the device lane state, no host read: each
-    step is :func:`_decode_step` over every slot, then JAX's liveness
-    (``bobrapet_tpu/serving/engine.py:_horizon_plain``): a lane that hits
-    its eos or its budget is deactivated, and from then on writes only the
-    scratch block and emits -1. With ``loras``, each lane's adapter is read
-    from its ``LANE_ADAPTER`` column on the device, so a new adapter mix
-    replays the same graph.
+    """H fused steps over the device lane state, no host read: each step is
+    :func:`_decode_step` over every slot (each lane's token picked at its
+    ``LANE_TEMP``, keyed by its ``LANE_RID`` and emitted count), then JAX's
+    liveness (``bobrapet_tpu/serving/engine.py:_horizon_plain``): a lane that
+    hits its eos or its budget is deactivated, and from then on writes only
+    the scratch block and emits -1. With ``loras``, each lane's adapter is
+    read from its ``LANE_ADAPTER`` column on the device. Every lane value is
+    read from the device, so a new lane mix replays the same graph.
 
     ``lanes`` [S, LANE_TABLE + MB] int32 (columns ``LANE_*``); writes into
     ``out`` [H + 4, S] int32 the tokens of every step, then last, seq, act
@@ -1556,13 +1963,16 @@ def _horizon_plain(params: dict[str, Any], pools: dict[str, torch.Tensor], lanes
     last = lanes[:, LANE_LAST]
     seq = lanes[:, LANE_SEQ].contiguous()
     act = lanes[:, LANE_ACT] != 0
-    emitted = lanes[:, LANE_EMITTED]
+    emitted = lanes[:, LANE_EMITTED].contiguous()
     budget, eos = lanes[:, LANE_BUDGET], lanes[:, LANE_EOS]
     adapters = lanes[:, LANE_ADAPTER] if loras is not None else None
+    temps = lanes[:, LANE_TEMP].contiguous().view(torch.float32)
+    rids = lanes[:, LANE_RID].contiguous()
     tables = lanes[:, LANE_TABLE:].contiguous()
     for t in range(H):
         pools, tok = _decode_step(params, pools, last, seq, act, tables, loras, adapters,
-                                  cfg=cfg, pcfg=pcfg, lora_scale=lora_scale)
+                                  cfg=cfg, pcfg=pcfg, lora_scale=lora_scale, temps=temps,
+                                  rids=rids, emitted=emitted)
         live = act.to(torch.int32)
         emitted = emitted + live
         seq = seq + live
@@ -1584,8 +1994,8 @@ def _spec_draft_lanes(draft_params: dict[str, Any], dpools: dict[str, torch.Tens
     state (:func:`.spec_decode._spec_draft`): writes the proposals into
     ``props[:, :k]`` and whether each lane speculates into ``props[:, k]``.
     Returns ``props``."""
-    # a lane speculates when it is live, its coverage was funded and at
-    # least 2 tokens of budget remain
+    # a lane speculates when it is live, its coverage was funded (greedy
+    # lanes only) and at least 2 tokens of budget remain
     act = lanes[:, LANE_ACT] != 0
     spec_ok = act & (cov != 0) & (lanes[:, LANE_BUDGET] - lanes[:, LANE_EMITTED] >= 2)
     dpools, proposals = _spec_draft(
@@ -1603,7 +2013,8 @@ def _spec_verify_lanes(params: dict[str, Any], pools: dict[str, torch.Tensor],
                        cfg: LlamaConfig, pcfg: PagedConfig, k: int,
                        lora_scale: float = 1.0) -> torch.Tensor:
     """The verify half of a speculative horizon's round
-    (:func:`.spec_decode._spec_verify`) over the device lane state: advances
+    (:func:`.spec_decode._spec_verify`) over the device lane state, a
+    sampled lane's one token drawn at its ``LANE_TEMP``: advances
     last, seq, act and emitted in ``lanes``, and writes at round
     ``round_idx`` (on the device, then advanced) of ``out`` [R + 1, S + 1,
     W] the committed tokens (``[:S, :k + 1]``, -1 past the count), the
@@ -1614,9 +2025,11 @@ def _spec_verify_lanes(params: dict[str, Any], pools: dict[str, torch.Tensor],
     adapters = lanes[:, LANE_ADAPTER] if loras is not None else None
     (_, last, seq, act, emitted, c_out, ncommit, stats) = _spec_verify(
         params, pools, props[:, :k], props[:, k] != 0, lanes[:, LANE_LAST], lanes[:, LANE_SEQ],
-        lanes[:, LANE_ACT] != 0, lanes[:, LANE_EMITTED], lanes[:, LANE_BUDGET],
+        lanes[:, LANE_ACT] != 0, lanes[:, LANE_EMITTED].contiguous(), lanes[:, LANE_BUDGET],
         lanes[:, LANE_EOS], adapters, lanes[:, LANE_TABLE:].contiguous(), loras, cfg=cfg,
-        pcfg=pcfg, k=k, lora_scale=lora_scale)
+        pcfg=pcfg, k=k, lora_scale=lora_scale,
+        temps=lanes[:, LANE_TEMP].contiguous().view(torch.float32),
+        rids=lanes[:, LANE_RID].contiguous())
     block = torch.zeros(out.shape[1:], dtype=torch.int32, device=out.device)
     block[:S, :k + 1] = c_out
     block[:S, k + 1] = ncommit

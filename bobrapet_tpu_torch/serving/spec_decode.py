@@ -27,11 +27,16 @@ functions, which run over gathered views, are :func:`_spec_draft` and
 :func:`_spec_verify` here, over the pools and the engine's device lane
 state.
 
+A lane with ``temperature > 0`` never speculates: it commits one token a
+round, drawn from the verify's position-0 logits (the plain step's) with
+the same (rid, token index) key as the plain step, so a sampled stream is
+the same with speculation on or off. Every pick (the draft's proposals,
+the verify's choices and draws) is :func:`~bobrapet_tpu_torch.ops.pick_tokens`.
+
 On a card a T = 1 step's attention is the paged kernel and a T > 1 step's
 (a verify, a draft catch-up) the T-query entry of the same source
 (:func:`~bobrapet_tpu_torch.ops.paged_attention_multi`); an int8 draft's
-products are the int8 kernel. Greedy only: the port serves no sampled
-request.
+products are the int8 kernel; every pick is the pick kernel.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch
 
 from ..models.llama import LlamaConfig, _freqs_table, _logits, _lora_mm, _mlp_block, _qkv
 from ..ops.paged_attention import paged_attention, paged_attention_multi
+from ..ops.pick_tokens import pick_tokens
 from .paged_cache import SCRATCH_BLOCK, PagedConfig
 
 
@@ -99,27 +105,27 @@ def _model_append(params: dict[str, Any], pools: dict[str, torch.Tensor], tokens
     return pools, _logits(params, x, delta, cfg)
 
 
-def _argmax(logits: torch.Tensor) -> torch.Tensor:
-    return logits.argmax(dim=-1).to(torch.int32)
-
-
 @torch.no_grad()
 def _spec_step(params: dict[str, Any], draft_params: dict[str, Any],
                pools: dict[str, torch.Tensor], dpools: dict[str, torch.Tensor],
                last_tokens: torch.Tensor, seq_lens: torch.Tensor, active: torch.Tensor,
                spec_ok: torch.Tensor, block_tables: torch.Tensor, loras: Optional[Any] = None,
                adapter_idx: Optional[torch.Tensor] = None, *, cfg: LlamaConfig,
-               dcfg: LlamaConfig, pcfg: PagedConfig, k: int, lora_scale: float = 1.0):
+               dcfg: LlamaConfig, pcfg: PagedConfig, k: int, lora_scale: float = 1.0,
+               temps: Optional[torch.Tensor] = None, rids: Optional[torch.Tensor] = None,
+               emitted: Optional[torch.Tensor] = None):
     """One fused speculative tick (see the module docstring): the draft's
     :func:`_spec_draft`, then one ``k + 1``-token verify. Returns ``(pools,
     dpools, proposals [S, k], choice [S, k + 1])``: ``choice[:, t]`` is the
     target's argmax after token t of ``[last, p_1 .. p_k]``, so ``choice[:,
-    0]`` is the plain decode step's token."""
+    0]`` is the plain decode step's token (a draw at ``temps > 0``, keyed by
+    ``rids`` and the token indices ``emitted``)."""
     dpools, proposals = _spec_draft(draft_params, dpools, last_tokens, seq_lens, active,
                                     spec_ok, block_tables, dcfg=dcfg, pcfg=pcfg, k=k)
     pools, choice = _verify_choice(params, pools, proposals, spec_ok, last_tokens, seq_lens,
                                    active, adapter_idx, block_tables, loras, cfg=cfg, pcfg=pcfg,
-                                   k=k, lora_scale=lora_scale)
+                                   k=k, lora_scale=lora_scale, temps=temps, rids=rids,
+                                   emitted=emitted)
     return pools, dpools, proposals, choice
 
 
@@ -162,32 +168,45 @@ def _spec_draft(draft_params: dict[str, Any], dpools: dict[str, torch.Tensor],
     ``make_spec_horizon_fns`` ``_draft``): ``k + 1`` chained single-token
     draft steps from ``last`` at ``seq - 1``; step 0 writes for every live
     lane, later steps only where the lane speculates. Returns ``(dpools,
-    proposals [S, k])``."""
+    proposals [S, k])``. The last step only writes ``p_k``'s K/V: its
+    token is not picked."""
     tok, pos, props = last, seq - 1, []
     for i in range(k + 1):
         wok = (act & (spec_ok | (i == 0)))[:, None]
         dpools, lg = _model_append(draft_params, dpools, tok[:, None], pos, wok, tables,
                                    cfg=dcfg, pcfg=pcfg, T=1)
-        tok = _argmax(lg[:, 0])
-        props.append(tok)
+        if i < k:
+            tok = pick_tokens(lg[:, 0])
+            props.append(tok)
         pos = pos + 1
-    return dpools, torch.stack(props[:k], dim=1)
+    return dpools, torch.stack(props, dim=1)
 
 
 def _verify_choice(params: dict[str, Any], pools: dict[str, torch.Tensor], props: torch.Tensor,
                    spec_ok: torch.Tensor, last: torch.Tensor, seq: torch.Tensor,
                    act: torch.Tensor, adapters: Optional[torch.Tensor], tables: torch.Tensor,
                    loras: Optional[Any] = None, *, cfg: LlamaConfig, pcfg: PagedConfig, k: int,
-                   lora_scale: float = 1.0) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+                   lora_scale: float = 1.0, temps: Optional[torch.Tensor] = None,
+                   rids: Optional[torch.Tensor] = None, emitted: Optional[torch.Tensor] = None
+                   ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """The target's ``k + 1``-token step of ``[last, p_1 .. p_k]`` (row 0
-    writes for every live lane, later rows only where it speculates).
-    Returns ``(pools, choice [S, k + 1])``."""
+    writes for every live lane, later rows only where it speculates), and
+    one pick over its ``S x (k + 1)`` rows: the argmax, but at position 0 of
+    a lane with ``temps > 0`` a draw keyed by its rid and token index
+    ``emitted``. Returns ``(pools, choice [S, k + 1])``."""
+    S = last.shape[0]
     ar = torch.arange(k + 1, device=last.device)[None, :]
     verify_tokens = torch.cat([last[:, None], props], dim=1)
     wok = act[:, None] & (spec_ok[:, None] | (ar == 0))
     pools, logits = _model_append(params, pools, verify_tokens, seq - 1, wok, tables, loras,
                                   adapters, cfg=cfg, pcfg=pcfg, T=k + 1, lora_scale=lora_scale)
-    return pools, _argmax(logits)
+    rows = logits.reshape(S * (k + 1), -1)
+    if temps is None:
+        return pools, pick_tokens(rows).reshape(S, k + 1)
+    per_row = (torch.where(ar == 0, temps[:, None], 0.0).reshape(-1),
+               rids[:, None].expand(S, k + 1).reshape(-1),
+               emitted[:, None].expand(S, k + 1).reshape(-1))
+    return pools, pick_tokens(rows, *per_row).reshape(S, k + 1)
 
 
 def _spec_accept(props: torch.Tensor, choice: torch.Tensor, spec_ok: torch.Tensor,
@@ -195,7 +214,8 @@ def _spec_accept(props: torch.Tensor, choice: torch.Tensor, spec_ok: torch.Tenso
                  eos: torch.Tensor, *, k: int):
     """The accept of a verify, on the device: the longest prefix of
     proposals equal to the target's argmax plus its correction (a lane that
-    does not speculate takes ``choice[:, 0]``, the plain step's token), cut
+    does not speculate takes ``choice[:, 0]``, the plain step's token or
+    draw), cut
     by eos and the budget (token j is emitted when j < the raw commit count
     and no earlier token stopped the request; the stopping token is
     emitted). Returns ``(c_out [S, k + 1] (-1 past the commit count),
@@ -229,14 +249,16 @@ def _spec_verify(params: dict[str, Any], pools: dict[str, torch.Tensor], props: 
                  emitted: torch.Tensor, budget: torch.Tensor, eos: torch.Tensor,
                  adapters: Optional[torch.Tensor], tables: torch.Tensor,
                  loras: Optional[Any] = None, *, cfg: LlamaConfig, pcfg: PagedConfig, k: int,
-                 lora_scale: float = 1.0):
+                 lora_scale: float = 1.0, temps: Optional[torch.Tensor] = None,
+                 rids: Optional[torch.Tensor] = None):
     """The verify half of one round (JAX's ``_verify``): one ``k + 1``-token
-    target step, then on the device :func:`_spec_accept` and the lane
-    advance. Returns ``(pools, last, seq, act, emitted, c_out [S, k + 1],
-    ncommit [S], stats [2])``."""
+    target step (a lane at ``temps > 0`` drawing its one token), then on the
+    device :func:`_spec_accept` and the lane advance. Returns ``(pools,
+    last, seq, act, emitted, c_out [S, k + 1], ncommit [S], stats [2])``."""
     pools, choice = _verify_choice(params, pools, props, spec_ok, last, seq, act, adapters,
                                    tables, loras, cfg=cfg, pcfg=pcfg, k=k,
-                                   lora_scale=lora_scale)
+                                   lora_scale=lora_scale, temps=temps, rids=rids,
+                                   emitted=emitted if temps is not None else None)
     c_out, ncommit, done, stats = _spec_accept(props, choice, spec_ok, act, emitted, budget,
                                                eos, k=k)
     last_tok = c_out.gather(1, (ncommit - 1).clamp(min=0).long()[:, None])[:, 0]

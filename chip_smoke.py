@@ -19,10 +19,13 @@ Phases, each fatal on failure (exit 1, and no result line):
    decode shapes (route D), a draft catch-up's 64 rows, a prefill bucket
    of 128 rows and the int8 greedy prefill's 1024 on the five Llama-3-8B
    shapes (route P), its T-query verify and draft catch-up over the paged
-   cache, and the standalone verify's 20 packed rows through the cached
-   entry) plus long-cache decodes (dense over 2048 rows, paged up to
-   1024), ragged, fp32 and narrow-head cases: max abs error
-   against a stated tolerance, and the times (CUDA events, median of 50
+   cache, the standalone verify's 20 packed rows through the cached
+   entry, and the token pick over Llama-3's 128,256 logits: an engine
+   step's 8 rows at temperatures 0, 0.7, 1.0, 1.3, the draft's all-greedy
+   rows, a verify's 40 and the 8 rows in bf16, greedy rows bit for bit and
+   sampled ones up to near-ties) plus long-cache decodes (dense over 2048
+   rows, paged up to 1024), ragged, fp32 and narrow-head cases: max abs
+   error against a stated tolerance, and the times (CUDA events, median of 50
    launches, L2 flushed before each) of the kernel, the plain version and
    one PyTorch library call for the same function (a yardstick only; the
    port never calls it), beside the least time the card could take (for
@@ -46,12 +49,17 @@ Phases, each fatal on failure (exit 1, and no result line):
 5. the serving path on the same weights: the continuous-batching engine
    (8 slots over a paged cache of 256 blocks of 16) streams 16 requests
    (prompts of 8-36 tokens, budgets of 32-64, 785 new tokens) with the
-   classic tick, dispatch-ahead off and on, and with the fused horizon of
-   8 steps as one CUDA graph, a warm drain each, then measured drains in
-   turns (off, on, H8, H8, on, off); every request gets exactly its
-   budget, every drain the same tokens, and the launch counts of all
-   three kernels are exact in each drain; then each engine's steady tick
-   under the profiler;
+   classic tick, dispatch-ahead off and on, with the fused horizon of 8
+   steps as one CUDA graph, and as ServingEngine(params, cfg, paging)
+   builds it (a horizon of 8 at dispatch depth 2), a warm drain each, then
+   measured drains in turns (off, on, H8, default, default, H8, on, off);
+   every request gets exactly its budget, every drain the same tokens, and
+   the launch counts of all four kernels are exact in each drain; then the
+   same traffic sampled (temperatures 0, 0.7, 1.0, 1.3 in turn) at (H,
+   depth) (1, 1), (8, 1), (8, 2), drained in turns: the same streams in
+   every mode; tok/s, TTFT and TPOT p50, host overlap and gap seconds,
+   peak memory and, from a profiled drain, the busy share of each mode;
+   then each greedy engine's steady tick under the profiler;
 6. a 2-layer model at the 8B widths, the same seeded weights on the card
    (kernels) and on the CPU (plain versions): bf16 prefill logits must
    agree, and so must its int8 tree's prefill logits (8 x 24 rows: every
@@ -86,9 +94,12 @@ Phases, each fatal on failure (exit 1, and no result line):
    speculative decoding: Llama-3-8B on the same weights, bench.py's
    serving-child traffic (16 requests of 32-128 tokens, 32 new each, 8
    slots over 256 blocks of 16, 16 a sequence, a horizon of 8): the
-   draft-less engine and the engine with that int8 tree as its draft (spec_k 4, the payoff guard off, so the speculative horizon
-   is what runs) drained in turns (plain, spec, spec, plain), then an
-   engine with the guard warmed until it decides; tok/s, accept rate,
+   draft-less engine and the engine with that int8 tree as its draft
+   (spec_k 4, the payoff guard off, so the speculative horizon is what
+   runs) at dispatch depth 1 and 2, drained in turns (plain, spec,
+   spec_d2, spec_d2, spec, plain), then an engine with the guard warmed
+   until it decides; depth 2's tokens must be depth 1's up to near-ties
+   (held as below, either token the lower); tok/s, accept rate,
    phase seconds, TTFT and TPOT, peak memory, the share of positions where
    the speculative tokens equal the plain ones, and exact launch counts
    (every verify through the T-query paged kernel, every int8 product
@@ -110,6 +121,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import re
 import subprocess
@@ -127,9 +139,16 @@ BATCH, PROMPT, NEW_TOKENS = 8, 128, 64
 GREEDY_RUNS = (False, True, True, False)
 DECODE_KV = 160  # a mid-request decode step: the cache holds 129..192 rows
 CACHE_ROWS = PROMPT + NEW_TOKENS  # the greedy cache's capacity
-# the engine's modes, measured in turns: (pipeline_decode, decode_horizon)
-SERVE_MODES = {"off": (False, 1), "on": (True, 1), "h8": (False, 8)}
-SERVE_ORDER = ("off", "on", "h8", "h8", "on", "off")
+# the engine's modes, measured in turns: (pipeline_decode, decode_horizon) at
+# dispatch depth 1, or None: the constructor's own defaults (a horizon of 8,
+# depth 2, dispatch-ahead on)
+SERVE_MODES = {"off": (False, 1), "on": (True, 1), "h8": (False, 8), "default": None}
+SERVE_ORDER = ("off", "on", "h8", "default", "default", "h8", "on", "off")
+# the sampled drains of the same traffic: (decode_horizon, dispatch_depth),
+# request i at SERVE_TEMPS[i % 4]
+SAMPLED_MODES = {"s_h1": (1, 1), "s_h8": (8, 1), "s_h8_d2": (8, 2)}
+SAMPLED_ORDER = ("s_h1", "s_h8", "s_h8_d2", "s_h8_d2", "s_h8", "s_h1")
+SERVE_TEMPS = (0.0, 0.7, 1.0, 1.3)
 # the fp32 engine cross-check's budget per horizon (capacity 64, prompts
 # up to 30): the classic tick, and three horizons of 8
 CROSS_BUDGET = {1: 10, 8: 24}
@@ -178,7 +197,8 @@ CROSS_TAILS = ((5, 25, 40, 9), (30, 2))
 SPEC_PAGING = dict(max_slots=8, block_size=16, num_blocks=256, max_blocks_per_seq=16,
                    prefix_caching=False)
 SPEC_REQUESTS, SPEC_NEW, SPEC_K, SPEC_HORIZON = 16, 32, 4, 8
-SPEC_ORDER = ("plain", "spec", "spec", "plain")
+# the draft engine at dispatch depth 1 (spec) and 2 (spec_d2), in turns
+SPEC_ORDER = ("plain", "spec", "spec_d2", "spec_d2", "spec", "plain")
 # the guarded engine's warm drains until the guard decides (bench.py's 4)
 GUARD_WARM_DRAINS = 4
 # the standalone speculative decode (bench.py:2509-2531)
@@ -215,6 +235,22 @@ QUANT_PER_LAYER = {"quant wq/wo decode": 2, "quant wk/wv decode": 2,
 MULTI_LENS = (5, 37, 64, 69, 100, 129, 160, 192)
 # the standalone verify: 5 queries at the end of a 133-row cache
 STANDALONE_CAP = STANDALONE_PROMPT + STANDALONE_NEW + SPEC_K + 1
+# phase 3's token picks over Llama-3's vocabulary: an engine step's 8 rows
+# (temperatures 0, 0.7, 1.0, 1.3 twice over), the draft's all-greedy rows,
+# and a verify's 8 x (k + 1) rows (a lane's temperature at its position 0)
+VOCAB = 128256
+PICK_ROW_TEMPS = SERVE_TEMPS * 2
+PICK_VERIFY_TEMPS = tuple(t if j == 0 else 0.0 for t in PICK_ROW_TEMPS for j in range(SPEC_K + 1))
+# (name, rows, temperatures (None: all greedy), logits type)
+PICK_CASES = (("pick decode", BATCH, PICK_ROW_TEMPS, "float32"),
+              ("pick decode greedy", BATCH, None, "float32"),
+              ("pick verify", len(PICK_VERIFY_TEMPS), PICK_VERIFY_TEMPS, "float32"),
+              ("pick decode bf16", BATCH, PICK_ROW_TEMPS, "bfloat16"))
+# a sampled row may pick another token than the plain version where the
+# plain version's top two scores lie within this share of max(1, |top|):
+# the noise goes through logf / log1pf on the card and torch's log in the
+# plain version, an ulp apart at most
+PICK_NEAR_TIE = 1e-5
 
 
 def serve_prompt_len(i: int) -> int:
@@ -292,6 +328,11 @@ def demangle(names: list[str]) -> list[str]:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def phase_mark(t_start: float, phase: str) -> None:
+    """The run's seconds so far, as phase ``phase`` starts."""
+    print(f"phase {phase} starts at {time.perf_counter() - t_start:.1f} s", flush=True)
 
 
 def card_line() -> str:
@@ -635,6 +676,72 @@ def quant_case(torch, ops, quant, flush, name, m, k, n, dtype, gen, dev):
     }
 
 
+def pick_bytes(rows: int, v: int, es: int, keyed: bool) -> int:
+    """The logits read once, the temperatures, rids and token indices read
+    once (when keyed), the tokens written once."""
+    return rows * v * es + (12 * rows if keyed else 0) + 4 * rows
+
+
+def pick_flops(v: int, temps) -> int:
+    """A compare an element, and for an element of a sampled row a division,
+    an add and two logs more (the noise's integer work is not counted)."""
+    return len(temps) * v + sum(t > 0 for t in temps) * v * 4
+
+
+def pick_case(torch, ops, flush, name, rows, v, temps, dtype, gen, dev):
+    """One pick over ``rows`` random rows of ``v`` logits (``temps`` None:
+    the all-greedy form the draft's proposals take): greedy rows must equal
+    the plain version bit for bit; a sampled row may differ only where the
+    plain version's top two scores lie within PICK_NEAR_TIE of max(1,
+    |top|). max_abs_err: the largest shortfall of the kernel's token's
+    plain score under the plain version's best. The yardstick is
+    torch.argmax over the same rows."""
+    logits = (torch.randn((rows, v), generator=gen, device=dev) * 3).to(dtype)
+    keyed = ()
+    if temps is not None:
+        keyed = (torch.tensor(temps, dtype=torch.float32, device=dev),
+                 torch.arange(rows, dtype=torch.int32, device=dev) * 7919 + 11,
+                 torch.arange(rows, dtype=torch.int32, device=dev) + 5)
+    got = ops.pick_tokens_cuda(logits, *keyed)
+    want = ops.pick_tokens_reference(logits, *keyed)
+    torch.cuda.synchronize()
+    scores = logits.float()
+    sampled = [i for i, t in enumerate(temps or ()) if t > 0]
+    if sampled:
+        # the module (the package exports a function of its name)
+        noise = importlib.import_module("bobrapet_tpu_torch.ops.pick_tokens").gumbel_noise
+        rows_s = torch.tensor(sampled, device=dev)
+        scores = scores.clone()
+        scores[rows_s] = (scores[rows_s] / keyed[0][rows_s][:, None]
+                          + noise(keyed[1][rows_s], keyed[2][rows_s], v))
+    top = scores.topk(2, dim=-1).values
+    shortfall = top[:, 0] - scores.gather(1, got.long()[:, None])[:, 0]
+    allowed = PICK_NEAR_TIE * top[:, 0].abs().clamp(min=1.0)
+    near = (top[:, 0] - top[:, 1]) <= allowed
+    for i in range(rows):
+        same = bool(got[i] == want[i])
+        if i not in sampled and not same:
+            fail(f"{name}: greedy row {i} picked {int(got[i])}, the plain version {int(want[i])}")
+        if not same and not (bool(near[i]) and float(shortfall[i]) <= float(allowed[i])):
+            fail(f"{name}: sampled row {i} picked {int(got[i])}, the plain version "
+                 f"{int(want[i])}, and its top two are no near-tie")
+    err = float(shortfall.max())
+    print(f"  {name}: rows agreeing {int((got == want).sum())}/{rows} (greedy rows bit for "
+          f"bit), max score shortfall {err:.3e}", flush=True)
+    dn = str(dtype).split(".")[-1]
+    b_ms, b_by = bound(pick_bytes(rows, v, logits.element_size(), bool(keyed)),
+                       pick_flops(v, temps or (0.0,) * rows), "float32")
+    return {
+        "case": name, "logits": [rows, v], "dtype": dn, "temperatures": temps,
+        "rows_agreeing": int((got == want).sum()), "max_abs_err": err,
+        "ms": time_ms(torch, lambda: ops.pick_tokens_cuda(logits, *keyed), flush),
+        "plain_ms": time_ms(torch, lambda: ops.pick_tokens_reference(logits, *keyed), flush),
+        "library_ms": time_ms(torch, lambda: torch.argmax(logits, -1), flush),
+        "library": "torch.argmax over the same rows (greedy only)",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
 def multi_pairs(lens, t: int) -> int:
     """Keys the queries of a T-query call see: query i of a lane sits at
     lens - T + i and sees every key up to it."""
@@ -849,7 +956,7 @@ def p50(values) -> float:
 def zero_counts(ops) -> None:
     for fn in (ops.rmsnorm_cuda, ops.add_rmsnorm_cuda, ops.flash_attention_cuda,
                ops.cached_attention_cuda, ops.paged_attention_cuda,
-               ops.paged_attention_multi_cuda, ops.quant_matmul_cuda):
+               ops.paged_attention_multi_cuda, ops.quant_matmul_cuda, ops.pick_tokens_cuda):
         fn.launches = 0
     for route in ops.quant_matmul_cuda.routes:
         ops.quant_matmul_cuda.routes[route] = 0
@@ -875,6 +982,25 @@ def read_all_counts(ops) -> dict:
     T-query paged entry and the int8 product."""
     return {**read_counts(ops), "paged_attention_multi": ops.paged_attention_multi_cuda.launches,
             "quant_matmul": ops.quant_matmul_cuda.launches}
+
+
+def pick_launches(pc: dict, k: int) -> int:
+    """The token picks of an engine's run, from its phase counts: one a
+    decode step (a classic tick, or each step of a plain horizon), one a
+    prefill's first token, and per speculative round or tick k for the
+    draft's proposals and one over the verify's rows."""
+    return pc["device_steps"] + pc["prefill_picks"] + (pc["spec_rounds"] + pc["spec_ticks"]) * (
+        k + 1)
+
+
+def with_picks(ops, eng, launches: dict, what: str) -> dict:
+    """``launches`` with the pick kernel's count of the run, which must be
+    :func:`pick_launches` of the engine's phase counts."""
+    got, want = ops.pick_tokens_cuda.launches, pick_launches(eng.phase_counts, eng.spec_k)
+    if got != want:
+        fail(f"{what}: the pick kernel ran {got} times, expected {want}: not every committed "
+             "token went through it")
+    return {**launches, "pick_tokens": got}
 
 
 def spec_engine_launches(pc: dict, k: int, n_layers: int, draft_layers: int,
@@ -938,16 +1064,20 @@ def spills_in(instances: list, mark: str) -> list:
             if mark in i["name"] and (i["spill_stores"] or i["spill_loads"])]
 
 
-def serve_drain(torch, ops, eng, prompts) -> dict:
-    """One measured drain of the config-6 traffic: the counts set to 0
-    just before, read just after; every request must end with exactly
-    its budget of in-range tokens."""
+def serve_drain(torch, ops, eng, prompts, temps=None) -> dict:
+    """One measured drain of the config-6 traffic (request i at
+    ``temps[i % len(temps)]``, greedy without): the counts set to 0 just
+    before, read just after; every request must end with exactly its budget
+    of in-range tokens."""
     budgets = [serve_budget(i) for i in range(SERVE_REQUESTS)]
+    temps = temps or (0.0,)
     eng.reset_phase_stats()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     zero_counts(ops)
     t0 = time.perf_counter()
-    rids = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
+    rids = [eng.submit(p, b, temperature=temps[i % len(temps)])
+            for i, (p, b) in enumerate(zip(prompts, budgets))]
     eng.run()
     torch.cuda.synchronize()
     drain_s = time.perf_counter() - t0
@@ -964,13 +1094,16 @@ def serve_drain(torch, ops, eng, prompts) -> dict:
                 "flash_attention": prefills * eng.cfg.n_layers, "cached_attention": 0,
                 "paged_attention": ticks * eng.cfg.n_layers}
     print(f"  serving (pipeline_decode={eng.pipeline_decode}, decode_horizon="
-          f"{eng.decode_horizon}) launches {launches}, expected {expected}", flush=True)
+          f"{eng.decode_horizon}, dispatch_depth={eng.dispatch_depth}, temperatures {temps}) "
+          f"launches {launches}, expected {expected}", flush=True)
     if launches != expected:
         fail("the serving path did not run every norm and attention through the kernels")
+    launches = with_picks(ops, eng, launches, "serving")
     tokens = sum(budgets)
     ph = eng.phase_seconds
     return {
         "pipeline_decode": eng.pipeline_decode, "decode_horizon": eng.decode_horizon,
+        "dispatch_depth": eng.dispatch_depth, "temperatures": list(temps),
         "requests": SERVE_REQUESTS, "new_tokens": tokens, "drain_s": drain_s,
         "tok_per_s": tokens / drain_s, "ticks": ticks, "prefills": prefills,
         "horizons": eng.phase_counts["horizons"],
@@ -978,10 +1111,31 @@ def serve_drain(torch, ops, eng, prompts) -> dict:
         "tick_enqueue_ms": ph["decode_device"] / ticks * 1e3,
         "prefill_ms": ph["prefill"] / prefills * 1e3,
         "host_sync_share": ph["host_sync"] / drain_s,
+        "host_overlap_s": ph["host_overlap"], "host_gap_s": ph["host_gap"],
         "ttft_ms_p50": p50(r.ttft_seconds for r in reqs) * 1e3,
         "tpot_ms_p50": p50(r.tpot_seconds for r in reqs) * 1e3,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "outputs": [r.output for r in reqs],
     }
+
+
+def drain_device_ms(torch, eng, prompts, temps=None) -> float:
+    """The card's kernel time over one more drain of the traffic, under the
+    profiler tracing the card alone (its host overhead stretches the drain,
+    not the kernels); a mode's busy share is this over its unprofiled
+    drain's seconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    temps = temps or (0.0,)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i, p in enumerate(prompts):
+            eng.submit(p, serve_budget(i), temperature=temps[i % len(temps)])
+        eng.run()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
 
 
 def tick_profile(torch, eng, prompts, steps: int = 8, profiled: int = 4,
@@ -1031,29 +1185,37 @@ def tick_profile(torch, eng, prompts, steps: int = 8, profiled: int = 4,
 
 
 def serving_phase(torch, ops, serving, params, cfg, seed: int, dev, card: str) -> dict:
-    """The continuous-batching engine at full width in its three modes
-    (the classic tick with dispatch-ahead off and on, and the fused
-    horizon of 8 steps replayed as one CUDA graph): one warm drain each,
+    """The continuous-batching engine at full width in its modes (the
+    classic tick with dispatch-ahead off and on, the fused horizon of 8
+    steps replayed as one CUDA graph, and the engine as its constructor
+    builds it: a horizon of 8 at dispatch depth 2): one warm drain each,
     then measured drains in turns (SERVE_ORDER) so that host-clock drift
-    between the modes cancels, then a profiled stretch of steady ticks."""
+    between the modes cancels, then a profiled stretch of steady ticks.
+    Then the same traffic sampled (SERVE_TEMPS) at (H, depth) (1, 1), (8, 1)
+    and (8, 2), in turns (SAMPLED_ORDER): the streams must be the same in
+    every mode, and each mode's busy share is the kernel time of one more,
+    profiled, drain over its measured drains' median seconds."""
     warm = serve_prompts(torch, cfg, seed + 10, dev)
     prompts = serve_prompts(torch, cfg, seed + 11, dev)
     torch.cuda.reset_peak_memory_stats()
-    engines = {}
-    for mode, (pipeline, horizon) in SERVE_MODES.items():
-        eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**SERVE_PAGING),
-                                    pipeline_decode=pipeline, decode_horizon=horizon,
-                                    dispatch_depth=1)
+
+    def build(args: dict):
+        eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**SERVE_PAGING), **args)
         for i, p in enumerate(warm):
             eng.submit(p, serve_budget(i))
         eng.run()
-        engines[mode] = eng
+        return eng
+
+    engines = {mode: build({} if spec is None else dict(
+        pipeline_decode=spec[0], decode_horizon=spec[1], dispatch_depth=1))
+        for mode, spec in SERVE_MODES.items()}
     drains = {mode: [] for mode in SERVE_MODES}
     for mode in SERVE_ORDER:
         drains[mode].append(serve_drain(torch, ops, engines[mode], prompts))
     outputs = [d.pop("outputs") for runs in drains.values() for d in runs]
     if any(o != outputs[0] for o in outputs):
         fail("serving: the engine's modes gave different tokens")
+    greedy = outputs[0]
     out = {"model": "llama3_8b", "dtype": "bfloat16", "paging": SERVE_PAGING,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card,
            "identical_tokens": True, "order": ", ".join(SERVE_ORDER)}
@@ -1062,10 +1224,60 @@ def serving_phase(torch, ops, serving, params, cfg, seed: int, dev, card: str) -
         h = eng.decode_horizon
         out[mode] = {
             "pipeline_decode": eng.pipeline_decode, "decode_horizon": h,
-            "drains": runs,
+            "dispatch_depth": eng.dispatch_depth, "drains": runs,
             "launches": {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]},
-            "profile": tick_profile(torch, eng, warm, *((8, 4, 3) if h == 1 else (2, 2, 1))),
         }
+        if mode in ("h8", "default"):
+            out[mode]["drain_device_ms"] = drain_device_ms(torch, eng, prompts) or None
+        out[mode]["profile"] = tick_profile(torch, eng, warm,
+                                            *((8, 4, 3) if h == 1 else (2, 2, 1)))
+    del engines
+
+    sampled = {mode: build(dict(decode_horizon=h, dispatch_depth=d))
+               for mode, (h, d) in SAMPLED_MODES.items()}
+    runs = {mode: [] for mode in SAMPLED_MODES}
+    for mode in SAMPLED_ORDER:
+        runs[mode].append(serve_drain(torch, ops, sampled[mode], prompts, SERVE_TEMPS))
+    # each engine serves its n-th drain under the same rids, so the n-th
+    # drains of all modes draw the same keys
+    for n in range(2):
+        streams = [runs[mode][n]["outputs"] for mode in SAMPLED_MODES]
+        if any(s != streams[0] for s in streams):
+            fail(f"serving: the sampled streams of drain {n + 1} differ between the modes")
+    first = runs["s_h1"][0]["outputs"]
+    drawn = sum(a != b for i, (a, b) in enumerate(zip(first, greedy))
+                if SERVE_TEMPS[i % len(SERVE_TEMPS)] > 0)
+    if drawn == 0:
+        fail("serving: no sampled request drew a token other than the greedy one")
+    out["sampled"] = {"temperatures": list(SERVE_TEMPS), "order": ", ".join(SAMPLED_ORDER),
+                      "identical_streams": True, "sampled_requests_unlike_greedy": drawn}
+    for mode, eng in sampled.items():
+        for d in runs[mode]:
+            d.pop("outputs")
+        out["sampled"][mode] = {
+            "decode_horizon": eng.decode_horizon, "dispatch_depth": eng.dispatch_depth,
+            "drains": runs[mode],
+            "launches": {k: sum(r["launches"][k] for r in runs[mode])
+                         for k in runs[mode][0]["launches"]},
+            "drain_device_ms": drain_device_ms(torch, eng, prompts, SERVE_TEMPS) or None}
+    del sampled
+
+    def line(rec: dict) -> dict:
+        """A mode's drains side by side; busy share: the profiled drain's
+        kernel time over the median measured drain (None: not measured)."""
+        ds = rec["drains"]
+        busy = rec.get("drain_device_ms")
+        return {"tok_per_s": [d["tok_per_s"] for d in ds],
+                "ttft_ms_p50": [d["ttft_ms_p50"] for d in ds],
+                "tpot_ms_p50": [d["tpot_ms_p50"] for d in ds],
+                "host_overlap_s": [d["host_overlap_s"] for d in ds],
+                "host_gap_s": [d["host_gap_s"] for d in ds],
+                "busy_share": busy / 1e3 / p50(d["drain_s"] for d in ds) if busy else None,
+                "peak_memory_gb": max(d["peak_memory_gb"] for d in ds)}
+
+    out["summary"] = {**{m: line(out[m]) for m in SERVE_MODES},
+                      **{m: line(out["sampled"][m]) for m in SAMPLED_MODES}}
+    print("  serving modes: " + json.dumps(out["summary"]), flush=True)
     return out
 
 
@@ -1301,6 +1513,7 @@ def spec_drain(torch, ops, eng, prompts, draft_int8: bool = True) -> dict:
           f"{eng.spec_guard}) launches {got}, expected {want}", flush=True)
     if got != want:
         fail("a phase-8 drain did not run every kernel of its path exactly")
+    got = with_picks(ops, eng, got, "a phase-8 drain")
     routes = read_routes(ops)
     if sum(routes.values()) != got["quant_matmul"] or routes["F"]:
         fail(f"phase 8: the int8 products' routes {routes} do not add up to their launches")
@@ -1564,10 +1777,11 @@ def spec_phase(torch, ops, serving, llama, quant, params, cfg, seed: int, dev, c
     torch.cuda.reset_peak_memory_stats()
     paging = serving.PagedConfig(**SPEC_PAGING)
     common = dict(decode_horizon=SPEC_HORIZON, dispatch_depth=1)
+    spec_kw = dict(draft_params=draft, draft_cfg=cfg, spec_k=SPEC_K, spec_guard=False)
     engines = {"plain": serving.ServingEngine(params, cfg, paging, **common),
-               "spec": serving.ServingEngine(params, cfg, paging, draft_params=draft,
-                                             draft_cfg=cfg, spec_k=SPEC_K, spec_guard=False,
-                                             **common)}
+               "spec": serving.ServingEngine(params, cfg, paging, **spec_kw, **common),
+               "spec_d2": serving.ServingEngine(params, cfg, paging, **spec_kw,
+                                                decode_horizon=SPEC_HORIZON, dispatch_depth=2)}
     for eng in engines.values():
         for p in warm:
             eng.submit(p, SPEC_NEW)
@@ -1583,11 +1797,18 @@ def spec_phase(torch, ops, serving, llama, quant, params, cfg, seed: int, dev, c
     # 64: the speculative horizon commits up to rounds * (k + 1) = 10 a lane)
     profiles = {name: tick_profile(torch, eng, warm, 2, 2, 1) for name, eng in engines.items()}
     out_p, out_s = drains["plain"][0]["outputs"], drains["spec"][0]["outputs"]
+    out_d2 = drains["spec_d2"][0]["outputs"]
     if any(a[0] != b[0] for a, b in zip(out_p, out_s)):
         fail("phase 8: a first token (the same prefill) differs with the draft")
     same = sum(x == y for a, b in zip(out_p, out_s) for x, y in zip(a, b))
     divergence = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
                   for a, b in zip(out_p, out_s)]
+    # the draft engine at depth 2 against depth 1: the same tokens, up to
+    # near-ties where the two verify in other alignments (a lane's rounds
+    # can start at other positions)
+    same_d2 = sum(x == y for a, b in zip(out_s, out_d2) for x, y in zip(a, b))
+    divergence_d2 = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                     for a, b in zip(out_s, out_d2)]
     for runs in drains.values():
         for d in runs:
             d.pop("outputs")
@@ -1601,6 +1822,21 @@ def spec_phase(torch, ops, serving, llama, quant, params, cfg, seed: int, dev, c
                                                                 out_s[i][j])})
     print("spec phase, first divergences: " + json.dumps(div_checks), flush=True)
     check_divergences(div_checks, "phase 8")
+    d2_checks = []
+    for i, j in enumerate(divergence_d2):
+        if j is not None:
+            run = paged_runner(torch, params, cfg, prompts[i], out_s[i][:j], dev)
+            d2_checks.append({"request": i, **divergence_check(run, j, SPEC_K, out_s[i][j],
+                                                               out_d2[i][j])})
+    print("spec phase, depth 2 against depth 1, first divergences: " + json.dumps(d2_checks),
+          flush=True)
+    for c in d2_checks:
+        # either token may be the one-token step's lower: both came from
+        # verify forms within the logit error of it
+        if abs(c["margin"]) > 2 * c["max_abs_logit_err"]:
+            fail(f"phase 8: at position {c['position']} of request {c['request']} depth 2's "
+                 f"token and depth 1's differ by {c['margin']} in the one-token step, beyond "
+                 f"twice the logit error {c['max_abs_logit_err']} of the verify forms")
 
     # the guarded engine, warmed until the guard decides (bench.py's loop)
     guard = serving.ServingEngine(params, cfg, paging, draft_params=draft, draft_cfg=cfg,
@@ -1630,6 +1866,8 @@ def spec_phase(torch, ops, serving, llama, quant, params, cfg, seed: int, dev, c
         "profiles": profiles,
         "spec_equals_plain_token_share": same / (SPEC_REQUESTS * SPEC_NEW),
         "first_divergence": divergence, "divergence_checks": div_checks,
+        "depth2_equals_depth1_token_share": same_d2 / (SPEC_REQUESTS * SPEC_NEW),
+        "depth2_first_divergence": divergence_d2, "depth2_divergence_checks": d2_checks,
         "guard": {"warm_drains": warm_drains, "decision": decision, "drain": guarded,
                   "equals_plain_token_share": guarded_same / (SPEC_REQUESTS * SPEC_NEW)},
         # what one round and one catch-up launch at these widths
@@ -1780,6 +2018,7 @@ def closed_drain(torch, ops, eng, workload, adapters=None, window: int = WINDOW)
     if launches != expected:
         fail(f"an engine drain did not run every norm and attention through the kernels: "
              f"{launches}, expected {expected}")
+    launches = with_picks(ops, eng, launches, "an engine drain")
     by_rid = {r.rid: r for r in eng.finished[base:]}
     reqs = [by_rid[rid] for rid in rids]
     for req, (_, new, _) in zip(reqs, workload):
@@ -1984,6 +2223,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     try:
         from bobrapet_tpu_torch import ops, serving
@@ -1994,6 +2234,7 @@ def main() -> None:
     except ImportError as e:
         fail(f"the port is not importable here ({e}): run from the root of the repo")
 
+    phase_mark(t_start, "2")
     # ---- 2. build
     t0 = time.perf_counter()
     kbuild.library()
@@ -2016,7 +2257,10 @@ def main() -> None:
         fail(f"an RMSNorm instance spills registers: {spills_in(instances, 'rmsnorm_kernel')}")
     if spills_in(instances, "qmm"):
         fail(f"an int8 product instance spills registers: {spills_in(instances, 'qmm')}")
+    if spills_in(instances, "pick_tokens_kernel"):
+        fail(f"a token pick instance spills registers: {spills_in(instances, 'pick_tokens')}")
 
+    phase_mark(t_start, "3")
     # ---- 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
@@ -2091,7 +2335,10 @@ def main() -> None:
                    for name, m, k, n in QUANT_CASES + QUANT_CATCHUP_CASES + QUANT_PREFILL_CASES]
     quant_cases.append(quant_case(torch, ops, quant, flush, "quant wq/wo decode fp32", 8, 4096,
                                   4096, f32, gen, dev))
-    for c in rms_cases + flash_cases + cached_cases + paged_cases + multi_cases + quant_cases:
+    pick_cases = [pick_case(torch, ops, flush, name, rows, VOCAB, temps, getattr(torch, dt),
+                            gen, dev) for name, rows, temps, dt in PICK_CASES]
+    for c in (rms_cases + flash_cases + cached_cases + paged_cases + multi_cases + quant_cases
+              + pick_cases):
         route = f" (route {c['route']})" if c.get("route") else ""
         print(f"  {c['case']}{route}: kernel {c['ms']:.5f} ms, plain {c['plain_ms']:.5f} ms, "
               f"library {c['library_ms']:.5f} ms, bound {c['bound_ms']:.6f} ms "
@@ -2110,6 +2357,7 @@ def main() -> None:
     host_costs = wrapper_host_costs(torch, ops, gen, dev)
     del flush
 
+    phase_mark(t_start, "4")
     # ---- 4. the greedy path: Llama-3-8B, one request four times, eager and graphed in turns
     cfg = llama.llama3_8b()
     t0 = time.perf_counter()
@@ -2162,13 +2410,17 @@ def main() -> None:
     }
     print("greedy path: " + json.dumps(main), flush=True)
 
+    phase_mark(t_start, "5")
     # ---- 5. the serving path on the same weights
     served = serving_phase(torch, ops, serving, params, cfg, args.seed, dev, card)
     print("serving path: " + json.dumps(served), flush=True)
     del params
     launches_by_path = {"greedy": launches,
-                        **{f"serving_{mode}": served[mode]["launches"] for mode in SERVE_MODES}}
+                        **{f"serving_{mode}": served[mode]["launches"] for mode in SERVE_MODES},
+                        **{f"serving_{mode}": served["sampled"][mode]["launches"]
+                           for mode in SAMPLED_MODES}}
 
+    phase_mark(t_start, "6")
     # ---- 6. whole path and engine, card vs CPU
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     params2 = llama.init_params(cfg2, torch.Generator(device=dev).manual_seed(args.seed + 2), dev)
@@ -2206,6 +2458,7 @@ def main() -> None:
     prefix_cross_check(torch, ops, llama, serving, lora_mod, cfg, args.seed, dev)
     spec_cross = spec_cross_check(torch, ops, llama, quant, serving, cfg, args.seed, dev)
 
+    phase_mark(t_start, "7")
     # ---- 7. prefix caching, chunked prefill and multi-LoRA at full width
     # (the weights of phases 4 and 5 again, from the same seed)
     params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
@@ -2217,6 +2470,7 @@ def main() -> None:
     for name, run in prefixed["lora"]["drains"].items():
         launches_by_path[f"multi_lora_{name}"] = run["launches"]
 
+    phase_mark(t_start, "8")
     # ---- 8. the int8 tree at full width (the same weights), built once: the
     # int8 greedy leg, then speculative decoding with it as the draft
     t0 = time.perf_counter()
@@ -2245,6 +2499,7 @@ def main() -> None:
     launches_by_path["spec_guarded"] = spec["guard"]["drain"]["launches"]
     launches_by_path["spec_standalone"] = spec["standalone"]["launches"]
 
+    phase_mark(t_start, "9")
     # ---- 9. result
     # each kernel's own launches: the flash counter also counts the
     # device-length entry's
@@ -2294,6 +2549,9 @@ def main() -> None:
         route_entry("D", "quant wq/wo decode"),
         route_entry("P", "quant w_gate/w_up prefill 1024"),
         route_entry("F", "quant wq/wo decode fp32"),
+        {**entry("pick_tokens", "bobrapet_tpu_torch/csrc/pick_tokens.cu",
+                 "bobrapet_tpu/serving/engine.py:2916", pick_cases, "pick decode"),
+         "max_abs_err": max(c["max_abs_err"] for c in pick_cases)},
     ], "build_s": build_s, "host_us_per_call": host_costs}
     print(json.dumps(kernels), flush=True)
     print(f"card: {card}", flush=True)

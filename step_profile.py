@@ -2,7 +2,8 @@
 """Per-step kernel profile of the port's greedy decode step and serving
 tick on one CUDA card, for any checkout of the port.
 
-    python3 step_profile.py [--tree DIR] [--seed N] [--graph | --wrappers | --quant [--no-pdl]]
+    python3 step_profile.py [--tree DIR] [--seed N] [--graph | --wrappers | --pick |
+                                                      --quant [--no-pdl]]
 
 Imports ``bobrapet_tpu_torch`` from DIR (default: this script's own
 checkout) and builds its kernels, makes Llama-3-8B at full width and
@@ -24,8 +25,10 @@ weight, bound; the route where the tree's kernel has routes), then
 profiles the int8 greedy decode step (``quantize_params`` of the 8B
 weights through ``request_split``; --graph for the replayed graph), with
 --no-pdl launching the products without programmatic dependent launch
-where the tree's kernel has it. Prints one JSON line. Imports nothing of
-JAX.
+where the tree's kernel has it. With --pick it times instead the token
+pick at every pick case of chip_smoke.py's phase 3 (``pick_case``:
+kernel, plain version, torch.argmax, bound), and makes no model. Prints
+one JSON line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ def main() -> None:
                     help="time the kernel wrappers' host cost per call instead")
     ap.add_argument("--quant", action="store_true",
                     help="time the int8 product and profile the int8 greedy step instead")
+    ap.add_argument("--pick", action="store_true",
+                    help="time the token pick at chip_smoke.py's pick cases instead")
     ap.add_argument("--no-pdl", action="store_true",
                     help="with --quant: launch the int8 products without programmatic "
                          "dependent launch")
@@ -82,6 +87,17 @@ def main() -> None:
             args.seed), dev)
         print(json.dumps({"tree": str(args.tree), "card": smoke.card_line(),
                           "host_us_per_call": costs}), flush=True)
+        return
+    if args.pick:
+        from bobrapet_tpu_torch import ops
+
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        cases = [smoke.pick_case(torch, ops, flush, name, rows, smoke.VOCAB, temps,
+                                 getattr(torch, dt), gen, dev)
+                 for name, rows, temps, dt in smoke.PICK_CASES]
+        print(json.dumps({"tree": str(args.tree), "card": smoke.card_line(),
+                          "cases": cases}), flush=True)
         return
     cfg = llama.llama3_8b()
     params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)

@@ -342,3 +342,58 @@ def test_divergence_check_tells_a_near_tie_from_a_fault(smoke, runner):
     with pytest.raises(SystemExit):
         smoke.check_divergences([bad], "test")
     smoke.check_divergences([ok], "test")
+
+
+def test_the_pick_bound_is_the_logits_bytes(smoke):
+    # [8, 128256] fp32 logits read once, temperatures, rids and token
+    # indices read once, 8 tokens written: 1.225 us at 3.35 TB/s
+    nbytes = smoke.pick_bytes(8, smoke.VOCAB, 4, True)
+    assert nbytes == 8 * 128256 * 4 + 8 * 12 + 8 * 4
+    ms, by = smoke.bound(nbytes, smoke.pick_flops(smoke.VOCAB, smoke.PICK_ROW_TEMPS), "float32")
+    assert by == "bytes" and abs(ms * 1e3 - 1.225) < 1e-3
+    # six of the eight rows sample: 4 more operations an element each
+    assert smoke.pick_flops(10, (0.0, 0.7, 1.0)) == 3 * 10 + 2 * 10 * 4
+
+
+def test_pick_launches_count_every_picked_token(smoke):
+    # a prefill's first token, nine one-token steps, a spec round and a
+    # classic spec tick of k = 4: four draft proposals and a verify each
+    pc = {"device_steps": 9, "prefill_picks": 2, "spec_rounds": 1, "spec_ticks": 1}
+    assert smoke.pick_launches(pc, 4) == 9 + 2 + 2 * 5
+    assert smoke.pick_launches({**pc, "spec_rounds": 0, "spec_ticks": 0}, 4) == 11
+
+
+def test_with_picks_fails_when_a_token_skipped_the_kernel(smoke):
+    from types import SimpleNamespace as NS
+
+    pc = {"device_steps": 16, "prefill_picks": 3, "spec_rounds": 0, "spec_ticks": 0}
+    eng = NS(phase_counts=pc, spec_k=4)
+    ops = NS(pick_tokens_cuda=NS(launches=19))
+    assert smoke.with_picks(ops, eng, {"rmsnorm": 1}, "test") == {"rmsnorm": 1,
+                                                                  "pick_tokens": 19}
+    ops.pick_tokens_cuda.launches = 18
+    with pytest.raises(SystemExit):
+        smoke.with_picks(ops, eng, {}, "test")
+
+
+def test_phase_5_holds_the_defaults_and_the_sampled_modes(smoke):
+    assert smoke.SERVE_MODES["default"] is None and smoke.SERVE_ORDER.count("default") == 2
+    order = smoke.SAMPLED_ORDER
+    assert set(order) == set(smoke.SAMPLED_MODES) and order == order[::-1]
+    # (H, depth): the classic tick, the horizon at depth 1 and at depth 2
+    assert sorted(smoke.SAMPLED_MODES.values()) == [(1, 1), (8, 1), (8, 2)]
+    assert smoke.SERVE_TEMPS == (0.0, 0.7, 1.0, 1.3)
+    # the verify's pick: a lane's temperature at its position 0 only
+    k1 = smoke.SPEC_K + 1
+    temps = smoke.PICK_VERIFY_TEMPS
+    assert len(temps) == 8 * k1 and temps[::k1] == smoke.PICK_ROW_TEMPS
+    assert all(t == 0 for i, t in enumerate(temps) if i % k1)
+
+
+def test_phase_8_drains_depth_1_and_2_in_turns(smoke):
+    order = smoke.SPEC_ORDER
+    assert order == order[::-1] and {"plain", "spec", "spec_d2"} == set(order)
+    text = (ROOT / "chip_smoke.py").read_text()
+    # the kernels line names the pick with its source and the site it replaces
+    assert '"pick_tokens", "bobrapet_tpu_torch/csrc/pick_tokens.cu"' in text
+    assert '"bobrapet_tpu/serving/engine.py:2916"' in text

@@ -37,6 +37,8 @@ from bobrapet_tpu_torch.ops import (
     paged_attention_multi_cuda,
     paged_attention_multi_reference,
     paged_attention_reference,
+    pick_tokens_cuda,
+    pick_tokens_reference,
     quant_matmul_cuda,
     quant_matmul_reference,
     rmsnorm_cuda,
@@ -45,6 +47,7 @@ from bobrapet_tpu_torch.ops import (
 from bobrapet_tpu_torch.serving import PagedConfig, ServingEngine
 
 norm_ops = importlib.import_module("bobrapet_tpu_torch.ops.rmsnorm")
+pick_ops = importlib.import_module("bobrapet_tpu_torch.ops.pick_tokens")
 pytestmark = pytest.mark.gpu
 
 
@@ -620,3 +623,88 @@ def test_tiny_spec_engine_on_the_card_matches_the_cpu(cuda, horizon):
                           + pc["draft_appends"])
                 assert quant_matmul_cuda.launches == drafts * (7 * cfg.n_layers + 1)
     assert outs["card", True] == outs["card", False] == outs["cpu", True] == outs["cpu", False]
+
+
+# ---------------------------------------------------------------------------
+# the token pick (csrc/pick_tokens.cu). Greedy rows: bit for bit (the same
+# comparisons in the same type). Sampled rows: the noise goes through logf
+# and log1pf on the card and the CPU's or the card's log in the plain
+# version, an ulp apart at most, so a row may pick another token where the
+# plain version's top two scores lie within 1e-5 * max(1, |top|); every
+# other row agrees, and at least 99.9% of rows agree.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,v", [(8, 128256), (40, 128256), (1, 128256), (8, 512),
+                                    (3, 1001), (5, 8193), (2, 3)])
+def test_pick_tokens_greedy_rows_bit_for_bit(cuda, rows, v, dtype):
+    logits = _randn((rows, v), dtype, cuda, 60 + v % 97)
+    logits[0, v // 2] = logits[0, v - 1] = logits[0].max() + 1   # a tie: the lower wins
+    if rows > 2:
+        logits[1] = 0.0                                          # a flat row: index 0
+        logits[2, v // 3] = float("nan")                         # a NaN wins
+    want = pick_tokens_reference(logits)
+    zero = torch.zeros(rows, device=cuda)
+    ids = torch.arange(rows, dtype=torch.int32, device=cuda)
+    before = pick_tokens_cuda.launches
+    for keyed in ((), (zero, ids, ids)):
+        got = pick_tokens_cuda(logits, *keyed)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert pick_tokens_cuda.launches == before + 2
+    assert int(want[0]) == v // 2
+    if rows > 2:
+        assert int(want[1]) == 0 and int(want[2]) == v // 3
+
+
+def _sampled_scores(logits, temps, rids, index):
+    """The plain version's scores of sampled rows: logits / T + noise."""
+    return logits.float() / temps[:, None] + pick_ops.gumbel_noise(rids, index, logits.shape[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pick_tokens_sampled_rows_agree_up_to_near_ties(cuda, dtype):
+    rows, v, chunk = 4096, 128256, 256
+    temps_cycle = torch.tensor([0.7, 1.0, 1.3, 0.4], device=cuda)
+    agree = 0
+    for c0 in range(0, rows, chunk):
+        logits = _randn((chunk, v), dtype, cuda, 700 + c0) * 3
+        temps = temps_cycle.repeat(chunk // 4)
+        rids = torch.arange(c0, c0 + chunk, dtype=torch.int32, device=cuda) * 7919
+        index = torch.arange(chunk, dtype=torch.int32, device=cuda) % 97
+        got = pick_tokens_cuda(logits, temps, rids, index)
+        want = pick_tokens_reference(logits, temps, rids, index)
+        scores = _sampled_scores(logits, temps, rids, index)
+        top = scores.topk(2, dim=-1).values
+        near = (top[:, 0] - top[:, 1]) <= 1e-5 * top[:, 0].abs().clamp(min=1.0)
+        same = got == want
+        assert bool((same | near).all())
+        agree += int(same.sum())
+        # the kernel's token scores the plain version's best up to a near tie
+        picked = scores.gather(1, got.long()[:, None])[:, 0]
+        assert bool(((top[:, 0] - picked) <= 1e-5 * top[:, 0].abs().clamp(min=1.0)).all())
+    assert agree >= 0.999 * rows
+
+
+def test_pick_tokens_kernel_draws_follow_softmax(cuda):
+    n, temp = 20_000, 0.7
+    row = torch.randn(16, generator=torch.Generator().manual_seed(2)) * 1.5
+    logits = row.to(cuda).repeat(n, 1)
+    draws = pick_tokens_cuda(logits, torch.full((n,), temp, device=cuda),
+                             torch.full((n,), 7, dtype=torch.int32, device=cuda),
+                             torch.arange(n, dtype=torch.int32, device=cuda))
+    counts = torch.bincount(draws.long(), minlength=16).cpu().double()
+    p = torch.softmax(row.double() / temp, dim=0)
+    assert float(((counts - n * p) ** 2 / (n * p)).sum()) < 37.697   # p = 0.001, 15 dof
+
+
+def test_pick_tokens_refuses_what_it_does_not_take(cuda):
+    logits = torch.zeros(4, 64, device=cuda)
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        pick_tokens_cuda(logits[:, ::2])
+    with pytest.raises(ValueError, match="temps must be"):
+        pick_tokens_cuda(logits, torch.zeros(4, dtype=torch.float64, device=cuda), ids, ids)
+    with pytest.raises(ValueError, match="rids must be contiguous"):
+        pick_tokens_cuda(logits, torch.zeros(4, device=cuda), ids.cpu(), ids)

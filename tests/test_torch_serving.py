@@ -396,15 +396,10 @@ class TestEngineSurface:
         assert eng.in_flight == 1
 
     @pytest.mark.parametrize("kwargs,pcfg_kw,match", [
-        ({"decode_horizon": 8, "dispatch_depth": 2}, {}, "dispatch_depth=1"),
-        ({"dispatch_depth": 2}, {}, "dispatch_depth=1"),
-        # a draft engine serves at depth 1; its depth-N pipeline is unported
-        ({"draft_params": {}, "dispatch_depth": 2}, {},
-         "draft engine's depth-N pipeline .*speculative commit watch.* pass dispatch_depth=1"),
         ({"role": "prefill"}, {}, "role='unified'"),
         ({"role": "decode"}, {}, "role='unified'"),
         ({"moe": True}, {}, "dense LlamaConfig"),
-    ], ids=["horizon_depth", "depth", "draft", "prefill", "decode", "moe"])
+    ], ids=["prefill", "decode", "moe"])
     def test_unported_paths_raise(self, tiny, kwargs, pcfg_kw, match):
         _, params_t = tiny["float"]
         cfg = tiny["cfg_t"]
@@ -441,16 +436,25 @@ class TestEngineSurface:
         assert eng.blocks.hit_tokens == 32
         assert eng.allocator.free_blocks == PagedConfig().num_blocks - 1
 
-    def test_defaults_ask_for_the_unported_depth(self, tiny):
+    def test_defaults_build_and_serve(self, tiny):
+        """ServingEngine(params, cfg) takes JAX's defaults (PagedConfig(),
+        horizon 8, depth 2) and serves greedy and sampled requests: the
+        greedy tokens are the classic tick's, and horizons were in flight
+        while the host worked."""
         _, params_t = tiny["float"]
-        with pytest.raises(NotImplementedError, match="dispatch_depth=1"):
-            ServingEngine(params_t, tiny["cfg_t"])
-
-    def test_sampled_requests_raise(self, tiny):
-        _, params_t = tiny["float"]
-        eng = _port_engine(params_t, tiny["cfg_t"], (2, 8, 16, 4))
-        with pytest.raises(NotImplementedError, match="temperature=0"):
-            eng.submit([1, 2, 3], 4, temperature=0.7)
+        cfg = tiny["cfg_t"]
+        eng = ServingEngine(params_t, cfg)
+        assert (eng.decode_horizon, eng.dispatch_depth, eng.pcfg) == (8, 2, PagedConfig())
+        ref = ServingEngine(params_t, cfg, decode_horizon=1, dispatch_depth=1)
+        prompts = [_prompt(70 + i, 5 + 6 * i, cfg.vocab_size) for i in range(5)]
+        for e in (eng, ref):
+            for i, p in enumerate(prompts):
+                e.submit(p, 14, temperature=(0.0, 0.9)[i % 2])
+            e.run()
+        assert _outputs(eng) == _outputs(ref)
+        assert eng.phase_counts["horizons"] > 0 and not eng._inflight
+        assert eng.phase_seconds["host_overlap"] > 0
+        assert all(len(r.output) == 14 for r in eng.finished)
 
     @pytest.mark.parametrize("kwargs", [{"decode_horizon": 0}, {"dispatch_depth": 0},
                                         {"role": "router"}])

@@ -22,6 +22,9 @@ a separate random one-layer model (a draft that mostly disagrees). Held:
   list, queue, prefix cache, outputs, drafted and accepted, horizons
   after every step), and every speculative engine's outputs equal to the
   draft-less engine's;
+- a draft engine serving sampled requests (the draft-less engine's
+  tokens: a sampled lane never speculates) and at dispatch depth 2 (depth
+  1's tokens);
 - the payoff guard's decision on injected samples equal to JAX's, a guarded
   engine reaching a decision with exact tokens, and the constructor's
   refusals (JAX's checks and messages).
@@ -631,17 +634,53 @@ def test_jax_refuses_the_same(models, case):
         JServingEngine(params_j, cfg_j, JPagedConfig(**GUARD_PCFG), **kw)
 
 
-def test_sampling_and_depth_still_raise_on_a_draft_engine(models):
+@pytest.mark.parametrize("horizon", [1, 8])
+def test_a_draft_engine_serves_sampled_requests(models, horizon):
+    """temperature > 0 on a draft engine: a sampled lane never speculates
+    and commits the draw of the plain step (the draft-less engine's tokens),
+    while the greedy lanes beside it still speculate."""
+    _, cfg_t = models["cfg"]
+    _, params_t = models["params"]
+    _, dt, _, dcfg_t = models["drafts"]["self_int8"]
+    pcfg = PagedConfig(**BASE_PCFG)
+    prompts = [list(range(1 + i, 9 + 3 * i)) for i in range(4)]
+    outs = {}
+    for name, kw in (("plain", {}), ("spec", {"draft_params": dt, "draft_cfg": dcfg_t,
+                                             "spec_k": 4, "spec_guard": False})):
+        eng = ServingEngine(params_t, cfg_t, pcfg, decode_horizon=horizon, dispatch_depth=1,
+                            **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(p, 12, temperature=(0.0, 0.8)[i % 2])
+        eng.run()
+        outs[name] = outputs(eng)
+        if name == "spec":
+            assert eng.spec_drafted > 0
+    assert outs["spec"] == outs["plain"]
+
+
+def test_a_draft_engine_serves_at_depth_2(models):
+    """A draft engine at dispatch depth 2 (its speculative horizons in
+    flight two at a time): the depth-1 engine's tokens, greedy and
+    sampled."""
     _, cfg_t = models["cfg"]
     _, params_t = models["params"]
     _, dt, _, dcfg_t = models["drafts"]["tiny"]
-    eng = ServingEngine(params_t, cfg_t, PagedConfig(**GUARD_PCFG), draft_params=dt,
-                        draft_cfg=dcfg_t, dispatch_depth=1)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        eng.submit([1, 2, 3], 4, temperature=0.7)
-    with pytest.raises(NotImplementedError, match="dispatch_depth=1"):
-        ServingEngine(params_t, cfg_t, PagedConfig(**GUARD_PCFG), draft_params=dt,
-                      draft_cfg=dcfg_t, dispatch_depth=2)
+    pcfg = PagedConfig(**BASE_PCFG)
+    prompts = [list(range(3 + i, 12 + 4 * i)) for i in range(6)]
+    outs = {}
+    for depth in (1, 2):
+        eng = ServingEngine(params_t, cfg_t, pcfg, draft_params=dt, draft_cfg=dcfg_t, spec_k=4,
+                            spec_guard=False, decode_horizon=8, dispatch_depth=depth)
+        for i, p in enumerate(prompts):
+            eng.submit(p, 14, temperature=(0.0, 0.0, 1.1)[i % 3])
+        deepest = 0
+        while eng.pending or any(eng.slots):
+            eng.step()
+            deepest = max(deepest, len(eng._inflight))
+        eng.run()
+        outs[depth] = outputs(eng)
+        assert eng.spec_drafted > 0 and deepest == (depth if depth > 1 else 0)
+    assert outs[2] == outs[1]
 
 
 def test_int8_product_off_the_cpu_takes_the_kernel_and_never_the_plain_version(monkeypatch):

@@ -5,9 +5,9 @@ together; after every ``step()`` the scheduler and prefix-cache state must
 be the same: finished rids, slots (rid, blocks, seq_len, ingest_pos,
 shared tokens, outputs), the free list, the queue, the prefix cache's hash
 maps, refcounts and hit/miss tokens, the speculative drafted and accepted
-counts, and the horizon and host-sync counts. Used by
-tests/test_torch_prefix.py, tests/test_torch_lora.py and
-tests/test_torch_spec.py.
+counts, the horizon and host-sync counts and the horizons in flight. Used
+by tests/test_torch_prefix.py, tests/test_torch_lora.py,
+tests/test_torch_spec.py and tests/test_torch_pipeline.py.
 """
 
 import jax
@@ -27,14 +27,15 @@ def prompt(rng, n, vocab):
     return rng.integers(0, vocab, n).tolist()
 
 
-def engines(params_j, params_t, cfg_j, cfg_t, pcfg: dict, horizon: int, **kw):
-    """A JAX engine and a port engine on the same config, at ``dispatch_depth=1``
-    with the dispatch-ahead tick off (``kw``: ``loras`` as a pair (JAX tree,
-    port tree), ``lora_scale``; ``draft`` as (JAX tree, port tree, JAX
-    config, port config), with ``spec_k`` and the guard's arguments)."""
+def engines(params_j, params_t, cfg_j, cfg_t, pcfg: dict, horizon: int, depth: int = 1,
+            **kw):
+    """A JAX engine and a port engine on the same config, at ``dispatch_depth``
+    ``depth`` with the dispatch-ahead tick off (``kw``: ``loras`` as a pair
+    (JAX tree, port tree), ``lora_scale``; ``draft`` as (JAX tree, port tree,
+    JAX config, port config), with ``spec_k`` and the guard's arguments)."""
     loras = kw.pop("loras", (None, None))
     draft = kw.pop("draft", (None, None, None, None))
-    common = dict(pipeline_decode=False, decode_horizon=horizon, dispatch_depth=1, **kw)
+    common = dict(pipeline_decode=False, decode_horizon=horizon, dispatch_depth=depth, **kw)
     jeng = JServingEngine(params_j, cfg_j, JPagedConfig(**pcfg), loras=loras[0],
                           draft_params=draft[0], draft_cfg=draft[2], **common)
     teng = ServingEngine(params_t, cfg_t, PagedConfig(**pcfg), loras=loras[1],
@@ -67,6 +68,7 @@ def assert_same_state(jeng, teng):
     # only horizon steps)
     for key in ("horizons", "host_syncs"):
         assert teng.phase_counts[key] == jeng.phase_counts[key], key
+    assert len(teng._inflight) == len(jeng._inflight)
 
 
 def run_lockstep(jeng, teng, waves) -> int:
