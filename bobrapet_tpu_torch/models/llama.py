@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from ..device import DeviceLike, resolve_device
 from ..graphs import GraphedStep
 from ..ops.attention import attention, cached_attention
+from ..ops.pick_tokens import pick_tokens
 from ..ops.rmsnorm import add_rmsnorm, rmsnorm
 from ..ops.rope import apply_rope, rope_frequencies
 from .lora import lora_delta, lora_delta_slots
@@ -391,7 +392,8 @@ class GreedyDecoder:
 
     ``tok`` [B, 1] int32 holds the tokens to feed next and ``pos`` [B, 1]
     their positions; :meth:`step` runs one forward of ``tok`` and writes
-    its argmax back into ``tok``, advancing ``pos`` and the cache's device
+    its argmax (:func:`~bobrapet_tpu_torch.ops.pick_tokens`, all rows
+    greedy) back into ``tok``, advancing ``pos`` and the cache's device
     cursor, all in place. So every step is the same launches on the same
     tensors: on a card (``cuda_graph``) the first step runs eagerly and is
     captured, and every later one is a replay of that CUDA graph; on the
@@ -408,7 +410,7 @@ class GreedyDecoder:
     @torch.no_grad()
     def _forward(self, tok: torch.Tensor, pos: torch.Tensor) -> None:
         logits, _ = forward(self.params, tok, self.cfg, cache=self.cache, positions=pos)
-        tok.copy_(logits[:, -1:, :].argmax(dim=-1))
+        tok.copy_(pick_tokens(logits[:, -1])[:, None])  # [B, V]: contiguous at S = 1
         pos.add_(1)
 
     def step(self) -> None:
@@ -427,7 +429,9 @@ def greedy_generate(
     """Greedy decode with a KV cache: one prefill, then one forward per
     token, 1 + ``max_new_tokens`` forwards in all (the JAX scan's count;
     the last forward's token is dropped, as there). Returns int32 tokens
-    [B, max_new_tokens], as JAX does. The prefill runs eagerly with the
+    [B, max_new_tokens], as JAX does. Every token is picked by
+    :func:`~bobrapet_tpu_torch.ops.pick_tokens` (all rows greedy): 1 +
+    ``max_new_tokens`` picks. The prefill runs eagerly with the
     host cursor; the decode steps go through :class:`GreedyDecoder`, as
     one CUDA graph replayed per step on a card unless ``cuda_graph`` is
     False. Tokens stay on the prompt's device; nothing syncs with the
@@ -447,8 +451,10 @@ def greedy_generate(
     out = torch.empty((b, max_new_tokens), dtype=torch.int32, device=device)
     if max_new_tokens == 0:
         return out
-    decoder = GreedyDecoder(params, cfg, cache, logits[:, -1:, :].argmax(dim=-1), prompt_len,
-                            cuda_graph=cuda_graph)
+    # the prompt's last row of logits, copied out of [B, P, V] (the pick
+    # takes contiguous rows)
+    decoder = GreedyDecoder(params, cfg, cache, pick_tokens(logits[:, -1].contiguous()),
+                            prompt_len, cuda_graph=cuda_graph)
     for i in range(max_new_tokens):
         out[:, i:i + 1].copy_(decoder.tok)
         decoder.step()

@@ -19,7 +19,11 @@ target's argmax once (one copy) and commits. The JAX package runs the
 rounds in a ``lax.while_loop`` on the device; here the loop is on the host,
 one read a round. On a card the draft step and the verify are each one
 CUDA graph, replayed every round, and the verify's
-attention over the cache is the cached entry at ``k + 1`` queries.
+attention over the cache is the cached entry at ``k + 1`` queries. Every
+argmax is :func:`~bobrapet_tpu_torch.ops.pick_tokens` over all-greedy
+rows: the first token, one a draft step (``k + 1`` a round, the last one's
+unused) and one over the verify's ``k + 1`` rows, 1 + rounds x (k + 2)
+picks.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..graphs import GraphedStep
+from ..ops.pick_tokens import pick_tokens
 from .llama import LlamaConfig, device_cursor, forward, init_cache
 
 
@@ -70,7 +75,7 @@ def speculative_generate(
     positions = torch.arange(prompt_len, device=dev)[None, :]
     t_cache = init_cache(cfg, 1, cap, device=dev)
     t_logits, _ = forward(target_params, prompt, cfg, cache=t_cache, positions=positions)
-    first = t_logits[0, -1].argmax()
+    first = pick_tokens(t_logits[0, -1:])[0]  # one row: contiguous
     d_cache = init_cache(draft_cfg, 1, cap, device=dev)
     forward(draft_params, prompt, draft_cfg, cache=d_cache, positions=positions)
     if max_new_tokens == 0:
@@ -87,12 +92,12 @@ def speculative_generate(
 
     def draft_step(tok: torch.Tensor, pos: torch.Tensor) -> None:
         logits, _ = forward(draft_params, tok, draft_cfg, cache=d_cache, positions=pos)
-        tok.copy_(logits[:, -1:].argmax(dim=-1))
+        tok.copy_(pick_tokens(logits[:, -1])[:, None])
         pos.add_(1)
 
     def verify_step(tok: torch.Tensor, pos: torch.Tensor, found: torch.Tensor) -> None:
         logits, _ = forward(target_params, tok, cfg, cache=t_cache, positions=pos)
-        found[k:] = logits[0].argmax(dim=-1)
+        found[k:] = pick_tokens(logits[0])
 
     drafts = GraphedStep(draft_step, dtok, dpos)
     verify = GraphedStep(verify_step, vtok, vpos, found)

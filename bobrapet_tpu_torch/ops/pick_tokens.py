@@ -15,11 +15,14 @@ over threefry bits; the port keeps the structure and fixes its own bits:
 - ``u = ((w >> 8) + 0.5) * 2**-24`` in (0, 1), ``g = -log(-log(u))`` in
   fp32, where ``-log(u)`` is taken as ``-log1p(-(1 - u))`` above 0.5 so
   that u keeps all its 24 bits;
-- the token is ``argmax(float(logit) / T + g)``, or ``argmax(logit)`` at
-  ``T <= 0``; ties go to the lowest index (``torch.argmax``'s and
-  ``jnp.argmax``'s rule).
+- the token is ``argmax(float(logit) / max(T, 1e-6) + g)``, or
+  ``argmax(logit)`` at ``T <= 0``; ties go to the lowest index
+  (``torch.argmax``'s and ``jnp.argmax``'s rule). The floor is JAX's
+  (``jnp.maximum(t, 1e-6)`` at every fused pick), in fp32.
 
 So a draw has ``jax.random.categorical``'s distribution, not its bits.
+The same kernel takes the greedy loops' argmax (``models.llama``,
+``models.speculative``): all-greedy rows.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # logits, temps, rids
     ctypes.c_void_p, ctypes.c_void_p,                   # index, out
     ctypes.c_int, ctypes.c_int, ctypes.c_int,           # rows, v, splits
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,        # vec, dtype, stream
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,        # vec (FLAG_*), dtype, stream
 ]
 
 _MASK = 0xFFFFFFFF
@@ -43,9 +46,24 @@ _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 #: the blocks of a cluster that split a row, at most
 MAX_SPLITS = 8
-#: 4-element groups a block of the kernel's 1024 threads takes (4 each)
-#: before the row is split over one more doubling of the cluster
+#: 4-element groups one rank of the cluster takes before the row is split
+#: over one more doubling of the cluster: 4 for each of the 1024 threads an
+#: SM holds at once (the kernel's ``kThreads``)
 _GROUPS_PER_BLOCK = 1024 * 4
+#: the kernel's block, and the blocks an SM holds at once
+BLOCK_THREADS = 256
+BLOCKS_PER_SM = 4
+#: clusters of one row, at most; rows x clusters, at most, when a row has
+#: more than one (so the rows fit the kernel's static slots, one a row)
+MAX_CHUNKS = 16
+MAX_PARTIALS = 2048
+#: bits of the C entry's ``vec`` argument: the 16- (fp32) or 8-byte (bf16)
+#: loads, and programmatic dependent launch
+FLAG_VEC = 1
+FLAG_PDL = 2
+#: the least temperature a sampled row is divided by (fp32, as
+#: ``jnp.maximum(t, 1e-6)`` sees it)
+TEMP_FLOOR = 1e-6
 
 
 def _mulhilo(a: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -97,14 +115,16 @@ def pick_tokens_reference(logits: torch.Tensor, temps: Optional[torch.Tensor] = 
                           rids: Optional[torch.Tensor] = None,
                           index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version: int32 ``[R]``, each row's argmax of its fp32
-    logits, or at ``temps[r] > 0`` of ``logits / temps + gumbel_noise``
-    (``temps`` None: every row greedy)."""
+    logits, or at ``temps[r] > 0`` of ``logits / max(temps, 1e-6) +
+    gumbel_noise`` (``temps`` None: every row greedy)."""
     scores = logits.float()
     if temps is not None:
         rows = (temps > 0).nonzero()[:, 0]
         if len(rows):
             scores = scores.clone()
-            scores[rows] = (scores[rows] / temps[rows].float()[:, None]
+            # clamp_min casts the floor to fp32 before it compares
+            t = temps[rows].float().clamp_min(TEMP_FLOOR)
+            scores[rows] = (scores[rows] / t[:, None]
                             + gumbel_noise(rids[rows], index[rows], scores.shape[-1]))
     return scores.argmax(dim=-1).to(torch.int32)
 
@@ -119,6 +139,20 @@ def pick_splits(v: int) -> int:
     return splits
 
 
+def pick_chunks(rows: int, v: int, sms: int) -> int:
+    """The clusters that split one row of ``v`` logits in a pick of
+    ``rows`` rows on a card of ``sms`` SMs (the C entry's ``chunks_for``):
+    rows x splits x chunks blocks come to about ``BLOCKS_PER_SM`` an SM (to
+    the nearest), a block keeps at least one group of 4 a thread, at most
+    ``MAX_CHUNKS``, and rows x chunks within ``MAX_PARTIALS``; at least 1.
+    8 for an engine step's ``[8, 128256]`` on the H100's 132 SMs."""
+    splits = pick_splits(v)
+    rs = rows * splits
+    c = (2 * sms * BLOCKS_PER_SM + rs) // (2 * rs)
+    c = min(c, -(-v // 4) // (splits * BLOCK_THREADS), MAX_CHUNKS, MAX_PARTIALS // rows)
+    return max(c, 1)
+
+
 def pick_tokens_cuda(logits: torch.Tensor, temps: Optional[torch.Tensor] = None,
                      rids: Optional[torch.Tensor] = None,
                      index: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -126,7 +160,12 @@ def pick_tokens_cuda(logits: torch.Tensor, temps: Optional[torch.Tensor] = None,
     contiguous, on a card): int32 ``[R]``. ``temps`` fp32, ``rids`` and
     ``index`` int32, each ``[R]`` contiguous on the same card, or all three
     None (every row greedy). Raises on anything else; it never computes the
-    plain version instead."""
+    plain version instead.
+
+    Not re-entrant: a row's clusters combine through one static scratch per
+    card, so the picks on one card must be ordered, as the port launches
+    them (one stream at a time; captured graphs replayed one after another).
+    Two picks in flight at once on two streams would mix their rows."""
     if logits.dtype not in KERNEL_DTYPES:
         raise TypeError(f"pick_tokens_cuda takes float32 or bfloat16 logits, got {logits.dtype}")
     if logits.dim() != 2 or logits.shape[1] < 1 or not 1 <= logits.shape[0] <= 65535:
@@ -150,17 +189,21 @@ def pick_tokens_cuda(logits: torch.Tensor, temps: Optional[torch.Tensor] = None,
     if not logits.is_contiguous():
         raise ValueError("pick_tokens_cuda needs contiguous logits")
     out = torch.empty((rows,), dtype=torch.int32, device=logits.device)
-    vec = int(v % 4 == 0 and logits.data_ptr() % 16 == 0)
+    flags = ((FLAG_VEC if v % 4 == 0 and logits.data_ptr() % 16 == 0 else 0)
+             | (FLAG_PDL if pick_tokens_cuda.pdl else 0))
     fn = kernel_function("bobra_pick_tokens", _ARGTYPES)
     ptrs = [None if t is None else t.data_ptr() for t in keyed]
     check_launch("pick_tokens", launch(fn, dev, logits.data_ptr(), *ptrs, out.data_ptr(), rows,
-                                       v, pick_splits(v), vec, KERNEL_DTYPES[logits.dtype]))
+                                       v, pick_splits(v), flags, KERNEL_DTYPES[logits.dtype]))
     pick_tokens_cuda.launches += 1
     return out
 
 
 #: launches of the kernel since the count was last set to 0
 pick_tokens_cuda.launches = 0
+#: launch with programmatic dependent launch (the pick's blocks are placed
+#: while the kernel before it, the LM head's cast, ends)
+pick_tokens_cuda.pdl = True
 
 
 def pick_tokens(logits: torch.Tensor, temps: Optional[torch.Tensor] = None,

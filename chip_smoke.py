@@ -23,7 +23,11 @@ Phases, each fatal on failure (exit 1, and no result line):
    entry, and the token pick over Llama-3's 128,256 logits: an engine
    step's 8 rows at temperatures 0, 0.7, 1.0, 1.3, the draft's all-greedy
    rows, a verify's 40 and the 8 rows in bf16, greedy rows bit for bit and
-   sampled ones up to near-ties) plus long-cache decodes (dense over 2048
+   sampled ones up to near-ties, each also timed as a CUDA graph of 16 or
+   more launches over as many copies of its logits, over 50 MB together,
+   so that each launch finds its logits cold: the time the engine's graphs
+   see, free of the single launch's floor; and the temperature floor:
+   4 rows at T = 1e-39 pick their argmax) plus long-cache decodes (dense over 2048
    rows, paged up to 1024), ragged, fp32 and narrow-head cases: max abs
    error against a stated tolerance, and the times (CUDA events, median of 50
    launches, L2 flushed before each) of the kernel, the plain version and
@@ -44,8 +48,9 @@ Phases, each fatal on failure (exit 1, and no result line):
    before each run, must show that every norm and every attention of it
    went through the kernels (graph replays counted), every norm but the
    first of a forward through the add mode and every decode attention
-   through the device-length entry; then prefill ms, decode step ms and
-   the card's busy share of a step, eager and graphed in turns;
+   through the device-length entry, and every token through the pick (1 +
+   64 picks a request); then prefill ms, decode step ms and the card's busy
+   share of a step, eager and graphed in turns;
 5. the serving path on the same weights: the continuous-batching engine
    (8 slots over a paged cache of 256 blocks of 16) streams 16 requests
    (prompts of 8-36 tokens, budgets of 32-64, 785 new tokens) with the
@@ -59,7 +64,8 @@ Phases, each fatal on failure (exit 1, and no result line):
    depth) (1, 1), (8, 1), (8, 2), drained in turns: the same streams in
    every mode; tok/s, TTFT and TPOT p50, host overlap and gap seconds,
    peak memory and, from a profiled drain, the busy share of each mode;
-   then each greedy engine's steady tick under the profiler;
+   then each greedy engine's steady tick under the profiler, and the
+   sampled horizon's (the pick's kernel time inside a horizon);
 6. a 2-layer model at the 8B widths, the same seeded weights on the card
    (kernels) and on the CPU (plain versions): bf16 prefill logits must
    agree, and so must its int8 tree's prefill logits (8 x 24 rows: every
@@ -110,7 +116,8 @@ Phases, each fatal on failure (exit 1, and no result line):
    the engine's own append, every alignment of verifies); then standalone
    speculative_generate (the 8B target, a llama_tiny draft of its
    vocabulary, a [1, 64] prompt, 64 new tokens, k 4) against
-   greedy_generate, its first divergence held the same way;
+   greedy_generate, its first divergence held the same way, its picks
+   counted (1 + rounds x (k + 2));
 9. one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -240,12 +247,18 @@ STANDALONE_CAP = STANDALONE_PROMPT + STANDALONE_NEW + SPEC_K + 1
 # and a verify's 8 x (k + 1) rows (a lane's temperature at its position 0)
 VOCAB = 128256
 PICK_ROW_TEMPS = SERVE_TEMPS * 2
+# every row drawing (a chat front end where no request is greedy)
+PICK_ALL_TEMPS = tuple(SERVE_TEMPS[1 + i % 3] for i in range(BATCH))
 PICK_VERIFY_TEMPS = tuple(t if j == 0 else 0.0 for t in PICK_ROW_TEMPS for j in range(SPEC_K + 1))
 # (name, rows, temperatures (None: all greedy), logits type)
 PICK_CASES = (("pick decode", BATCH, PICK_ROW_TEMPS, "float32"),
               ("pick decode greedy", BATCH, None, "float32"),
+              ("pick decode all sampled", BATCH, PICK_ALL_TEMPS, "float32"),
               ("pick verify", len(PICK_VERIFY_TEMPS), PICK_VERIFY_TEMPS, "float32"),
               ("pick decode bf16", BATCH, PICK_ROW_TEMPS, "bfloat16"))
+# the graphed pick timer: at least this many launches over at least this
+# many bytes of logits copies (over the 50 MB L2)
+PICK_GRAPH_CALLS, PICK_GRAPH_BYTES = 16, 64 << 20
 # a sampled row may pick another token than the plain version where the
 # plain version's top two scores lie within this share of max(1, |top|):
 # the noise goes through logf / log1pf on the card and torch's log in the
@@ -364,6 +377,37 @@ def time_ms(torch, fn, flush, iters: int = 50, warmup: int = 5) -> float:
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
     return times[len(times) // 2]
+
+
+def graphed_ms(torch, calls, replays: int = 20) -> float:
+    """Device ms per call of a CUDA graph that runs ``calls`` (functions of
+    no argument) in order: the calls warmed up on a side stream, captured
+    once, then the median of ``replays`` replays (each behind a ~0.25 ms
+    spin, as in :func:`time_ms`) over the number of calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call in calls:
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for call in calls:
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(replays)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(replays)]
+    for s, e in zip(starts, ends):
+        torch.cuda._sleep(500_000)
+        s.record()
+        graph.replay()
+        e.record()
+    torch.cuda.synchronize()
+    times = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
+    del graph
+    return times[len(times) // 2] / len(calls)
 
 
 def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
@@ -688,6 +732,25 @@ def pick_flops(v: int, temps) -> int:
     return len(temps) * v + sum(t > 0 for t in temps) * v * 4
 
 
+def pick_inputs(torch, rows: int, v: int, temps, dtype, gen, dev) -> tuple:
+    """``rows`` random rows of ``v`` logits (randn x 3, in ``dtype``) and,
+    unless ``temps`` is None, their temperatures, rids and token indices."""
+    logits = (torch.randn((rows, v), generator=gen, device=dev) * 3).to(dtype)
+    if temps is None:
+        return logits, ()
+    return logits, (torch.tensor(temps, dtype=torch.float32, device=dev),
+                    torch.arange(rows, dtype=torch.int32, device=dev) * 7919 + 11,
+                    torch.arange(rows, dtype=torch.int32, device=dev) + 5)
+
+
+def pick_copies(logits) -> list:
+    """The graphed timer's copies of ``logits``: PICK_GRAPH_CALLS or more,
+    PICK_GRAPH_BYTES together or more, so every launch reads its logits
+    from the card's memory."""
+    n = max(PICK_GRAPH_CALLS, -(-PICK_GRAPH_BYTES // (logits.numel() * logits.element_size())))
+    return [logits.clone() for _ in range(n)]
+
+
 def pick_case(torch, ops, flush, name, rows, v, temps, dtype, gen, dev):
     """One pick over ``rows`` random rows of ``v`` logits (``temps`` None:
     the all-greedy form the draft's proposals take): greedy rows must equal
@@ -696,12 +759,7 @@ def pick_case(torch, ops, flush, name, rows, v, temps, dtype, gen, dev):
     |top|). max_abs_err: the largest shortfall of the kernel's token's
     plain score under the plain version's best. The yardstick is
     torch.argmax over the same rows."""
-    logits = (torch.randn((rows, v), generator=gen, device=dev) * 3).to(dtype)
-    keyed = ()
-    if temps is not None:
-        keyed = (torch.tensor(temps, dtype=torch.float32, device=dev),
-                 torch.arange(rows, dtype=torch.int32, device=dev) * 7919 + 11,
-                 torch.arange(rows, dtype=torch.int32, device=dev) + 5)
+    logits, keyed = pick_inputs(torch, rows, v, temps, dtype, gen, dev)
     got = ops.pick_tokens_cuda(logits, *keyed)
     want = ops.pick_tokens_reference(logits, *keyed)
     torch.cuda.synchronize()
@@ -731,15 +789,38 @@ def pick_case(torch, ops, flush, name, rows, v, temps, dtype, gen, dev):
     dn = str(dtype).split(".")[-1]
     b_ms, b_by = bound(pick_bytes(rows, v, logits.element_size(), bool(keyed)),
                        pick_flops(v, temps or (0.0,) * rows), "float32")
+    copies = pick_copies(logits)
+    graphed = graphed_ms(torch, [lambda x=x: ops.pick_tokens_cuda(x, *keyed) for x in copies])
+    lib_graphed = graphed_ms(torch, [lambda x=x: torch.argmax(x, -1) for x in copies])
+    n = len(copies)
+    del copies
     return {
         "case": name, "logits": [rows, v], "dtype": dn, "temperatures": temps,
         "rows_agreeing": int((got == want).sum()), "max_abs_err": err,
         "ms": time_ms(torch, lambda: ops.pick_tokens_cuda(logits, *keyed), flush),
+        "graphed_ms": graphed, "graph_launches": n,
         "plain_ms": time_ms(torch, lambda: ops.pick_tokens_reference(logits, *keyed), flush),
         "library_ms": time_ms(torch, lambda: torch.argmax(logits, -1), flush),
+        "library_graphed_ms": lib_graphed,
         "library": "torch.argmax over the same rows (greedy only)",
         "bound_ms": b_ms, "bound_by": b_by,
     }
+
+
+def pick_floor_check(torch, ops, dev) -> dict:
+    """The temperature floor on the card: fp32 [4, 128256] (torch.randn *
+    3, seed 0, made on the CPU) at T = 1e-39 must pick each row's argmax,
+    as JAX's jnp.maximum(t, 1e-6) does, and the same as at T = 1e-6."""
+    logits = (torch.randn(4, VOCAB, generator=torch.Generator().manual_seed(0)) * 3).to(dev)
+    ids = torch.arange(4, dtype=torch.int32, device=dev)
+    picks = {t: ops.pick_tokens_cuda(logits, torch.full((4,), t, device=dev), ids * 7 + 1,
+                                     ids).tolist() for t in (1e-39, 1e-6)}
+    want = logits.argmax(-1).tolist()
+    print(f"  pick floor: T = 1e-39 picks {picks[1e-39]}, T = 1e-6 {picks[1e-6]}, argmax {want}",
+          flush=True)
+    if picks[1e-39] != want or picks[1e-6] != want:
+        fail("the pick at a subnormal temperature is not the argmax: the floor is missing")
+    return {"temperature": 1e-39, "picked": picks[1e-39], "argmax": want}
 
 
 def multi_pairs(lens, t: int) -> int:
@@ -900,6 +981,8 @@ def request_split(torch, llama, params, prompt, cfg, dev, cuda_graph: bool = Tru
         "decode_kernels_per_step": sum(e.count for e in kernels) / profiled,
         "decode_port_kernels": port_kernel_shares(kernels, profiled),
         "decode_int8_products": marked_share(kernels, profiled, "qmm"),
+        # PyTorch's argmax, where the tree's greedy loop still calls it
+        "decode_argmax": marked_share(kernels, profiled, "ArgMax"),
         "decode_top_kernels": [
             {"name": e.key[:70], "ms_per_step": e.self_device_time_total / 1e3 / profiled,
              "calls_per_step": e.count / profiled} for e in top],
@@ -910,7 +993,8 @@ def request_split(torch, llama, params, prompt, cfg, dev, cuda_graph: bool = Tru
 PORT_KERNELS = (("paged_attention", ("PagedPolicy", "paged_attention_kernel")),
                 ("flash_attention", ("flash_rows_kernel", "DensePolicy", "CachedPolicy",
                                      "flash_attention_kernel")),
-                ("rmsnorm", ("rmsnorm_kernel",)))
+                ("rmsnorm", ("rmsnorm_kernel",)),
+                ("pick_tokens", ("pick_tokens_kernel",)))
 
 
 def port_kernel_shares(kernels, steps: int) -> dict:
@@ -924,6 +1008,14 @@ def port_kernel_shares(kernels, steps: int) -> dict:
                 out[name]["calls_per_step"] += e.count / steps
                 break
     return out
+
+
+def in_horizon_pick(share: dict) -> dict:
+    """The pick's device ms and launches a profiled engine tick (one
+    horizon at H > 1), and its ms a pick."""
+    picks = share["calls_per_step"]
+    return {"ms_per_tick": share["ms_per_step"], "picks_per_tick": picks,
+            "ms_per_pick": share["ms_per_step"] / picks if picks else None}
 
 
 def marked_share(kernels, steps: int, mark: str) -> dict:
@@ -975,6 +1067,11 @@ def read_counts(ops) -> dict:
             "flash_attention": ops.flash_attention_cuda.launches,
             "cached_attention": ops.cached_attention_cuda.launches,
             "paged_attention": ops.paged_attention_cuda.launches}
+
+
+def greedy_counts(ops) -> dict:
+    """:func:`read_counts` and the pick's (a greedy loop's argmax)."""
+    return {**read_counts(ops), "pick_tokens": ops.pick_tokens_cuda.launches}
 
 
 def read_all_counts(ops) -> dict:
@@ -1033,23 +1130,27 @@ def standalone_launches(rounds: int, k: int, n_layers: int, draft_layers: int) -
     """The kernels of one speculative_generate run: the two prefills (one
     flash launch a layer each), then per round k + 1 draft steps and one
     verify, each attention through the device-length cached entry (which
-    the flash counter also counts); 2L + 1 norms a forward."""
+    the flash counter also counts); 2L + 1 norms a forward; a pick for the
+    first token, one a draft step and one over each verify's rows."""
     t_fwd, d_fwd = 1 + rounds, 1 + rounds * (k + 1)
     cached = rounds * (n_layers + (k + 1) * draft_layers)
     return {"rmsnorm": t_fwd * (2 * n_layers + 1) + d_fwd * (2 * draft_layers + 1),
             "add_rmsnorm": t_fwd * 2 * n_layers + d_fwd * 2 * draft_layers,
             "flash_attention": n_layers + draft_layers + cached, "cached_attention": cached,
-            "paged_attention": 0, "paged_attention_multi": 0, "quant_matmul": 0}
+            "paged_attention": 0, "paged_attention_multi": 0, "quant_matmul": 0,
+            "pick_tokens": 1 + rounds * (k + 2)}
 
 
 def greedy_launches(n_layers: int) -> dict:
     """Launch counts of one greedy_generate request: 1 + NEW_TOKENS
     forwards, the prefill's attention through the flash entry and every
     decode step's through the device-length entry (which the flash
-    counter also counts)."""
+    counter also counts), and a pick a forward (the prefill's is the
+    first token)."""
     forwards = 1 + NEW_TOKENS
     return {**norm_launches(forwards, n_layers), "flash_attention": forwards * n_layers,
-            "cached_attention": NEW_TOKENS * n_layers, "paged_attention": 0}
+            "cached_attention": NEW_TOKENS * n_layers, "paged_attention": 0,
+            "pick_tokens": forwards}
 
 
 def norm_launches(forwards: int, n_layers: int) -> dict:
@@ -1139,20 +1240,22 @@ def drain_device_ms(torch, eng, prompts, temps=None) -> float:
 
 
 def tick_profile(torch, eng, prompts, steps: int = 8, profiled: int = 4,
-                 warm: int = 3) -> dict:
+                 warm: int = 3, temps=None) -> dict:
     """Steady decode ticks of a full engine (a tick is one horizon when
     the engine has one): host ms per step() over ``steps``
     (synchronised), and the device's busy share of a step from
     torch.profiler's kernel time over ``profiled`` more steps, after
     ``warm`` steps (admission and the first ticks). Every slot's budget
-    of 64 lasts the whole stretch."""
+    of 64 lasts the whole stretch; request i at ``temps[i % len(temps)]``
+    (greedy without)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if (warm + steps + profiled) * eng.decode_horizon >= 64:
         fail("tick_profile: the budgets would end inside the measured ticks")
-    for p in prompts[:eng.pcfg.max_slots]:
-        eng.submit(p, 64)
+    temps = temps or (0.0,)
+    for i, p in enumerate(prompts[:eng.pcfg.max_slots]):
+        eng.submit(p, 64, temperature=temps[i % len(temps)])
     for _ in range(warm):
         eng.step()
     torch.cuda.synchronize()
@@ -1260,6 +1363,9 @@ def serving_phase(torch, ops, serving, params, cfg, seed: int, dev, card: str) -
             "launches": {k: sum(r["launches"][k] for r in runs[mode])
                          for k in runs[mode][0]["launches"]},
             "drain_device_ms": drain_device_ms(torch, eng, prompts, SERVE_TEMPS) or None}
+    # the sampled horizon's kernels, the pick's among them
+    out["sampled"]["s_h8"]["profile"] = tick_profile(torch, sampled["s_h8"], warm, 2, 2, 1,
+                                                     temps=SERVE_TEMPS)
     del sampled
 
     def line(rec: dict) -> dict:
@@ -1682,7 +1788,7 @@ def int8_phase(torch, ops, llama, qparams, cfg, prompt, dev, card: str) -> dict:
                                      cuda_graph=graph)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {**read_counts(ops), "quant_matmul": ops.quant_matmul_cuda.launches,
+        launches = {**greedy_counts(ops), "quant_matmul": ops.quant_matmul_cuda.launches,
                     "routes": read_routes(ops)}
         print(f"int8 greedy leg (cuda_graph={graph}) launches {launches}, expected {expected}",
               flush=True)
@@ -1903,7 +2009,7 @@ def standalone_spec(torch, ops, llama, params, cfg, seed: int, dev) -> dict:
                                k=SPEC_K)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = read_all_counts(ops)
+    got = {**read_all_counts(ops), "pick_tokens": ops.pick_tokens_cuda.launches}
     want = standalone_launches(res.rounds, SPEC_K, cfg.n_layers, dcfg.n_layers)
     print(f"  standalone speculative_generate launches {got}, expected {want}", flush=True)
     if got != want:
@@ -2337,12 +2443,14 @@ def main() -> None:
                                   4096, f32, gen, dev))
     pick_cases = [pick_case(torch, ops, flush, name, rows, VOCAB, temps, getattr(torch, dt),
                             gen, dev) for name, rows, temps, dt in PICK_CASES]
+    pick_floor = pick_floor_check(torch, ops, dev)
     for c in (rms_cases + flash_cases + cached_cases + paged_cases + multi_cases + quant_cases
               + pick_cases):
         route = f" (route {c['route']})" if c.get("route") else ""
-        print(f"  {c['case']}{route}: kernel {c['ms']:.5f} ms, plain {c['plain_ms']:.5f} ms, "
-              f"library {c['library_ms']:.5f} ms, bound {c['bound_ms']:.6f} ms "
-              f"({c['bound_by']})", flush=True)
+        graphed = f" (graphed {c['graphed_ms']:.5f})" if "graphed_ms" in c else ""
+        print(f"  {c['case']}{route}: kernel {c['ms']:.5f} ms{graphed}, plain "
+              f"{c['plain_ms']:.5f} ms, library {c['library_ms']:.5f} ms, bound "
+              f"{c['bound_ms']:.6f} ms ({c['bound_by']})", flush=True)
     # the int8 draft's decode step (M = 8): the 7 products of 32 layers and
     # the LM head, kernel against the plain version (the repair's after and
     # before), and the bound
@@ -2379,11 +2487,11 @@ def main() -> None:
                                      cuda_graph=graph)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = read_counts(ops)
+        launches = greedy_counts(ops)
         print(f"greedy path (cuda_graph={graph}) launches {launches}, expected {expected}",
               flush=True)
         if launches != expected:
-            fail("the main path did not run every norm and attention through the kernels")
+            fail("the main path did not run every norm, attention and pick through the kernels")
         if (tuple(toks.shape) != (BATCH, NEW_TOKENS) or toks.dtype != torch.int32
                 or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size):
             fail(f"bad generated tokens: {toks.dtype} {tuple(toks.shape)}")
@@ -2551,7 +2659,14 @@ def main() -> None:
         route_entry("F", "quant wq/wo decode fp32"),
         {**entry("pick_tokens", "bobrapet_tpu_torch/csrc/pick_tokens.cu",
                  "bobrapet_tpu/serving/engine.py:2916", pick_cases, "pick decode"),
-         "max_abs_err": max(c["max_abs_err"] for c in pick_cases)},
+         "max_abs_err": max(c["max_abs_err"] for c in pick_cases),
+         "graphed_ms": next(c["graphed_ms"] for c in pick_cases if c["case"] == "pick decode"),
+         # per profiled engine tick: at H 8 a tick is one horizon of up to 8 picks
+         "in_horizon_per_tick": {
+             mode: in_horizon_pick(prof["port_kernels"]["pick_tokens"]) for mode, prof in (
+                 ("h8", served["h8"]["profile"]), ("default", served["default"]["profile"]),
+                 ("s_h8", served["sampled"]["s_h8"]["profile"]))},
+         "floor": pick_floor},
     ], "build_s": build_s, "host_us_per_call": host_costs}
     print(json.dumps(kernels), flush=True)
     print(f"card: {card}", flush=True)

@@ -2,8 +2,9 @@
 """Per-step kernel profile of the port's greedy decode step and serving
 tick on one CUDA card, for any checkout of the port.
 
-    python3 step_profile.py [--tree DIR] [--seed N] [--graph | --wrappers | --pick |
-                                                      --quant [--no-pdl]]
+    python3 step_profile.py [--tree DIR] [--seed N] [--graph | --wrappers | --tokens |
+                            --pick [--no-pdl] |
+                            --quant [--no-pdl]]
 
 Imports ``bobrapet_tpu_torch`` from DIR (default: this script's own
 checkout) and builds its kernels, makes Llama-3-8B at full width and
@@ -27,8 +28,15 @@ weights through ``request_split``; --graph for the replayed graph), with
 --no-pdl launching the products without programmatic dependent launch
 where the tree's kernel has it. With --pick it times instead the token
 pick at every pick case of chip_smoke.py's phase 3 (``pick_case``:
-kernel, plain version, torch.argmax, bound), and makes no model. Prints
-one JSON line. Imports nothing of JAX.
+kernel under the single-launch timer and as a CUDA graph of launches over
+cold copies of the logits, plain version, torch.argmax, bound), and makes
+no model; --no-pdl launches the pick without programmatic dependent
+launch where the tree's kernel has it. Prints one JSON line. With --tokens it prints instead a digest of the tokens
+of each leg of chip_smoke.py's main paths at full width, through the
+tree's own entry points (greedy_generate bf16 and int8, the default-built
+engine on config 6's traffic greedy and sampled, the prefix engine on
+config 14's, the int8-drafted engine and standalone speculative_generate),
+so that two trees' tokens can be compared. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -61,11 +69,13 @@ def main() -> None:
                     help="time the kernel wrappers' host cost per call instead")
     ap.add_argument("--quant", action="store_true",
                     help="time the int8 product and profile the int8 greedy step instead")
+    ap.add_argument("--tokens", action="store_true",
+                    help="print a digest of every main-path leg's tokens instead")
     ap.add_argument("--pick", action="store_true",
                     help="time the token pick at chip_smoke.py's pick cases instead")
     ap.add_argument("--no-pdl", action="store_true",
-                    help="with --quant: launch the int8 products without programmatic "
-                         "dependent launch")
+                    help="with --quant or --pick: launch the int8 products or the pick "
+                         "without programmatic dependent launch")
     args = ap.parse_args()
     smoke = smoke_helpers()
 
@@ -91,13 +101,10 @@ def main() -> None:
     if args.pick:
         from bobrapet_tpu_torch import ops
 
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
-        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-        cases = [smoke.pick_case(torch, ops, flush, name, rows, smoke.VOCAB, temps,
-                                 getattr(torch, dt), gen, dev)
-                 for name, rows, temps, dt in smoke.PICK_CASES]
-        print(json.dumps({"tree": str(args.tree), "card": smoke.card_line(),
-                          "cases": cases}), flush=True)
+        pick_profile(smoke, torch, args, ops, dev)
+        return
+    if args.tokens:
+        token_digests(smoke, torch, args, dev)
         return
     cfg = llama.llama3_8b()
     params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
@@ -117,10 +124,86 @@ def main() -> None:
     keys = ("kernels_per_step", "elementwise", "port_kernels", "step_device_ms", "step_ms")
     print(json.dumps({
         "tree": str(args.tree), "card": smoke.card_line(),
-        "greedy_step": {k: split[f"decode_{k}"] for k in keys[:4]}
+        "greedy_step": {k: split[f"decode_{k}"] for k in keys[:4] + ("argmax",)}
         | {"step_ms": split["decode_step_ms"]},
         "serving_tick": {k: tick[k] for k in keys},
     }), flush=True)
+
+
+def token_digests(smoke, torch, args, dev) -> None:
+    """``--tokens``: sha-256 prefixes of each leg's tokens, every engine
+    fresh (rids from 0), the weights and traffic of chip_smoke.py."""
+    import hashlib
+
+    from bobrapet_tpu_torch import serving
+    from bobrapet_tpu_torch.models import llama, quant, speculative_generate
+
+    def digest(tokens) -> str:
+        return hashlib.sha256(json.dumps(tokens).encode()).hexdigest()[:16]
+
+    def drain(eng, work, temps=(0.0,)) -> list:
+        rids = [eng.submit(p, n, temperature=temps[i % len(temps)])
+                for i, (p, n) in enumerate(work)]
+        eng.run()
+        by_rid = {r.rid: r.output for r in eng.finished}
+        return [by_rid[r] for r in rids]
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    cfg = llama.llama3_8b()
+    params = llama.init_params(cfg, gen(args.seed), dev)
+    prompt = torch.randint(0, cfg.vocab_size, (smoke.BATCH, smoke.PROMPT), device=dev,
+                           generator=gen(args.seed + 1))
+    out = {"greedy": llama.greedy_generate(params, prompt, cfg,
+                                           max_new_tokens=smoke.NEW_TOKENS).tolist()}
+    config6 = [(p, smoke.serve_budget(i))
+               for i, p in enumerate(smoke.serve_prompts(torch, cfg, args.seed + 11, dev))]
+    for name, temps in (("serving", (0.0,)), ("serving_sampled", smoke.SERVE_TEMPS)):
+        eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**smoke.SERVE_PAGING))
+        out[name] = drain(eng, config6, temps)
+        del eng
+    eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**smoke.PREFIX_PAGING),
+                                decode_horizon=smoke.PREFIX_HORIZON, dispatch_depth=1)
+    out["prefix"] = drain(eng, [(p, n) for p, n, _ in smoke.mixed_workload(
+        torch, cfg, args.seed + 20, args.seed + 22, dev)])
+    del eng
+    qparams = quant.quantize_params(params)
+    out["int8_greedy"] = llama.greedy_generate(qparams, prompt, cfg,
+                                               max_new_tokens=smoke.NEW_TOKENS).tolist()
+    eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**smoke.SPEC_PAGING),
+                                decode_horizon=smoke.SPEC_HORIZON, dispatch_depth=1,
+                                draft_params=qparams, draft_cfg=cfg, spec_k=smoke.SPEC_K,
+                                spec_guard=False)
+    out["spec"] = drain(eng, [(p, smoke.SPEC_NEW) for p in smoke.spec_prompts(
+        torch, cfg, args.seed + 41, dev)])
+    del eng, qparams
+    dcfg = llama.llama_tiny(vocab_size=cfg.vocab_size)
+    draft = llama.init_params(dcfg, gen(args.seed + 7), dev)
+    sprompt = torch.randint(0, cfg.vocab_size, (1, smoke.STANDALONE_PROMPT), device=dev,
+                            generator=gen(args.seed + 9))
+    out["standalone_spec"] = speculative_generate(
+        params, draft, sprompt, cfg, dcfg, max_new_tokens=smoke.STANDALONE_NEW,
+        k=smoke.SPEC_K).tokens.tolist()
+    print(json.dumps({"tree": str(args.tree), "card": smoke.card_line(),
+                      "digests": {k: digest(v) for k, v in out.items()},
+                      "tokens": {k: sum(len(x) if isinstance(x, list) else 1 for x in v)
+                                 for k, v in out.items()}}),
+          flush=True)
+
+
+def pick_profile(smoke, torch, args, ops, dev) -> None:
+    """``--pick``: the pick cases."""
+    pdl = getattr(ops.pick_tokens_cuda, "pdl", None)
+    if pdl is not None and args.no_pdl:
+        ops.pick_tokens_cuda.pdl = pdl = False
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cases = [smoke.pick_case(torch, ops, flush, name, rows, smoke.VOCAB, temps,
+                             getattr(torch, dt), gen, dev)
+             for name, rows, temps, dt in smoke.PICK_CASES]
+    print(json.dumps({"tree": str(args.tree), "card": smoke.card_line(), "pdl": pdl,
+                      "cases": cases}), flush=True)
 
 
 def quant_profile(smoke, torch, args, llama, params, prompt, cfg, dev) -> None:

@@ -135,11 +135,22 @@ def test_port_kernel_shares_sorts_instances_by_kernel(smoke):
         E(key="void bobra::rmsnorm_kernel<__nv_bfloat16, false>(...)", self_device_time_total=60.0,
           count=130),
         E(key="nvjet_tst_192x8_64x8_4x1_v_bz_NNT", self_device_time_total=9000.0, count=128),
+        E(key="void bobra::pick::pick_tokens_kernel<float, true>(...)",
+          self_device_time_total=12.0, count=2),
     ]
     shares = smoke.port_kernel_shares(events, 2)
     assert shares == {"paged_attention": {"ms_per_step": pytest.approx(0.2), "calls_per_step": 32.0},
                       "flash_attention": {"ms_per_step": pytest.approx(0.15), "calls_per_step": 33.0},
-                      "rmsnorm": {"ms_per_step": pytest.approx(0.03), "calls_per_step": 65.0}}
+                      "rmsnorm": {"ms_per_step": pytest.approx(0.03), "calls_per_step": 65.0},
+                      "pick_tokens": {"ms_per_step": pytest.approx(0.006), "calls_per_step": 1.0}}
+
+
+def test_in_horizon_pick_is_per_tick_and_per_pick(smoke):
+    # an H-8 tick: one horizon of 8 picks, 0.042 ms of the pick in all
+    pick = smoke.in_horizon_pick({"ms_per_step": 0.042, "calls_per_step": 8.0})
+    assert pick == {"ms_per_tick": 0.042, "picks_per_tick": 8.0,
+                    "ms_per_pick": pytest.approx(0.00525)}
+    assert smoke.in_horizon_pick({"ms_per_step": 0.0, "calls_per_step": 0.0})["ms_per_pick"] is None
 
 
 def test_prefix_traffic_is_the_unified_leg_of_config_14(smoke):
@@ -241,12 +252,54 @@ def test_a_spec_round_and_a_catch_up_at_8b_widths(smoke):
         32, 225, 0)
 
 
+def test_the_graphed_pick_timer_finds_every_launch_cold(smoke):
+    # 16 or more launches, over copies of the logits that together exceed
+    # the H100's 50 MB L2
+    import torch
+
+    for _, rows, temps, dt in smoke.PICK_CASES:
+        logits, keyed = smoke.pick_inputs(torch, rows, 64, temps, getattr(torch, dt),
+                                          torch.Generator().manual_seed(0), "cpu")
+        assert len(keyed) == (0 if temps is None else 3)
+        nbytes = rows * smoke.VOCAB * logits.element_size()
+        n = max(smoke.PICK_GRAPH_CALLS, -(-smoke.PICK_GRAPH_BYTES // nbytes))
+        assert n >= 16 and n * nbytes > 50e6
+    copies = smoke.pick_copies(torch.zeros(1 << 20))   # 4 MiB: 16 copies, 64 MiB
+    assert len(copies) == 16 and len({c.data_ptr() for c in copies}) == 16
+    assert smoke.greedy_launches(32)["pick_tokens"] == 1 + smoke.NEW_TOKENS
+
+
+def test_pick_case_runs_on_the_plain_version(smoke, monkeypatch):
+    """pick_case's bookkeeping on the CPU: the kernel's wrapper stood in
+    for by the plain version, the card's timers by zeros."""
+    import types
+
+    import torch
+
+    from bobrapet_tpu_torch.ops import pick_tokens_reference
+
+    ops = types.SimpleNamespace(pick_tokens_cuda=pick_tokens_reference,
+                                pick_tokens_reference=pick_tokens_reference)
+    monkeypatch.setattr(smoke, "time_ms", lambda *a, **k: 0.0)
+    monkeypatch.setattr(smoke, "graphed_ms", lambda torch, calls: float(len(calls)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    for name, rows, temps, dt in smoke.PICK_CASES:
+        case = smoke.pick_case(torch, ops, None, name, rows, 1000, temps, getattr(torch, dt),
+                               torch.Generator().manual_seed(0), "cpu")
+        assert case["rows_agreeing"] == rows and case["max_abs_err"] == 0.0
+        assert case["graph_launches"] >= smoke.PICK_GRAPH_CALLS
+        assert case["graphed_ms"] == case["library_graphed_ms"] == case["graph_launches"]
+        assert case["bound_by"] == "bytes"
+
+
 def test_standalone_launches(smoke):
     got = smoke.standalone_launches(13, 4, 32, 2)
     cached = 13 * (32 + 5 * 2)
+    # picks: the first token, then per round 5 draft steps and one verify
     assert got == {"rmsnorm": 14 * 65 + 66 * 5, "add_rmsnorm": 14 * 64 + 66 * 4,
                    "flash_attention": 34 + cached, "cached_attention": cached,
-                   "paged_attention": 0, "paged_attention_multi": 0, "quant_matmul": 0}
+                   "paged_attention": 0, "paged_attention_multi": 0, "quant_matmul": 0,
+                   "pick_tokens": 1 + 13 * 6}
 
 
 def test_quant_bounds_are_the_int8_bytes(smoke):

@@ -24,6 +24,7 @@ from bobrapet_tpu_torch.ops import (
     cached_attention_reference,
     flash_attention_cuda,
     paged_attention_cuda,
+    pick_tokens_cuda,
     rmsnorm_cuda,
 )
 from bobrapet_tpu_torch.serving import PagedConfig, ServingEngine
@@ -137,13 +138,13 @@ def test_greedy_generate_graphed_equals_eager(cuda, dtype):
     runs = {}
     for graph in (False, True, True, False):
         rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
-        cached_attention_cuda.launches = 0
+        cached_attention_cuda.launches = pick_tokens_cuda.launches = 0
         out = llama.greedy_generate(params, prompt.to(cuda), cfg, max_new_tokens=7,
                                     cuda_graph=graph)
         torch.cuda.synchronize()
         counts = (rmsnorm_cuda.launches, flash_attention_cuda.launches,
-                  cached_attention_cuda.launches)
-        assert counts == ((2 * cfg.n_layers + 1) * 8, cfg.n_layers * 8, cfg.n_layers * 7)
+                  cached_attention_cuda.launches, pick_tokens_cuda.launches)
+        assert counts == ((2 * cfg.n_layers + 1) * 8, cfg.n_layers * 8, cfg.n_layers * 7, 8)
         runs.setdefault(graph, []).append(out)
     assert all(torch.equal(o, runs[False][0]) for o in runs[False] + runs[True])
     assert runs[True][0].dtype == torch.int32 and runs[True][0].shape == (3, 7)

@@ -437,10 +437,11 @@ class TestChipSmokeArithmetic:
     def test_greedy_launches_count_every_forward_and_replay(self, smoke):
         # 1 + 64 forwards of 32 layers: 65 norms each, 64 of them in the
         # add mode; the prefill's attention plus 64 decode steps' through
-        # the device-length entry, which the flash counter also counts
+        # the device-length entry, which the flash counter also counts; a
+        # pick a forward (the prefill's is the first token)
         assert smoke.greedy_launches(32) == {
             "rmsnorm": 65 * 65, "add_rmsnorm": 65 * 64, "flash_attention": 65 * 32,
-            "cached_attention": 64 * 32, "paged_attention": 0}
+            "cached_attention": 64 * 32, "paged_attention": 0, "pick_tokens": 65}
         assert smoke.GREEDY_RUNS == (False, True, True, False)
 
     def test_cached_decode_bound_and_split(self, smoke):

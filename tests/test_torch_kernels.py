@@ -708,3 +708,146 @@ def test_pick_tokens_refuses_what_it_does_not_take(cuda):
         pick_tokens_cuda(logits, torch.zeros(4, dtype=torch.float64, device=cuda), ids, ids)
     with pytest.raises(ValueError, match="rids must be contiguous"):
         pick_tokens_cuda(logits, torch.zeros(4, device=cuda), ids.cpu(), ids)
+
+
+# the redesigned pick: a row over several clusters (csrc/pick_tokens.cu,
+# ops.pick_tokens.pick_chunks), combined through the last cluster's ticket
+
+
+def _hold_pick(logits, temps, rids, index, got):
+    """Greedy rows (temps <= 0) bit for bit; a sampled row agrees, or the
+    plain version's top two lie within 1e-5 * max(1, |top|) and the kernel's
+    token scores that close to the best."""
+    want = pick_tokens_reference(logits, temps, rids, index)
+    greedy = temps <= 0
+    assert torch.equal(got[greedy], want[greedy])
+    s_rows = (~greedy).nonzero()[:, 0]
+    if len(s_rows):
+        t = temps[s_rows].clamp_min(pick_ops.TEMP_FLOOR)
+        scores = _sampled_scores(logits[s_rows], t, rids[s_rows], index[s_rows])
+        top = scores.topk(min(2, logits.shape[1]), dim=-1).values
+        allowed = 1e-5 * top[:, 0].abs().clamp(min=1.0)
+        picked = scores.gather(1, got[s_rows].long()[:, None])[:, 0]
+        assert bool(((top[:, 0] - picked) <= allowed).all())
+
+
+def _keys(rows, device, every=4, temp=0.9):
+    """Every ``every``-th row sampled at ``temp``, the rest greedy."""
+    temps = torch.where(torch.arange(rows, device=device) % every == 0, temp, 0.0)
+    rids = torch.arange(rows, dtype=torch.int32, device=device) * 31 + 3
+    index = torch.arange(rows, dtype=torch.int32, device=device) % 13
+    return temps.float(), rids, index
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("v", [1, 3, 5, 4097, 128256])
+@pytest.mark.parametrize("rows", [1, 8, 40, 1024])
+def test_pick_tokens_over_every_cluster_count(cuda, rows, v, aligned):
+    dtype = torch.float32 if (rows + v) % 2 else torch.bfloat16
+    flat = _randn((rows * v + 1,), dtype, cuda, rows * 7 + v) * 3
+    logits = (flat[:rows * v] if aligned else flat[1:]).view(rows, v)
+    assert (logits.data_ptr() % 16 == 0) == aligned
+    temps, rids, index = _keys(rows, cuda)
+    before = pick_tokens_cuda.launches
+    greedy = pick_tokens_cuda(logits)
+    got = pick_tokens_cuda(logits, temps, rids, index)
+    torch.cuda.synchronize()
+    assert pick_tokens_cuda.launches == before + 2
+    assert torch.equal(greedy, pick_tokens_reference(logits))
+    _hold_pick(logits, temps, rids, index, got)
+    # the same bits again, whatever order the clusters end in
+    for _ in range(3):
+        assert torch.equal(pick_tokens_cuda(logits, temps, rids, index), got)
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+def test_pick_tokens_equal_maxima_in_two_clusters_take_the_lower_index(cuda, rows):
+    v = 128256
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunks = pick_ops.pick_chunks(rows, v, sms)
+    assert chunks > 1
+    parts = pick_ops.pick_splits(v) * chunks
+    per_cluster = 4 * pick_ops.pick_splits(v) * -(-(-(-v // 4)) // parts)   # its logits
+    logits = _randn((rows, v), torch.float32, cuda, 90 + rows)
+    lo, hi = 37, (chunks - 1) * per_cluster + 11   # the first and the last cluster
+    assert hi < v - 5
+    logits[:, hi] = logits[:, lo] = 100.0
+    assert pick_tokens_cuda(logits).tolist() == [lo] * rows
+    # two NaNs: the first wins; one NaN in the last cluster beats any score
+    nan = logits.clone()
+    nan[:, v - 3] = float("nan")
+    assert pick_tokens_cuda(nan).tolist() == [v - 3] * rows
+    nan[:, hi - 5] = float("nan")
+    assert pick_tokens_cuda(nan).tolist() == [hi - 5] * rows
+    temps = torch.full((rows,), 0.7, device=cuda)
+    ids = torch.arange(rows, dtype=torch.int32, device=cuda)
+    assert pick_tokens_cuda(nan, temps, ids, ids).tolist() == [hi - 5] * rows
+
+
+def test_pick_tokens_floors_a_subnormal_temperature(cuda):
+    logits = (torch.randn(4, 128256, generator=torch.Generator().manual_seed(0)) * 3).to(cuda)
+    rids = torch.arange(4, dtype=torch.int32, device=cuda) * 7 + 1
+    index = torch.arange(4, dtype=torch.int32, device=cuda)
+    for temp in (1e-39, 1e-37, 1e-6):
+        got = pick_tokens_cuda(logits, torch.full((4,), temp, device=cuda), rids, index)
+        assert got.tolist() == [36885, 62653, 15810, 102285]
+
+
+@pytest.mark.parametrize("pdl", [True, False])
+def test_pick_tokens_graph_replays_reset_the_ticket(cuda, pdl):
+    """100 replays of one captured pick of a row split over several
+    clusters: each replay writes its own tokens (the static output is
+    cleared before, the logits alternate), so a ticket left behind shows."""
+    rows, v = 8, 128256
+    a = _randn((rows, v), torch.float32, cuda, 5)
+    b = _randn((rows, v), torch.float32, cuda, 6)
+    temps, rids, index = _keys(rows, cuda, every=2)
+    logits = a.clone()
+    assert not torch.equal(pick_tokens_reference(a, temps, rids, index),
+                           pick_tokens_reference(b, temps, rids, index))
+    old = pick_tokens_cuda.pdl
+    pick_tokens_cuda.pdl = pdl
+    try:
+        pick_tokens_cuda(logits, temps, rids, index)   # built and loaded outside the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = pick_tokens_cuda(logits, temps, rids, index)
+        first = {}
+        for n in range(100):
+            logits.copy_(a if n % 2 == 0 else b)
+            out.fill_(-1)
+            graph.replay()
+            torch.cuda.synchronize()
+            if n < 2:
+                _hold_pick(logits, temps, rids, index, out)
+                first[n] = out.clone()
+            assert torch.equal(out, first[n % 2])
+    finally:
+        pick_tokens_cuda.pdl = old
+
+
+def test_greedy_and_speculative_loops_pick_every_token_on_the_card(cuda):
+    from bobrapet_tpu_torch.models import speculative_generate
+
+    cfg = llama.llama_tiny()
+    params_cpu = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = _to(params_cpu, cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 9), generator=torch.Generator().manual_seed(1))
+    for graph in (False, True):
+        pick_tokens_cuda.launches = 0
+        out = llama.greedy_generate(params, prompt.to(cuda), cfg, max_new_tokens=7,
+                                    cuda_graph=graph)
+        torch.cuda.synchronize()
+        assert pick_tokens_cuda.launches == 1 + 7
+        assert torch.equal(out.cpu(), llama.greedy_generate(params_cpu, prompt, cfg,
+                                                            max_new_tokens=7))
+    k = 3
+    pick_tokens_cuda.launches = 0
+    res = speculative_generate(params, params, prompt[:1].to(cuda), cfg, cfg, max_new_tokens=10,
+                               k=k)
+    torch.cuda.synchronize()
+    assert pick_tokens_cuda.launches == 1 + res.rounds * (k + 2)
+    want = speculative_generate(params_cpu, params_cpu, prompt[:1], cfg, cfg, max_new_tokens=10,
+                                k=k)
+    assert res.tokens.cpu().tolist() == want.tokens.tolist()

@@ -151,6 +151,25 @@ class TestGreedy:
                                max_new_tokens=4)
         assert calls == [5, 1, 1, 1, 1]
 
+    def test_every_token_goes_through_the_pick(self, tiny, monkeypatch):
+        """1 + max_new_tokens picks (the prefill's row, then one a decode
+        step), each over contiguous all-greedy rows, and JAX's tokens."""
+        cfg_j, params_j, cfg_t, params_t = tiny
+        calls = []
+        pick = tllama.pick_tokens
+
+        def counting_pick(logits, *keyed):
+            assert logits.is_contiguous() and not keyed
+            calls.append(tuple(logits.shape))
+            return pick(logits, *keyed)
+
+        monkeypatch.setattr(tllama, "pick_tokens", counting_pick)
+        prompt = _tokens(7, (3, 6), cfg_j.vocab_size)
+        out = tllama.greedy_generate(params_t, torch.from_numpy(prompt), cfg_t, max_new_tokens=5)
+        assert calls == [(3, cfg_t.vocab_size)] * (1 + 5)
+        ref = jllama.greedy_generate(params_j, jnp.asarray(prompt), cfg_j, max_new_tokens=5)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
     def test_capacity_error(self, tiny):
         _, _, cfg_t, params_t = tiny
         with pytest.raises(ValueError, match="exceeds cache capacity"):

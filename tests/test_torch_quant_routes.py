@@ -174,7 +174,7 @@ def test_route_d_writes_no_widened_weight_and_route_p_uses_wgmma():
 def test_int8_greedy_leg_launches(smoke):
     got = smoke.int8_launches(32)
     assert got == {"rmsnorm": 65 * 65, "add_rmsnorm": 65 * 64, "flash_attention": 65 * 32,
-                   "cached_attention": 64 * 32, "paged_attention": 0,
+                   "cached_attention": 64 * 32, "paged_attention": 0, "pick_tokens": 65,
                    "quant_matmul": 65 * 225, "routes": {"D": 64 * 225, "P": 225, "F": 0}}
     # the prefill's products run on route P, the decode steps' on route D
     for _, n in SHAPES_8B:

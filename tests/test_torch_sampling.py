@@ -21,8 +21,13 @@ token index), Gumbel-max; ``ops/pick_tokens.py``). Held here:
   preemption and speculation (bit-identical tokens: the same key and the
   same logits up to the float rounding of the forms of a forward, which
   the seeds here never bring near a tie);
-- the wrapper's contract: the kernel's C signature, the cluster split, and
-  a CPU tensor refused by ``pick_tokens_cuda``.
+- the wrapper's contract: the kernel's C signature, the cluster split, the
+  clusters a row takes (``pick_chunks``, the C entry's ``chunks_for``), the
+  flags the entry's ``vec`` carries, and a CPU tensor refused by
+  ``pick_tokens_cuda``;
+- the temperature's floor (JAX's ``jnp.maximum(t, 1e-6)``): a subnormal or
+  tiny T picks as T = 1e-6 does, the argmax on well-separated logits, in
+  the op and in the prefill's ``_sample_host``.
 """
 
 import importlib
@@ -184,12 +189,63 @@ def test_a_draw_is_keyed_by_rid_and_token_index_alone():
     assert len(set(many.tolist())) > 50
 
 
+#: fp32 [4, 128256] = torch.randn * 3 at seed 0: each row's argmax
+FLOOR_ROWS_ARGMAX = [36885, 62653, 15810, 102285]
+
+
+def _floor_rows():
+    return torch.randn(4, 128_256, generator=torch.Generator().manual_seed(0)) * 3
+
+
+@pytest.mark.parametrize("temp", [1e-39, 1e-37])
+def test_a_tiny_temperature_is_floored_at_1e_6(temp):
+    logits = _floor_rows()
+    rids = torch.arange(4, dtype=torch.int32) * 7 + 1
+    index = torch.arange(4, dtype=torch.int32)
+    got = pick_tokens(logits, torch.full((4,), temp), rids, index)
+    assert got.tolist() == FLOOR_ROWS_ARGMAX == logits.argmax(-1).tolist()
+    assert got.tolist() == np.asarray(jnp.argmax(jnp.asarray(logits.numpy()), -1)).tolist()
+    # the same draw as at the floor itself: one rule, T = max(T, 1e-6)
+    at_floor = pick_tokens(logits, torch.full((4,), 1e-6), rids, index)
+    assert torch.equal(got, at_floor)
+    # the fp32 floor, as jnp.maximum sees it, divides
+    scores = logits / np.float32(1e-6) + pick_ops.gumbel_noise(rids, index, logits.shape[1])
+    assert got.tolist() == scores.argmax(-1).tolist()
+
+
 def test_pick_splits_the_row_over_a_cluster_of_up_to_8():
     assert pick_ops.pick_splits(128_256) == 8
     per = 4 * pick_ops._GROUPS_PER_BLOCK   # the logits one block takes
     assert [pick_ops.pick_splits(v) for v in (1, 512, per, per + 1, 2 * per, 2 * per + 1,
                                               4 * per, 4 * per + 1)] == [1, 1, 1, 2, 2, 4, 4, 8]
     assert pick_ops.pick_splits(10 ** 7) == pick_ops.MAX_SPLITS == 8
+
+
+def test_pick_chunks_fills_the_card_with_a_rows_clusters():
+    sms = 132  # the H100's
+    # an engine step's rows, a verify's, one row (the standalone draft),
+    # a flood of rows, and rows too short for a second cluster
+    assert [pick_ops.pick_chunks(r, 128_256, sms) for r in (8, 40, 1, 1024)] == [8, 2, 15, 1]
+    assert [pick_ops.pick_chunks(8, v, sms) for v in (1, 3, 5, 512, 4097)] == [1, 1, 1, 1, 4]
+    for rows in (1, 2, 3, 8, 17, 40, 100, 500, 1024, 65535):
+        for v in (1, 3, 5, 4097, 32_000, 128_256, 10 ** 6):
+            c = pick_ops.pick_chunks(rows, v, sms)
+            splits = pick_ops.pick_splits(v)
+            assert 1 <= c <= pick_ops.MAX_CHUNKS
+            if c > 1:
+                # a partial slot a cluster; a group of 4 a thread at least;
+                # about BLOCKS_PER_SM blocks an SM, never twice that
+                assert rows * c <= pick_ops.MAX_PARTIALS
+                assert -(-v // 4) >= c * splits * pick_ops.BLOCK_THREADS
+                assert rows * splits * c <= 2 * sms * pick_ops.BLOCKS_PER_SM
+    # the split of a row covers each group once: contiguous parts
+    v, rows = 128_256, 8
+    parts = pick_ops.pick_splits(v) * pick_ops.pick_chunks(rows, v, sms)
+    groups = -(-v // 4)
+    per = -(-groups // parts)
+    spans = [(per * b, min(per * (b + 1), groups)) for b in range(parts)]
+    assert spans[0][0] == 0 and spans[-1][1] == groups
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
 
 
 def test_the_c_entry_point_and_its_constants():
@@ -205,6 +261,29 @@ def test_the_c_entry_point_and_its_constants():
     # the Philox constants of the plain version
     for c in (*pick_ops._PHILOX_M, *pick_ops._PHILOX_W):
         assert f"0x{c:08X}u" in text
+
+
+def test_the_c_entry_mirrors_the_chunk_rule_flags_and_floor():
+    text = (CSRC / "pick_tokens.cu").read_text()
+
+    def const(name):
+        return re.search(rf"constexpr (?:int|float) {name} = ([0-9.e-]+)f?;", text).group(1)
+
+    assert int(const("kBlockThreads")) == pick_ops.BLOCK_THREADS
+    assert int(const("kBlocksPerSm")) == pick_ops.BLOCKS_PER_SM
+    assert int(const("kThreads")) == pick_ops.BLOCK_THREADS * pick_ops.BLOCKS_PER_SM
+    assert int(const("kMaxChunks")) == pick_ops.MAX_CHUNKS
+    assert int(const("kMaxPartials")) == pick_ops.MAX_PARTIALS
+    assert int(const("kFlagVec")) == pick_ops.FLAG_VEC == 1
+    assert int(const("kFlagPdl")) == pick_ops.FLAG_PDL == 2
+    assert float(const("kTempFloor")) == pick_ops.TEMP_FLOOR == 1e-6
+    # the entry derives the clusters of a row from the card's SMs
+    assert "chunks_for(rows, v, splits, sms)" in text
+    assert "cudaDevAttrMultiProcessorCount" in text
+    # the entry refuses any other bit of vec
+    assert "vec & ~(pick::kFlagVec | pick::kFlagPdl)" in text
+    # programmatic dependent launch is on unless a measurement turns it off
+    assert pick_tokens_cuda.pdl is True
 
 
 def test_the_wrapper_refuses_what_the_kernel_does_not_take():
@@ -283,6 +362,17 @@ def test_sampled_streams_do_not_depend_on_the_schedule(port, variant):
         assert eng.blocks.hit_tokens > 0
     if paging.get("prefill_chunk"):
         assert eng.phase_counts["chunks"] > 0
+
+
+def test_a_subnormal_temperature_in_the_engine_is_floored(port):
+    """The prefill's first token (``_sample_host``) and the fused picks
+    after it: T = 1e-39 draws what T = 1e-6 draws (the same rids), and on
+    these logits that is the greedy stream."""
+    _, tiny = _serve(port, PagedConfig(**BASE), temps=(1e-39,))
+    eng, floor = _serve(port, PagedConfig(**BASE), temps=(1e-6,))
+    _, greedy = _serve(port, PagedConfig(**BASE), temps=(0.0,))
+    assert eng.phase_counts["prefill_picks"] >= 6
+    assert tiny == floor == greedy
 
 
 def test_sampled_requests_draw_and_greedy_ones_do_not(port):

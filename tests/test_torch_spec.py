@@ -31,6 +31,7 @@ a separate random one-layer model (a draft that mostly disagrees). Held:
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -321,6 +322,34 @@ def test_speculative_generate_matches_jax_and_greedy(models, draft, k):
     if draft == "perfect":
         # every proposal matches: k + 1 tokens a round until the budget
         assert got.rounds == -(-(n - 1) // (k + 1))
+
+
+def test_speculative_generate_picks_every_token_through_the_pick(models, monkeypatch):
+    """1 + rounds x (k + 2) picks over contiguous all-greedy rows (the
+    first token, k + 1 draft steps and one verify of k + 1 rows a round),
+    and JAX's tokens."""
+    spec_mod = importlib.import_module("bobrapet_tpu_torch.models.speculative")
+    cfg_j, cfg_t = models["cfg"]
+    params_j, params_t = models["params"]
+    dj, dt, dcfg_j, dcfg_t = models["drafts"]["tiny"]
+    calls = []
+    pick = spec_mod.pick_tokens
+
+    def counting_pick(logits, *keyed):
+        assert logits.is_contiguous() and not keyed
+        calls.append(logits.shape[0])
+        return pick(logits, *keyed)
+
+    monkeypatch.setattr(spec_mod, "pick_tokens", counting_pick)
+    k, n = 3, 11
+    p = prompt(np.random.default_rng(77), 7, cfg_t.vocab_size)
+    got = speculative_generate(params_t, dt, torch.tensor([p]), cfg_t, dcfg_t, max_new_tokens=n,
+                               k=k)
+    assert calls == [1] + ([1] * (k + 1) + [k + 1]) * got.rounds
+    want = jspec.speculative_generate(params_j, dj, jnp.asarray([p], jnp.int32), cfg_j, dcfg_j,
+                                      max_new_tokens=n, k=k)
+    assert got.tokens.tolist() == np.asarray(want.tokens).tolist()
+    assert got.rounds == int(want.rounds)
 
 
 def test_speculative_generate_refuses_a_batch_and_an_overlong_request(models):
