@@ -29,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -387,6 +387,17 @@ def device_cursor(cache: list[dict[str, Any]]) -> torch.Tensor:
     return cursor
 
 
+#: a model family's forward for the greedy loop: (params, tokens, cfg,
+#: cache, positions) -> (logits, cache)
+ForwardFn = Callable[[dict, torch.Tensor, Any, list, torch.Tensor], tuple[torch.Tensor, list]]
+
+
+def _plain_forward(params: dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
+                   cache: list[dict[str, Any]], positions: torch.Tensor
+                   ) -> tuple[torch.Tensor, list[dict[str, Any]]]:
+    return forward(params, tokens, cfg, cache=cache, positions=positions)
+
+
 class GreedyDecoder:
     """The decode loop of :func:`greedy_generate` over a prefilled cache.
 
@@ -397,11 +408,14 @@ class GreedyDecoder:
     cursor, all in place. So every step is the same launches on the same
     tensors: on a card (``cuda_graph``) the first step runs eagerly and is
     captured, and every later one is a replay of that CUDA graph; on the
-    CPU, or with ``cuda_graph=False``, each step runs eagerly."""
+    CPU, or with ``cuda_graph=False``, each step runs eagerly.
+    ``forward_fn`` swaps the model family, as in :func:`greedy_generate`."""
 
     def __init__(self, params: dict[str, Any], cfg: LlamaConfig, cache: list[dict[str, Any]],
-                 tok: torch.Tensor, pos: int, cuda_graph: bool = True):
+                 tok: torch.Tensor, pos: int, cuda_graph: bool = True,
+                 forward_fn: Optional[ForwardFn] = None):
         self.params, self.cfg, self.cache = params, cfg, cache
+        self.forward_fn = forward_fn or _plain_forward
         device_cursor(cache)
         self.tok = tok.to(torch.int32).reshape(-1, 1).contiguous()
         self.pos = torch.full(self.tok.shape, pos, dtype=torch.long, device=tok.device)
@@ -409,7 +423,7 @@ class GreedyDecoder:
 
     @torch.no_grad()
     def _forward(self, tok: torch.Tensor, pos: torch.Tensor) -> None:
-        logits, _ = forward(self.params, tok, self.cfg, cache=self.cache, positions=pos)
+        logits, _ = self.forward_fn(self.params, tok, self.cfg, self.cache, pos)
         tok.copy_(pick_tokens(logits[:, -1])[:, None])  # [B, V]: contiguous at S = 1
         pos.add_(1)
 
@@ -425,6 +439,7 @@ def greedy_generate(
     max_new_tokens: int = 32,
     cache_capacity: Optional[int] = None,
     cuda_graph: bool = True,
+    forward_fn: Optional[ForwardFn] = None,
 ) -> torch.Tensor:
     """Greedy decode with a KV cache: one prefill, then one forward per
     token, 1 + ``max_new_tokens`` forwards in all (the JAX scan's count;
@@ -435,7 +450,12 @@ def greedy_generate(
     host cursor; the decode steps go through :class:`GreedyDecoder`, as
     one CUDA graph replayed per step on a card unless ``cuda_graph`` is
     False. Tokens stay on the prompt's device; nothing syncs with the
-    host per step."""
+    host per step.
+
+    ``forward_fn(params, tokens, cfg, cache, positions) -> (logits,
+    cache)`` swaps the model family (the MoE family reuses this loop rather
+    than copying it); it must consume the cache as :func:`forward` does."""
+    forward_fn = forward_fn or _plain_forward
     b, prompt_len = prompt.shape
     cap = cache_capacity or min(cfg.max_seq_len, prompt_len + max_new_tokens)
     if prompt_len + max_new_tokens > cap:
@@ -447,14 +467,14 @@ def greedy_generate(
     cache = init_cache(cfg, b, cap, device=device)
 
     positions = torch.arange(prompt_len, device=device).expand(b, prompt_len)
-    logits, _ = forward(params, prompt, cfg, cache=cache, positions=positions)
+    logits, _ = forward_fn(params, prompt, cfg, cache, positions)
     out = torch.empty((b, max_new_tokens), dtype=torch.int32, device=device)
     if max_new_tokens == 0:
         return out
     # the prompt's last row of logits, copied out of [B, P, V] (the pick
     # takes contiguous rows)
     decoder = GreedyDecoder(params, cfg, cache, pick_tokens(logits[:, -1].contiguous()),
-                            prompt_len, cuda_graph=cuda_graph)
+                            prompt_len, cuda_graph=cuda_graph, forward_fn=forward_fn)
     for i in range(max_new_tokens):
         out[:, i:i + 1].copy_(decoder.tok)
         decoder.step()

@@ -8,6 +8,18 @@ from .attention import (
     cached_attention_reference,
     flash_attention_cuda,
 )
+from .moe_dispatch import (
+    moe_aux,
+    moe_combine,
+    moe_combine_cuda,
+    moe_combine_reference,
+    moe_dispatch,
+    moe_dispatch_cuda,
+    moe_dispatch_reference,
+    moe_route,
+    moe_route_cuda,
+    moe_route_reference,
+)
 from .paged_attention import (
     paged_attention,
     paged_attention_cuda,
@@ -38,6 +50,16 @@ __all__ = [
     "cached_attention_cuda",
     "cached_attention_reference",
     "flash_attention_cuda",
+    "moe_aux",
+    "moe_combine",
+    "moe_combine_cuda",
+    "moe_combine_reference",
+    "moe_dispatch",
+    "moe_dispatch_cuda",
+    "moe_dispatch_reference",
+    "moe_route",
+    "moe_route_cuda",
+    "moe_route_reference",
     "paged_attention",
     "paged_attention_cuda",
     "paged_attention_multi",

@@ -105,6 +105,8 @@ from ..models.llama import (
     init_cache,
 )
 from ..models.lora import select_adapter
+from ..models.moe import moe_mlp_block, routed_forward
+from ..models.quant import is_quantized
 from ..ops.paged_attention import paged_attention
 from ..ops.pick_tokens import pick_tokens
 from .paged_cache import (
@@ -290,10 +292,29 @@ class ServingEngine:
                 raise ValueError(
                     f"draft vocab_size {draft_cfg.vocab_size} != target {cfg.vocab_size}: "
                     "draft and target must share the tokenizer")
-        if _is_moe(cfg):
-            raise NotImplementedError(
-                "MoE serving is not ported yet: pass a dense LlamaConfig (the MoE "
-                "family comes with ROADMAP Queue 1 item 8)")
+        #: sparse-MoE family (MoEConfig): the decode step swaps the dense
+        #: MLP for the routed block; attention, paging, scheduling are the
+        #: same. JAX's checks, in its order, with its messages.
+        self.is_moe = _is_moe(cfg)
+        if self.is_moe:
+            if loras is not None:
+                raise ValueError("multi-LoRA serving is dense-family only")
+            if cfg.capacity_factor < cfg.n_experts:
+                # every slot is routed as one token batch: under a droppy
+                # capacity, co-scheduled requests (and inactive slots) would
+                # displace each other's experts, and outputs would vary with
+                # co-tenancy
+                raise ValueError(
+                    f"MoE serving requires a no-drop capacity_factor "
+                    f">= n_experts ({cfg.n_experts}); got "
+                    f"{cfg.capacity_factor}. Use dataclasses.replace "
+                    f"(moe_config_from_hf defaults to no-drop).")
+            router = params["layers"][0]["moe"]["w_router"]
+            if is_quantized(router) or isinstance(router, dict):
+                raise ValueError(
+                    "int8 weight-only quantization is dense-family "
+                    "only (the MoE dispatch einsums do not consume "
+                    "quantized leaves)")
         if role != "unified":
             raise NotImplementedError(
                 f"role {role!r} is not ported yet: pass role='unified' (disaggregated "
@@ -939,9 +960,9 @@ class ServingEngine:
             table = prefix_blocks + [SCRATCH_BLOCK] * (prefix_bucket - len(prefix_blocks))
             return _prefill_bucket(params, pools, suffix, self._upload(table, torch.long),
                                    prefix_len, target, lora, cfg=cfg, pcfg=self.pcfg,
-                                   bucket=bucket, lora_scale=lora_scale)
+                                   bucket=bucket, lora_scale=lora_scale, is_moe=_is_moe(cfg))
         return _prefill_plain(params, pools, suffix, target, lora, cfg=cfg, bucket=bucket,
-                              lora_scale=lora_scale)
+                              lora_scale=lora_scale, is_moe=_is_moe(cfg))
 
     def _decode_once(self) -> list[int]:
         if self.draft_params is None or not self.spec_active:
@@ -980,7 +1001,7 @@ class ServingEngine:
                                                active, tables, self.loras, adapters,
                                                cfg=self.cfg, pcfg=self.pcfg,
                                                lora_scale=self.lora_scale, temps=temps,
-                                               rids=rids, emitted=emitted)
+                                               rids=rids, emitted=emitted, is_moe=self.is_moe)
         host, ready = next_tokens, None
         if next_tokens.device.type == "cuda":
             host = torch.empty(next_tokens.shape, dtype=next_tokens.dtype, pin_memory=True)
@@ -1163,7 +1184,7 @@ class ServingEngine:
                               dtype=torch.int32, device=self.device)
             fn = functools.partial(_horizon_plain, self.params, self.pools, loras=self.loras,
                                    cfg=self.cfg, pcfg=self.pcfg, H=horizon,
-                                   lora_scale=self.lora_scale)
+                                   lora_scale=self.lora_scale, is_moe=self.is_moe)
             hz = self._hz[horizon] = (GraphedStep(fn, self._dev, out), [])
         return hz
 
@@ -1859,18 +1880,31 @@ class ServingEngine:
 # ---------------------------------------------------------------------------
 
 
+def _family_forward(params: dict[str, Any], tokens: torch.Tensor, cfg: Any,
+                    cache: list[dict[str, Any]], positions: torch.Tensor, lora: Optional[Any],
+                    lora_scale: float, is_moe: bool
+                    ) -> tuple[torch.Tensor, list[dict[str, Any]]]:
+    """Dense vs MoE forward behind one ``(logits, cache)`` signature (the
+    MoE one without its aux loss, which serving drops)."""
+    if is_moe:
+        return routed_forward(params, tokens, cfg, cache, positions)
+    return forward(params, tokens, cfg, cache=cache, positions=positions, lora=lora,
+                   lora_scale=lora_scale)
+
+
 @torch.no_grad()
 def _prefill_plain(params: dict[str, Any], pools: dict[str, torch.Tensor],
                    tokens: torch.Tensor, block_ids: torch.Tensor, lora: Optional[Any] = None, *,
-                   cfg: LlamaConfig, bucket: int, lora_scale: float = 1.0):
+                   cfg: LlamaConfig, bucket: int, lora_scale: float = 1.0,
+                   is_moe: bool = False):
     """Full-prompt prefill without a shared prefix: a fresh contiguous cache
     of exactly bucket capacity, the model forward (under one adapter's
     ``lora`` tree, or none), then its K/V scattered into the blocks.
     Returns ``(pools, logits [1, bucket, V])``."""
     cache = init_cache(cfg, 1, bucket, device=tokens.device)
     positions = torch.arange(bucket, device=tokens.device)[None, :]
-    logits, cache = forward(params, tokens, cfg, cache=cache, positions=positions, lora=lora,
-                            lora_scale=lora_scale)
+    logits, cache = _family_forward(params, tokens, cfg, cache, positions, lora, lora_scale,
+                                    is_moe)
     k = torch.stack([c["k"][0] for c in cache])
     v = torch.stack([c["v"][0] for c in cache])
     return write_prefill(pools, k, v, block_ids), logits
@@ -1881,7 +1915,7 @@ def _prefill_bucket(params: dict[str, Any], pools: dict[str, torch.Tensor],
                     suffix_tokens: torch.Tensor, prefix_table: torch.Tensor, prefix_len: int,
                     suffix_blocks: torch.Tensor, lora: Optional[Any] = None, *,
                     cfg: LlamaConfig, pcfg: PagedConfig, bucket: int,
-                    lora_scale: float = 1.0):
+                    lora_scale: float = 1.0, is_moe: bool = False):
     """The suffix forward against a contiguous cache seeded with the
     prefix's KV (:func:`~.paged_cache.init_cache_seed`); the suffix's K/V
     lands in the sequence's ``suffix_blocks``. The cursor is the host int
@@ -1890,8 +1924,8 @@ def _prefill_bucket(params: dict[str, Any], pools: dict[str, torch.Tensor],
     Returns ``(pools, logits [1, bucket, V])``."""
     cache = init_cache_seed(pools, prefix_table, prefix_len, extra=bucket)
     positions = prefix_len + torch.arange(bucket, device=suffix_tokens.device)[None, :]
-    logits, cache = forward(params, suffix_tokens, cfg, cache=cache, positions=positions,
-                            lora=lora, lora_scale=lora_scale)
+    logits, cache = _family_forward(params, suffix_tokens, cfg, cache, positions, lora,
+                                    lora_scale, is_moe)
     # the suffix K/V sits at [prefix_len, prefix_len + bucket) (block-aligned:
     # shared prefixes are whole blocks)
     k = torch.stack([c["k"][0, prefix_len:prefix_len + bucket] for c in cache])
@@ -1906,7 +1940,7 @@ def _decode_step(params: dict[str, Any], pools: dict[str, torch.Tensor],
                  adapter_idx: Optional[torch.Tensor] = None, *, cfg: LlamaConfig,
                  pcfg: PagedConfig, lora_scale: float = 1.0,
                  temps: Optional[torch.Tensor] = None, rids: Optional[torch.Tensor] = None,
-                 emitted: Optional[torch.Tensor] = None):
+                 emitted: Optional[torch.Tensor] = None, is_moe: bool = False):
     """One fused token step for every slot: the incoming token sits at
     position ``seq_len - 1``; its K/V is written into the pools before the
     layer's attention reads them. With a stacked ``loras`` tree each slot
@@ -1914,7 +1948,10 @@ def _decode_step(params: dict[str, Any], pools: dict[str, torch.Tensor],
     :func:`models.lora.lora_delta_slots`). The next token is
     :func:`~bobrapet_tpu_torch.ops.pick_tokens` of the logits: greedy
     without ``temps``, else keyed by ``rids`` and the token indices
-    ``emitted`` (each [S] on the device). Returns ``(pools, next tokens [S]
+    ``emitted`` (each [S] on the device). ``is_moe``: the routed MLP
+    (:func:`models.moe.moe_mlp_block`), the slots one token batch; inactive
+    slots are routed too, and at the no-drop capacity the engine requires
+    they take no live slot's place. Returns ``(pools, next tokens [S]
     int32)``, all on the device."""
     S = tokens.shape[0]
     freqs = _freqs_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, cfg.rope_scaling,
@@ -1937,7 +1974,10 @@ def _decode_step(params: dict[str, Any], pools: dict[str, torch.Tensor],
         out = _paged_attention(q, pools, block_tables, seq_lens, layer_i, cfg)
         delta = _lora_mm(out.reshape(S, 1, cfg.dim), layer["attn"]["wo"], lora_layer, "wo",
                          lora_scale, adapter_idx)
-        x, delta = _mlp_block(layer, x, delta, cfg, *lora)
+        if is_moe:
+            x, delta = moe_mlp_block(layer, x, delta, cfg)
+        else:
+            x, delta = _mlp_block(layer, x, delta, cfg, *lora)
 
     logits = _logits(params, x, delta, cfg)[:, 0]  # [S, V]
     return pools, pick_tokens(logits, temps, rids, emitted)
@@ -1946,7 +1986,8 @@ def _decode_step(params: dict[str, Any], pools: dict[str, torch.Tensor],
 @torch.no_grad()
 def _horizon_plain(params: dict[str, Any], pools: dict[str, torch.Tensor], lanes: torch.Tensor,
                    out: torch.Tensor, loras: Optional[Any] = None, *, cfg: LlamaConfig,
-                   pcfg: PagedConfig, H: int, lora_scale: float = 1.0) -> torch.Tensor:
+                   pcfg: PagedConfig, H: int, lora_scale: float = 1.0,
+                   is_moe: bool = False) -> torch.Tensor:
     """H fused steps over the device lane state, no host read: each step is
     :func:`_decode_step` over every slot (each lane's token picked at its
     ``LANE_TEMP``, keyed by its ``LANE_RID`` and emitted count), then JAX's
@@ -1972,7 +2013,7 @@ def _horizon_plain(params: dict[str, Any], pools: dict[str, torch.Tensor], lanes
     for t in range(H):
         pools, tok = _decode_step(params, pools, last, seq, act, tables, loras, adapters,
                                   cfg=cfg, pcfg=pcfg, lora_scale=lora_scale, temps=temps,
-                                  rids=rids, emitted=emitted)
+                                  rids=rids, emitted=emitted, is_moe=is_moe)
         live = act.to(torch.int32)
         emitted = emitted + live
         seq = seq + live

@@ -8,8 +8,8 @@ Phases, each fatal on failure (exit 1, and no result line):
 1. the card: its name and power limit (nvidia-smi); no card, no run;
 2. build every kernel in bobrapet_tpu_torch/csrc with nvcc for sm_90a,
    and print each kernel instance's ptxas line (registers, static shared
-   memory, spills); a spill in a tensor-core attention kernel or in an
-   RMSNorm instance fails the run;
+   memory, spills); a spill in a tensor-core attention kernel, an
+   RMSNorm, int8, pick or MoE instance fails the run;
 3. each kernel against its plain PyTorch version on the card, in bf16 at
    the main paths' shapes (greedy prefill and decode, the greedy decode
    with device lengths over the whole 192-row cache, RMSNorm alone and
@@ -27,7 +27,11 @@ Phases, each fatal on failure (exit 1, and no result line):
    more launches over as many copies of its logits, over 50 MB together,
    so that each launch finds its logits cold: the time the engine's graphs
    see, free of the single launch's floor; and the temperature floor:
-   4 rows at T = 1e-39 pick their argmax) plus long-cache decodes (dense over 2048
+   4 rows at T = 1e-39 pick their argmax; the MoE route, dispatch and
+   combine over Mixtral's 8 experts, top 2, at the no-drop capacity, at
+   8 tokens (a decode), 64 (the engine's largest config-6 bucket) and
+   1,024 (the greedy prefill), and the route of 1,024 tokens whose every
+   row ties, held bit for bit) plus long-cache decodes (dense over 2048
    rows, paged up to 1024), ragged, fp32 and narrow-head cases: max abs
    error against a stated tolerance, and the times (CUDA events, median of 50
    launches, L2 flushed before each) of the kernel, the plain version and
@@ -118,7 +122,22 @@ Phases, each fatal on failure (exit 1, and no result line):
    vocabulary, a [1, 64] prompt, 64 new tokens, k 4) against
    greedy_generate, its first divergence held the same way, its picks
    counted (1 + rounds x (k + 2));
-9. one JSON line of kernels, the card line, and last
+9. the sparse-MoE family at Mixtral-8x7B width, 16 of its 32 layers
+   (bf16, random weights from --seed made on the card after phase 8's
+   trees are freed): (a) greedy_generate of phase 4's traffic, eager,
+   graphed, graphed, eager: identical tokens, exact launch counts (one
+   route, dispatch and combine a layer a forward beside every norm,
+   attention and pick), prefill ms, step ms and busy share, the step
+   against its bound (every weight but the embedding read once) and the
+   parts of a prefill and a step by op and kernel; (b) config 6's 16
+   requests through the engine, the classic tick (H 1, depth 1) and its
+   defaults (H 8, depth 2), greedy then sampled (0, 0.7, 1.0, 1.3), each
+   drained in turns: the same tokens or streams in both modes, exact
+   launch counts, tok/s, TTFT and TPOT p50, peak memory, busy share; (c)
+   one layer at Mixtral's widths in fp32, card against CPU: prefill
+   logits within 1e-3, and the engine's tokens identical at H 1 and 8
+   with prefix caching and chunks of 16;
+10. one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
@@ -128,6 +147,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import importlib
 import json
 import re
@@ -264,6 +284,25 @@ PICK_GRAPH_CALLS, PICK_GRAPH_BYTES = 16, 64 << 20
 # the noise goes through logf / log1pf on the card and torch's log in the
 # plain version, an ulp apart at most
 PICK_NEAR_TIE = 1e-5
+
+# phase 3's MoE cases: Mixtral's 8 experts, top 2, at the no-drop capacity
+# (C = 2T) over the tokens of a decode (8 slots), the engine's largest
+# config-6 prefill bucket and greedy_generate's prefill (8 x 128)
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+MOE_TOKENS = (("decode", BATCH), ("engine prefill", 64), ("greedy prefill", BATCH * PROMPT))
+# phase 9: Mixtral-8x7B at full width, 16 of its 32 layers (the full tree,
+# 93.4 GB in bf16, exceeds the card's 80 GB); the engine's classic tick and
+# its defaults (a horizon of 8, depth 2), drained in turns
+MOE_LAYERS = 16
+MOE_SERVE_MODES = {"classic": {"decode_horizon": 1, "dispatch_depth": 1}, "default": {}}
+MOE_SERVE_ORDER = ("classic", "default", "default", "classic")
+# the fp32 card-vs-CPU engine at one Mixtral-width layer: the CPU's expert
+# products read 5.6 GB of fp32 weights a step, so budgets are kept short
+MOE_CROSS_BUDGET = {1: 6, 8: 16}
+# fp32 prefill logits of that layer, card vs CPU: the products sum in
+# another order (cuBLAS, TF32 off, against the CPU's), ~1e-5 on logits of
+# order 1; a kernel fault shows as errors of order 0.1 and more
+MOE_CROSS_TOL = 1e-3
 
 
 def serve_prompt_len(i: int) -> int:
@@ -929,13 +968,14 @@ def quant_sweep(torch, quant, flush, gen, dev) -> dict:
 
 
 def request_split(torch, llama, params, prompt, cfg, dev, cuda_graph: bool = True,
-                  steps: int = 16, profiled: int = 4) -> dict:
+                  steps: int = 16, profiled: int = 4, forward_fn=None) -> dict:
     """Prefill ms, decode step ms (host clock, synchronised) and the
     device's busy share of a decode step, for the steps of
     ``greedy_generate``'s decoder (eager, or one CUDA graph replayed per
     step): kernel time per step from torch.profiler over ``profiled``
     steps, over the unprofiled step time. The first two steps (with the
-    graph's capture) are not timed."""
+    graph's capture) are not timed. ``forward_fn``: another family's
+    forward (llama's ``forward_fn`` hook), with its port kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -944,14 +984,17 @@ def request_split(torch, llama, params, prompt, cfg, dev, cuda_graph: bool = Tru
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, _ = llama.forward(params, prompt, cfg, cache=cache,
-                                  positions=torch.arange(s, device=dev).expand(b, s))
+        positions = torch.arange(s, device=dev).expand(b, s)
+        if forward_fn is None:
+            logits, _ = llama.forward(params, prompt, cfg, cache=cache, positions=positions)
+        else:
+            logits, _ = forward_fn(params, prompt, cfg, cache, positions)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         if not torch.isfinite(logits[:, -1]).all():
             fail("non-finite prefill logits")
         decoder = llama.GreedyDecoder(params, cfg, cache, logits[:, -1:].argmax(-1), s,
-                                      cuda_graph=cuda_graph)
+                                      cuda_graph=cuda_graph, forward_fn=forward_fn)
 
         def decode(n):
             for _ in range(n):
@@ -979,7 +1022,8 @@ def request_split(torch, llama, params, prompt, cfg, dev, cuda_graph: bool = Tru
         "decode_step_device_ms": device_ms or None,
         "decode_device_busy_share": (device_ms / step_ms) if device_ms else None,
         "decode_kernels_per_step": sum(e.count for e in kernels) / profiled,
-        "decode_port_kernels": port_kernel_shares(kernels, profiled),
+        "decode_port_kernels": port_kernel_shares(
+            kernels, profiled, PORT_KERNELS + (MOE_PORT_KERNELS if forward_fn else ())),
         "decode_int8_products": marked_share(kernels, profiled, "qmm"),
         # PyTorch's argmax, where the tree's greedy loop still calls it
         "decode_argmax": marked_share(kernels, profiled, "ArgMax"),
@@ -997,12 +1041,18 @@ PORT_KERNELS = (("paged_attention", ("PagedPolicy", "paged_attention_kernel")),
                 ("pick_tokens", ("pick_tokens_kernel",)))
 
 
-def port_kernel_shares(kernels, steps: int) -> dict:
-    """Device ms and calls per step of each port kernel, from the
-    profiler's per-kernel averages over ``steps`` steps."""
-    out = {name: {"ms_per_step": 0.0, "calls_per_step": 0.0} for name, _ in PORT_KERNELS}
+# the MoE kernels' instances, told apart where phase 9 profiles
+MOE_PORT_KERNELS = (("moe_route", ("moe_route_kernel",)),
+                    ("moe_dispatch", ("moe_dispatch_kernel",)),
+                    ("moe_combine", ("moe_combine_kernel",)))
+
+
+def port_kernel_shares(kernels, steps: int, table=PORT_KERNELS) -> dict:
+    """Device ms and calls per step of each port kernel of ``table``, from
+    the profiler's per-kernel averages over ``steps`` steps."""
+    out = {name: {"ms_per_step": 0.0, "calls_per_step": 0.0} for name, _ in table}
     for e in kernels:
-        for name, marks in PORT_KERNELS:
+        for name, marks in table:
             if any(mark in e.key for mark in marks):
                 out[name]["ms_per_step"] += e.self_device_time_total / 1e3 / steps
                 out[name]["calls_per_step"] += e.count / steps
@@ -1048,7 +1098,8 @@ def p50(values) -> float:
 def zero_counts(ops) -> None:
     for fn in (ops.rmsnorm_cuda, ops.add_rmsnorm_cuda, ops.flash_attention_cuda,
                ops.cached_attention_cuda, ops.paged_attention_cuda,
-               ops.paged_attention_multi_cuda, ops.quant_matmul_cuda, ops.pick_tokens_cuda):
+               ops.paged_attention_multi_cuda, ops.quant_matmul_cuda, ops.pick_tokens_cuda,
+               ops.moe_route_cuda, ops.moe_dispatch_cuda, ops.moe_combine_cuda):
         fn.launches = 0
     for route in ops.quant_matmul_cuda.routes:
         ops.quant_matmul_cuda.routes[route] = 0
@@ -2308,6 +2359,445 @@ def lora_drains(torch, ops, serving, lora_mod, params, cfg, seed: int, dev) -> d
     return result
 
 
+# ---------------------------------------------------------------------------
+# the sparse-MoE family: phase 3's MoE kernel cases and phase 9
+# ---------------------------------------------------------------------------
+
+
+def moe_counts(ops) -> dict:
+    """The three MoE wrappers' counters."""
+    return {"moe_route": ops.moe_route_cuda.launches,
+            "moe_dispatch": ops.moe_dispatch_cuda.launches,
+            "moe_combine": ops.moe_combine_cuda.launches}
+
+
+def moe_launches(forwards: int, n_layers: int) -> dict:
+    """One route, one dispatch and one combine a layer a forward."""
+    return {name: forwards * n_layers for name in ("moe_route", "moe_dispatch", "moe_combine")}
+
+
+def moe_route_bytes(t: int, e: int, k: int, c: int, es: int) -> int:
+    """The logits read once; expert, slot, gate [T, k], src [E, C], counts
+    and probsum [E] written once."""
+    return t * e * es + 12 * t * k + 4 * e * c + 8 * e
+
+
+def moe_dispatch_bytes(t: int, e: int, c: int, d: int, es: int) -> int:
+    """h's T rows and src read once, the E x C rows written once."""
+    return t * d * es + 4 * e * c + e * c * d * es
+
+
+def moe_combine_bytes(t: int, k: int, d: int, es: int) -> int:
+    """The k rows each token takes from the expert rows and its expert,
+    slot and gate read once, its row written once (this run's data: every
+    (t, k) kept at no-drop capacity)."""
+    return t * k * d * es + 12 * t * k + t * d * es
+
+
+def moe_ties(torch, t: int, e: int, gen, dev):
+    """bf16 router logits where every row ties: two random experts share the
+    row's top value, and every fifth row is all equal."""
+    x = torch.round(torch.randn((t, e), generator=gen, device=dev) * 2) / 2
+    pair = torch.rand((t, e), generator=gen, device=dev).argsort(dim=1)[:, :2]
+    x.scatter_(1, pair, (x.max(dim=1, keepdim=True).values + 0.5).expand(t, 2))
+    x[::5] = x[::5, :1]
+    return x.to(torch.bfloat16)
+
+
+def moe_route_case(torch, ops, flush, name, t, dtype, gen, dev, ties=False):
+    """The route of ``t`` tokens over Mixtral's 8 experts, top 2, at the
+    no-drop capacity (C = 2t): experts, slots, src and counts bit for bit;
+    the gates bit for bit with forced ties, else within 2 fp32 ulps (the
+    plain version's torch.exp against the kernel's expf; their bit share
+    reported); probsum within 1e-5 (another sum order). The yardstick is
+    torch.topk over the softmax (ties in its own order)."""
+    e, k, c = MOE_EXPERTS, MOE_TOP_K, MOE_TOP_K * t
+    logits = (moe_ties(torch, t, e, gen, dev) if ties
+              else (torch.randn((t, e), generator=gen, device=dev) * 2).to(dtype))
+    got = ops.moe_route_cuda(logits, k, c)
+    want = ops.moe_route_reference(logits, k, c)
+    for what, a, b in zip(("expert", "slot", "src", "counts"), (got[0], got[1], got[3], got[4]),
+                          (want[0], want[1], want[3], want[4])):
+        if not torch.equal(a, b):
+            fail(f"{name}: the kernel's {what} differ from the plain version's")
+    gate_err = float((got[2] - want[2]).abs().max())
+    gate_share = float((got[2] == want[2]).float().mean())
+    if ties and gate_share != 1.0:
+        fail(f"{name}: tied gates are not bit for bit the plain version's")
+    if not bool(((got[2] - want[2]).abs() <= 2.0 ** -22 * want[2].abs()).all()):
+        fail(f"{name}: the kernel's gates differ from the plain version's by over 2 ulps")
+    if not bool(((got[5] - want[5]).abs() <= 1e-5 * want[5].abs() + 1e-6).all()):
+        fail(f"{name}: the kernel's probability sums differ from the plain version's")
+    print(f"  {name}: experts, slots, src, counts bit for bit; gates max_abs_err {gate_err:.3e}, "
+          f"bit-identical on {gate_share:.6f}", flush=True)
+    dn = str(logits.dtype).split(".")[-1]
+    b_ms, b_by = bound(moe_route_bytes(t, e, k, c, logits.element_size()),
+                       t * e * 5 + t * k * e, dn)
+    return {
+        "case": name, "kernel": "moe_route", "tokens": t, "experts": e, "top_k": k,
+        "capacity": c, "dtype": dn, "forced_ties": ties, "max_abs_err": gate_err,
+        "gate_bit_share": gate_share,
+        "ms": time_ms(torch, lambda: ops.moe_route_cuda(logits, k, c), flush),
+        "plain_ms": time_ms(torch, lambda: ops.moe_route_reference(logits, k, c), flush),
+        "library_ms": time_ms(torch, lambda: torch.topk(torch.softmax(logits.float(), -1), k),
+                              flush),
+        "library": "torch.topk over torch.softmax (two calls)",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def moe_dispatch_case(torch, ops, flush, name, t, d, dtype, gen, dev):
+    """The dispatch of ``t`` rows of width ``d`` into Mixtral's E x C rows
+    (C = 2t, the route of random logits): bit for bit (a copy, zeros in the
+    empty rows). The yardstick is torch.index_select of the same rows,
+    which leaves the empty rows' content to an index of its own."""
+    e, k, c = MOE_EXPERTS, MOE_TOP_K, MOE_TOP_K * t
+    logits = (torch.randn((t, e), generator=gen, device=dev) * 2).to(dtype)
+    src = ops.moe_route_reference(logits, k, c)[3]
+    h = torch.randn((t, d), generator=gen, device=dev).to(dtype)
+    out = ops.moe_dispatch_cuda(h, src)
+    if not torch.equal(out, ops.moe_dispatch_reference(h, src)):
+        fail(f"{name}: the kernel's rows differ from the plain version's")
+    print(f"  {name}: bit for bit, {int((src < 0).sum())} of {e * c} rows empty", flush=True)
+    rows = src.reshape(-1).clamp_min(0)
+    dn = str(dtype).split(".")[-1]
+    b_ms, b_by = bound(moe_dispatch_bytes(t, e, c, d, h.element_size()), 0, dn)
+    return {
+        "case": name, "kernel": "moe_dispatch", "tokens": t, "rows": [e, c, d], "dtype": dn,
+        "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: ops.moe_dispatch_cuda(h, src), flush),
+        "plain_ms": time_ms(torch, lambda: ops.moe_dispatch_reference(h, src), flush),
+        "library_ms": time_ms(torch, lambda: torch.index_select(h, 0, rows), flush),
+        "library": "torch.index_select of the src rows",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def moe_combine_case(torch, ops, flush, name, t, d, dtype, gen, dev):
+    """The combine of ``t`` tokens from Mixtral's E x C expert rows (C = 2t,
+    the route of random logits): bit for bit (the same fp32 roundings). The
+    yardstick is JAX's formulation, one fp32 einsum("tec,ecd->td") over the
+    one-hot combine tensor (built and widened outside the timer)."""
+    e, k, c = MOE_EXPERTS, MOE_TOP_K, MOE_TOP_K * t
+    logits = (torch.randn((t, e), generator=gen, device=dev) * 2).to(dtype)
+    expert, slot, gate, *_ = ops.moe_route_reference(logits, k, c)
+    out_e = torch.randn((e, c, d), generator=gen, device=dev).to(dtype)
+    got = ops.moe_combine_cuda(out_e, expert, slot, gate)
+    if not torch.equal(got, ops.moe_combine_reference(out_e, expert, slot, gate)):
+        fail(f"{name}: the kernel's rows differ from the plain version's")
+    print(f"  {name}: bit for bit", flush=True)
+    onehot = torch.zeros((t, e, c), device=dev)
+    onehot[torch.arange(t, device=dev)[:, None], expert.long(), slot.long()] = gate
+    out_f = out_e.float()
+    dn = str(dtype).split(".")[-1]
+    b_ms, b_by = bound(moe_combine_bytes(t, k, d, out_e.element_size()), 2 * t * k * d, dn)
+    return {
+        "case": name, "kernel": "moe_combine", "tokens": t, "rows": [e, c, d], "dtype": dn,
+        "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: ops.moe_combine_cuda(out_e, expert, slot, gate), flush),
+        "plain_ms": time_ms(torch, lambda: ops.moe_combine_reference(out_e, expert, slot, gate),
+                            flush),
+        "library_ms": time_ms(torch, lambda: torch.einsum("tec,ecd->td", onehot, out_f), flush),
+        "library": "JAX's fp32 einsum('tec,ecd->td') over the one-hot combine",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def moe_kernel_cases(torch, ops, flush, gen, dev) -> list:
+    """Phase 3's MoE cases: route, dispatch and combine at each of
+    MOE_TOKENS (bf16, d = 4096), and the route with forced ties."""
+    bf16, d = torch.bfloat16, 4096
+    cases = []
+    for label, t in MOE_TOKENS:
+        cases.append(moe_route_case(torch, ops, flush, f"moe route {label}", t, bf16, gen, dev))
+        cases.append(moe_dispatch_case(torch, ops, flush, f"moe dispatch {label}", t, d, bf16,
+                                       gen, dev))
+        cases.append(moe_combine_case(torch, ops, flush, f"moe combine {label}", t, d, bf16,
+                                      gen, dev))
+    cases.append(moe_route_case(torch, ops, flush, "moe route ties", BATCH * PROMPT, bf16, gen,
+                                dev, ties=True))
+    return cases
+
+
+def moe_split(torch, prof, steps: int) -> dict:
+    """Device ms a step by part, from a profile of eager steps: the expert
+    products (``aten::bmm``: the only batched products on the path), the
+    other products (``aten::mm``: q, k, v, o, the router and the LM head),
+    each port kernel, PyTorch's elementwise kernels, and the total."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+
+    def op_ms(key: str) -> float:
+        return sum(e.device_time_total for e in events
+                   if e.key == key and e.device_type == DeviceType.CPU) / 1e3 / steps
+
+    shares = port_kernel_shares(kernels, steps, PORT_KERNELS + MOE_PORT_KERNELS)
+    return {"device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / steps,
+            "expert_bmm_ms": op_ms("aten::bmm"), "other_mm_ms": op_ms("aten::mm"),
+            **{f"{name}_ms": s["ms_per_step"] for name, s in shares.items()},
+            "elementwise_ms": elementwise_share(kernels, steps)["ms_per_step"]}
+
+
+def moe_step_profile(torch, moe, params, prompt, cfg, dev) -> dict:
+    """The greedy request's parts on the Mixtral tree: one prefill and
+    eager decode steps under the profiler (CPU and CUDA activity, so each
+    product is told apart by its op), split by :func:`moe_split`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, s = prompt.shape
+    steps = 4
+    cache = moe.init_cache(cfg, b, s + steps + 2, device=dev)
+    pos = torch.arange(s, device=dev).expand(b, s)
+    with torch.no_grad():
+        moe.routed_forward(params, prompt, cfg, moe.init_cache(cfg, b, s, device=dev), pos)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            logits, _ = moe.routed_forward(params, prompt, cfg, cache, pos)
+            torch.cuda.synchronize()
+        prefill = moe_split(torch, prof, 1)
+        decoder = moe.llama.GreedyDecoder(params, cfg, cache, logits[:, -1:].argmax(-1), s,
+                                          cuda_graph=False, forward_fn=moe.routed_forward)
+        decoder.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                decoder.step()
+            torch.cuda.synchronize()
+    return {"prefill": prefill, "decode_step": moe_split(torch, prof, steps)}
+
+
+def moe_expert_flops(tokens: int, cfg) -> dict:
+    """The expert products' FLOPs of one forward of ``tokens`` tokens: as
+    run (every capacity row of every expert: E x C rows) and as routed
+    (T x k rows), and the share the dense formulation wastes."""
+    per_row = 3 * 2 * cfg.dim * cfg.ffn_hidden * cfg.n_layers
+    dense = cfg.n_experts * cfg.capacity(tokens) * per_row
+    routed = tokens * cfg.experts_per_token * per_row
+    return {"dense": dense, "routed": routed, "wasted_share": 1 - routed / dense,
+            "dense_bound_ms": dense / PEAK_FLOPS["bfloat16"] * 1e3,
+            "routed_bound_ms": routed / PEAK_FLOPS["bfloat16"] * 1e3}
+
+
+def moe_cfg(moe, n_layers: int, dtype=None):
+    """Mixtral-8x7B at full width, ``n_layers`` deep (in ``dtype``, else
+    bf16), at the no-drop capacity serving requires (capacity_factor =
+    n_experts)."""
+    cfg = moe.mixtral_8x7b()
+    return dataclasses.replace(cfg, n_layers=n_layers, capacity_factor=float(cfg.n_experts),
+                               dtype=dtype or cfg.dtype)
+
+
+def moe_greedy(torch, ops, moe, params, cfg, prompt, dev, card: str) -> dict:
+    """Phase 9(a): greedy_generate over the Mixtral tree, eager, graphed,
+    graphed, eager: identical tokens and exact launch counts each run, then
+    prefill ms, step ms and busy share (request_split), the step against
+    its bound (every weight but the embedding read once), and the parts of
+    a prefill and a step (moe_step_profile)."""
+    expected = {**greedy_launches(cfg.n_layers), **moe_launches(1 + NEW_TOKENS, cfg.n_layers)}
+    runs, outputs = [], []
+    for graph in GREEDY_RUNS:
+        zero_counts(ops)
+        t0 = time.perf_counter()
+        toks = moe.greedy_generate(params, prompt, cfg, max_new_tokens=NEW_TOKENS,
+                                   cuda_graph=graph)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {**greedy_counts(ops), **moe_counts(ops)}
+        print(f"moe greedy (cuda_graph={graph}) launches {launches}, expected {expected}",
+              flush=True)
+        if launches != expected:
+            fail("phase 9: the MoE greedy path did not run every route, dispatch, combine, norm, "
+                 "attention and pick through the kernels")
+        if (tuple(toks.shape) != (BATCH, NEW_TOKENS) or toks.dtype != torch.int32
+                or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size):
+            fail(f"phase 9: bad generated tokens: {toks.dtype} {tuple(toks.shape)}")
+        outputs.append(toks)
+        runs.append({"cuda_graph": graph, "request_s": seconds,
+                     "tok_per_s": BATCH * NEW_TOKENS / seconds, "launches": launches})
+    if any(not torch.equal(o, outputs[0]) for o in outputs):
+        fail("phase 9: the CUDA-graphed MoE decode changed the tokens")
+    from bobrapet_tpu_torch.models import tree_bytes
+
+    splits = [request_split(torch, moe.llama, params, prompt, cfg, dev, cuda_graph=graph,
+                            forward_fn=moe.routed_forward)
+              for graph in GREEDY_RUNS]
+    weight_bytes = tree_bytes(params)
+    embed = params["embed"]["weight"]
+    read_bytes = weight_bytes - embed.numel() * embed.element_size()
+    return {
+        "order": "eager, graph, graph, eager", "identical_tokens": True, "runs": runs,
+        "launches": {k: sum(r["launches"][k] for r in runs) for k in expected},
+        "splits": splits, "decode_step_bound_ms": read_bytes / HBM_BYTES_PER_S * 1e3,
+        "decode_bytes": read_bytes,
+        "prefill_expert_flops": moe_expert_flops(BATCH * PROMPT, cfg),
+        "decode_expert_flops": moe_expert_flops(BATCH, cfg),
+        "parts": moe_step_profile(torch, moe, params, prompt, cfg, dev), "card": card,
+    }
+
+
+def moe_serve_drain(torch, ops, eng, prompts, temps=None) -> dict:
+    """:func:`serve_drain` on the MoE engine, and the MoE kernels' exact
+    launches: one each a layer a forward (prefills + decode steps)."""
+    d = serve_drain(torch, ops, eng, prompts, temps)
+    got, want = moe_counts(ops), moe_launches(d["prefills"] + d["ticks"], eng.cfg.n_layers)
+    if got != want:
+        fail(f"phase 9: the MoE engine's route, dispatch and combine ran {got}, expected {want}")
+    d["launches"].update(got)
+    return d
+
+
+def moe_serving(torch, ops, serving, params, cfg, seed: int, dev, card: str) -> dict:
+    """Phase 9(b): config 6's traffic through the MoE engine, the classic
+    tick (H 1, depth 1) and the constructor's defaults (H 8, depth 2), a
+    warm drain each, then drains in turns (MOE_SERVE_ORDER), greedy and
+    then sampled (SERVE_TEMPS): the same tokens in every greedy mode and
+    the same streams in every sampled one, exact launch counts; tok/s,
+    TTFT and TPOT p50, peak memory and a profiled drain's busy share."""
+    warm = serve_prompts(torch, cfg, seed + 10, dev)
+    prompts = serve_prompts(torch, cfg, seed + 11, dev)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"paging": SERVE_PAGING, "card": card, "order": ", ".join(MOE_SERVE_ORDER)}
+    greedy = None
+    for label, temps in (("greedy", None), ("sampled", SERVE_TEMPS)):
+        engines = {}
+        for mode, kw in MOE_SERVE_MODES.items():
+            eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**SERVE_PAGING), **kw)
+            for i, p in enumerate(warm):
+                eng.submit(p, serve_budget(i))
+            eng.run()
+            engines[mode] = eng
+        drains = {mode: [] for mode in engines}
+        for mode in MOE_SERVE_ORDER:
+            drains[mode].append(moe_serve_drain(torch, ops, engines[mode], prompts, temps))
+        for n in range(2):
+            streams = [drains[mode][n]["outputs"] for mode in engines]
+            if any(s != streams[0] for s in streams):
+                fail(f"phase 9: the MoE engine's {label} drain {n + 1} differs between the modes")
+        if greedy is None:
+            greedy = drains["classic"][0]["outputs"]
+        elif all(a == b for a, b in zip(drains["classic"][0]["outputs"], greedy)):
+            fail("phase 9: no sampled request drew a token other than the greedy one")
+        for mode, eng in engines.items():
+            runs = drains[mode]
+            for d in runs:
+                d.pop("outputs")
+            busy = drain_device_ms(torch, eng, prompts, temps)
+            out[f"{label}_{mode}"] = {
+                "decode_horizon": eng.decode_horizon, "dispatch_depth": eng.dispatch_depth,
+                "drains": runs,
+                "launches": {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]},
+                "tok_per_s": [d["tok_per_s"] for d in runs],
+                "ttft_ms_p50": [d["ttft_ms_p50"] for d in runs],
+                "tpot_ms_p50": [d["tpot_ms_p50"] for d in runs],
+                "peak_memory_gb": max(d["peak_memory_gb"] for d in runs),
+                "busy_share": busy / 1e3 / p50(d["drain_s"] for d in runs) if busy else None}
+        del engines
+    out["identical_tokens"] = out["identical_streams"] = True
+    print("  moe serving modes: " + json.dumps(
+        {k: {m: v[m] for m in ("tok_per_s", "ttft_ms_p50", "tpot_ms_p50", "busy_share",
+                               "peak_memory_gb")}
+         for k, v in out.items() if isinstance(v, dict) and "drains" in v}), flush=True)
+    return out
+
+
+def moe_cross_check(torch, ops, moe, serving, seed: int, dev) -> dict:
+    """Phase 9(c): one layer at Mixtral's widths in fp32 (TF32 off), the same
+    seeded weights on the card (kernels) and on the CPU (plain versions):
+    prefill logits within MOE_CROSS_TOL, and the engine's tokens identical
+    at H 1 and H 8 with prefix caching and chunks of 16 (a shared 32-token
+    system prompt, two waves), one route, dispatch and combine a layer a
+    forward on the card."""
+    cfg = moe_cfg(moe, 1, torch.float32)
+    params = moe.init_params(cfg, torch.Generator(device=dev).manual_seed(seed + 30), dev)
+    params_cpu = tree_to(params, "cpu")
+    gen = torch.Generator().manual_seed(seed + 31)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    pos = torch.arange(16).expand(2, 16)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        card, _, _ = moe.forward(params, toks.to(dev), cfg,
+                                 cache=moe.init_cache(cfg, 2, 16, device=dev),
+                                 positions=pos.to(dev))
+        cpu, _, _ = moe.forward(params_cpu, toks, cfg,
+                                cache=moe.init_cache(cfg, 2, 16, device="cpu"), positions=pos)
+    err = float((card.cpu() - cpu).abs().max())
+    if not torch.isfinite(card).all() or err > MOE_CROSS_TOL:
+        fail(f"phase 9: the fp32 MoE prefill logits differ card vs CPU by {err}")
+    system = torch.randint(0, cfg.vocab_size, (32,), generator=gen).tolist()
+    waves = [[system + torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+              for n in tail] for tail in CROSS_TAILS]
+    pcfg = serving.PagedConfig(**CROSS_PREFIX_PAGING)
+    outs, counts = {}, {}
+    for horizon in (1, 8):
+        for side, tree in (("card", params), ("cpu", params_cpu)):
+            eng = serving.ServingEngine(tree, cfg, pcfg, decode_horizon=horizon,
+                                        dispatch_depth=1)
+            zero_counts(ops)
+            for wave in waves:
+                for p in wave:
+                    eng.submit(p, MOE_CROSS_BUDGET[horizon])
+                eng.run()
+            outs[side, horizon] = [r.output for r in sorted(eng.finished, key=lambda r: r.rid)]
+            if side == "card":
+                pc = eng.phase_counts
+                got = moe_counts(ops)
+                counts[f"h{horizon}"] = {**read_counts(ops),
+                                         "pick_tokens": ops.pick_tokens_cuda.launches, **got}
+                if got != moe_launches(pc["prefills"] + pc["device_steps"], cfg.n_layers):
+                    fail("phase 9: the fp32 MoE engine skipped the MoE kernels")
+                if not pc["chunks"] or not eng.blocks.hit_tokens:
+                    fail("phase 9: the fp32 MoE engine ran no chunk or hit no cached prefix")
+    result = {"layers": 1, "dtype": "float32", "logits_max_abs_err": err,
+              "tolerance": MOE_CROSS_TOL, "requests": sum(len(w) for w in waves),
+              "paging": CROSS_PREFIX_PAGING, "new_tokens": MOE_CROSS_BUDGET,
+              "identical_tokens": all(outs["card", h] == outs["cpu", h] for h in (1, 8)),
+              "card_launches": counts, "seconds": time.perf_counter() - t0}
+    print("moe engine (1 layer, Mixtral widths, fp32, card vs CPU): " + json.dumps(result),
+          flush=True)
+    if not result["identical_tokens"]:
+        fail("phase 9: the fp32 MoE engine on the card and on the CPU gave different tokens")
+    return result
+
+
+def moe_phase(torch, ops, moe, serving, seed: int, dev, card: str) -> dict:
+    """Phase 9: Mixtral-8x7B at full width, MOE_LAYERS of its 32 layers,
+    bf16, weights from the seed made on the card: (a) greedy, (b) serving,
+    then, with that tree freed, (c) card against CPU."""
+    from bobrapet_tpu_torch.models import tree_bytes
+
+    # the earlier phases' graphed steps hold their trees in reference
+    # cycles (a step and its owner's bound method): collect them first
+    gc.collect()
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = moe_cfg(moe, MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = moe.init_params(cfg, torch.Generator(device=dev).manual_seed(seed + 20), dev)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    weight_bytes = tree_bytes(params)
+    print(f"mixtral_8x7b: {cfg.n_layers} of 32 layers, dim {cfg.dim}, {cfg.n_experts} experts, "
+          f"{weight_bytes / 1e9:.2f} GB of bf16 weights, made in {made_s:.1f} s "
+          f"({before_gb:.2f} GB held before)", flush=True)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed + 21))
+    out = {"model": "mixtral_8x7b", "layers": cfg.n_layers, "dtype": "bfloat16",
+           "capacity_factor": cfg.capacity_factor, "weight_bytes": weight_bytes,
+           "made_s": made_s, "memory_before_gb": before_gb}
+    out["greedy"] = moe_greedy(torch, ops, moe, params, cfg, prompt, dev, card)
+    out["greedy_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print("moe greedy: " + json.dumps(out["greedy"]), flush=True)
+    out["serving"] = moe_serving(torch, ops, serving, params, cfg, seed, dev, card)
+    del params
+    torch.cuda.empty_cache()
+    out["cross"] = moe_cross_check(torch, ops, moe, serving, seed, dev)
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2336,6 +2826,7 @@ def main() -> None:
         from bobrapet_tpu_torch.kernels import build as kbuild
         from bobrapet_tpu_torch.models import llama, tree_bytes
         from bobrapet_tpu_torch.models import lora as lora_mod
+        from bobrapet_tpu_torch.models import moe as moe_mod
         from bobrapet_tpu_torch.models import quant
     except ImportError as e:
         fail(f"the port is not importable here ({e}): run from the root of the repo")
@@ -2365,6 +2856,8 @@ def main() -> None:
         fail(f"an int8 product instance spills registers: {spills_in(instances, 'qmm')}")
     if spills_in(instances, "pick_tokens_kernel"):
         fail(f"a token pick instance spills registers: {spills_in(instances, 'pick_tokens')}")
+    if spills_in(instances, "bobra::moe::"):
+        fail(f"an MoE kernel instance spills registers: {spills_in(instances, 'bobra::moe::')}")
 
     phase_mark(t_start, "3")
     # ---- 3. kernels against their plain versions
@@ -2444,8 +2937,9 @@ def main() -> None:
     pick_cases = [pick_case(torch, ops, flush, name, rows, VOCAB, temps, getattr(torch, dt),
                             gen, dev) for name, rows, temps, dt in PICK_CASES]
     pick_floor = pick_floor_check(torch, ops, dev)
+    moe_cases = moe_kernel_cases(torch, ops, flush, gen, dev)
     for c in (rms_cases + flash_cases + cached_cases + paged_cases + multi_cases + quant_cases
-              + pick_cases):
+              + pick_cases + moe_cases):
         route = f" (route {c['route']})" if c.get("route") else ""
         graphed = f" (graphed {c['graphed_ms']:.5f})" if "graphed_ms" in c else ""
         print(f"  {c['case']}{route}: kernel {c['ms']:.5f} ms{graphed}, plain "
@@ -2608,7 +3102,20 @@ def main() -> None:
     launches_by_path["spec_standalone"] = spec["standalone"]["launches"]
 
     phase_mark(t_start, "9")
-    # ---- 9. result
+    # ---- 9. the sparse-MoE family at Mixtral-8x7B width (phase 8's trees freed)
+    mixtral = moe_phase(torch, ops, moe_mod, serving, args.seed, dev, card)
+    print("moe phase: " + json.dumps({k: v for k, v in mixtral.items() if k != "greedy"}),
+          flush=True)
+    launches_by_path["moe_greedy"] = mixtral["greedy"]["launches"]
+    for key, rec in mixtral["serving"].items():
+        if isinstance(rec, dict) and "drains" in rec:
+            launches_by_path[f"moe_{key}"] = rec["launches"]
+    launches_by_path["moe_fp32_cross"] = {
+        k: sum(c[k] for c in mixtral["cross"]["card_launches"].values())
+        for k in mixtral["cross"]["card_launches"]["h1"]}
+
+    phase_mark(t_start, "10")
+    # ---- 10. result
     # each kernel's own launches: the flash counter also counts the
     # device-length entry's
     own = {k: {**path, "flash_attention": path["flash_attention"] - path["cached_attention"]}
@@ -2667,6 +3174,11 @@ def main() -> None:
                  ("h8", served["h8"]["profile"]), ("default", served["default"]["profile"]),
                  ("s_h8", served["sampled"]["s_h8"]["profile"]))},
          "floor": pick_floor},
+        *(entry(f"moe_{step}", "bobrapet_tpu_torch/csrc/moe_dispatch.cu",
+                f"bobrapet_tpu/models/moe.py:{line}",
+                [c for c in moe_cases if c["kernel"] == f"moe_{step}"],
+                f"moe {step} greedy prefill")
+          for step, line in (("route", 142), ("dispatch", 197), ("combine", 209))),
     ], "build_s": build_s, "host_us_per_call": host_costs}
     print(json.dumps(kernels), flush=True)
     print(f"card: {card}", flush=True)

@@ -450,3 +450,37 @@ def test_phase_8_drains_depth_1_and_2_in_turns(smoke):
     # the kernels line names the pick with its source and the site it replaces
     assert '"pick_tokens", "bobrapet_tpu_torch/csrc/pick_tokens.cu"' in text
     assert '"bobrapet_tpu/serving/engine.py:2916"' in text
+
+
+def test_moe_bounds_of_the_greedy_prefill(smoke):
+    # T = 1024 tokens, Mixtral's 8 experts, top 2, no-drop C = 2048, d = 4096 bf16
+    t, d = smoke.BATCH * smoke.PROMPT, 4096
+    ms, by = smoke.bound(smoke.moe_dispatch_bytes(t, 8, 2 * t, d, 2), 0, "bfloat16")
+    assert by == "bytes" and ms == pytest.approx(0.0426, rel=0.01)
+    ms, by = smoke.bound(smoke.moe_combine_bytes(t, 2, d, 2), 2 * t * 2 * d, "bfloat16")
+    assert by == "bytes" and ms == pytest.approx(0.0075, rel=0.01)
+    assert smoke.moe_launches(1 + smoke.NEW_TOKENS, 16) == {
+        "moe_route": 1040, "moe_dispatch": 1040, "moe_combine": 1040}
+
+
+def test_moe_phase_is_mixtral_at_half_depth(smoke):
+    from bobrapet_tpu_torch.models import moe
+
+    cfg = smoke.moe_cfg(moe, smoke.MOE_LAYERS)
+    assert (cfg.n_layers, cfg.dim, cfg.ffn_hidden, cfg.n_experts) == (16, 4096, 14336, 8)
+    assert cfg.capacity(smoke.BATCH * smoke.PROMPT) == 2048 and cfg.capacity(smoke.BATCH) == 16
+    layer = (2 * cfg.dim * cfg.dim + 2 * cfg.dim * 1024 + 2 * cfg.dim + cfg.dim * 8
+             + 3 * 8 * cfg.dim * cfg.ffn_hidden)
+    embed = cfg.vocab_size * cfg.dim
+    tree = 2 * (2 * embed + cfg.n_layers * layer + cfg.dim)
+    assert tree / 1e9 == pytest.approx(46.97, abs=0.01)
+    # a decode step reads every weight but the embedding table: 13.94 ms
+    assert (tree - 2 * embed) / smoke.HBM_BYTES_PER_S * 1e3 == pytest.approx(13.94, abs=0.01)
+    flops = smoke.moe_expert_flops(smoke.BATCH * smoke.PROMPT, cfg)
+    assert flops["dense"] == pytest.approx(92.4e12, rel=1e-3)
+    assert flops["dense_bound_ms"] == pytest.approx(93.4, abs=0.1)
+    assert flops["routed_bound_ms"] == pytest.approx(11.7, abs=0.1)
+    assert flops["wasted_share"] == pytest.approx(7 / 8)
+    # the two engine modes drained in turns
+    assert smoke.MOE_SERVE_ORDER == ("classic", "default", "default", "classic")
+    assert set(smoke.MOE_SERVE_MODES) == set(smoke.MOE_SERVE_ORDER)

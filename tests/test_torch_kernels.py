@@ -13,7 +13,9 @@ normalised value and one carried through the weight product. That
 tolerance cannot tell RMSNorm's two bf16 roundings apart (the reference
 casts before the weight multiply, the TPU kernel once after), so in bf16
 the kernel must also match the plain version bit for bit on at least 99%
-of elements: only the fp32 sum order differs.
+of elements: only the fp32 sum order differs. The MoE kernels: dispatch
+and combine bit for bit (a copy; the same roundings), the route's integer
+outputs bit for bit and its gates within 2 fp32 ulps.
 """
 
 import importlib
@@ -31,6 +33,12 @@ from bobrapet_tpu_torch.ops import (
     cached_attention_cuda,
     cached_attention_reference,
     flash_attention_cuda,
+    moe_combine_cuda,
+    moe_combine_reference,
+    moe_dispatch_cuda,
+    moe_dispatch_reference,
+    moe_route_cuda,
+    moe_route_reference,
     paged_attention,
     paged_attention_cuda,
     paged_attention_multi,
@@ -851,3 +859,144 @@ def test_greedy_and_speculative_loops_pick_every_token_on_the_card(cuda):
     want = speculative_generate(params_cpu, params_cpu, prompt[:1], cfg, cfg, max_new_tokens=10,
                                 k=k)
     assert res.tokens.cpu().tolist() == want.tokens.tolist()
+
+
+# ---------------------------------------------------------------------------
+# sparse MoE: route, dispatch, combine (csrc/moe_dispatch.cu)
+# ---------------------------------------------------------------------------
+
+
+def _router_logits(t, e, dtype, device, seed, ties=False):
+    x = _randn((t, e), torch.float32, device, seed)
+    if ties:
+        # coarse values, the top two of every third row equal, every fifth
+        # row all equal: equal probabilities go to the lower expert index
+        x = torch.round(x * 4) / 4
+        x[::3, 1] = x[::3, 2] = x[::3].max(dim=1).values + 0.25
+        x[1::5] = x[1::5, :1]
+    return x.to(dtype).contiguous()
+
+
+MOE_ROUTE_CASES = [(8, 8, 2, 16), (64, 8, 2, 128), (1024, 8, 2, 2048), (300, 8, 2, 40),
+                   (33, 4, 2, 17), (5, 4, 1, 2), (40, 16, 4, 20)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("t,e,k,c", MOE_ROUTE_CASES)
+def test_moe_route_kernel_matches_plain(cuda, dtype, ties, t, e, k, c):
+    """Experts, slots, src and counts bit for bit; gates within 2 fp32 ulps
+    (the two exp implementations), exact where a row's chosen experts tie;
+    the probability sums within 1e-5 (another sum order)."""
+    logits = _router_logits(t, e, dtype, cuda, t + e, ties)
+    moe_route_cuda.launches = 0
+    got = moe_route_cuda(logits, k, c)
+    torch.cuda.synchronize()
+    assert moe_route_cuda.launches == 1
+    want = moe_route_reference(logits, k, c)
+    for name, a, b in zip(("expert", "slot", "gate", "src", "counts", "probsum"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+    expert, slot, gate, src, counts, probsum = got
+    for a, b in ((expert, want[0]), (slot, want[1]), (src, want[3]), (counts, want[4])):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(gate, want[2], rtol=2.0 ** -22, atol=0)
+    torch.testing.assert_close(probsum, want[5], rtol=1e-5, atol=1e-6)
+    if ties:
+        tied = torch.zeros(t, dtype=torch.bool, device=cuda)
+        tied[::3] = True
+        tied[1::5] = True
+        assert torch.equal(gate[tied], want[2][tied])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,d,c,offset", [(8, 4096, 16, 0), (64, 4096, 128, 0),
+                                          (1024, 4096, 2048, 0), (20, 100, 7, 0),
+                                          (16, 4096, 32, 1)])
+def test_moe_dispatch_kernel_matches_plain(cuda, dtype, t, d, c, offset):
+    """A copy: bit for bit, empty slots zero, on the 16-byte path and on the
+    element path (an odd width, a row start off 16 bytes)."""
+    logits = _router_logits(t, 8, dtype, cuda, t + d)
+    _, _, _, src, _, _ = moe_route_reference(logits, 2, c)
+    base = _randn((t * d + offset,), dtype, cuda, 3)
+    h = base[offset:].view(t, d)
+    out = moe_dispatch_cuda(h, src)
+    torch.cuda.synchronize()
+    assert torch.equal(out, moe_dispatch_reference(h, src))
+    assert (out[src < 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,d,c", [(8, 4096, 16), (64, 4096, 128), (1024, 4096, 2048),
+                                   (24, 4096, 5), (9, 100, 18)])
+def test_moe_combine_kernel_matches_plain(cuda, dtype, t, d, c):
+    """Each product and add rounded on its own on both sides: bit for bit,
+    a (t, k) past its expert's capacity (c = 5) skipped."""
+    logits = _router_logits(t, 8, dtype, cuda, t + c)
+    expert, slot, gate, _, _, _ = moe_route_reference(logits, 2, c)
+    out_e = _randn((8, c, d), dtype, cuda, 4)
+    got = moe_combine_cuda(out_e, expert, slot, gate)
+    torch.cuda.synchronize()
+    assert torch.equal(got, moe_combine_reference(out_e, expert, slot, gate))
+
+
+def test_moe_kernels_refuse_what_they_do_not_take(cuda):
+    logits = _router_logits(8, 8, torch.float32, cuda, 0)
+    expert, slot, gate, src, _, _ = moe_route_cuda(logits, 2, 16)
+    with pytest.raises(ValueError):
+        moe_route_cuda(logits.cpu(), 2, 16)
+    with pytest.raises(TypeError):
+        moe_route_cuda(logits.half(), 2, 16)
+    with pytest.raises(ValueError):
+        moe_route_cuda(_router_logits(8, 64, torch.float32, cuda, 0), 2, 16)
+    with pytest.raises(ValueError):
+        moe_route_cuda(logits, 9, 16)
+    h = _randn((8, 64), torch.float32, cuda, 1)
+    with pytest.raises(ValueError):
+        moe_dispatch_cuda(h, src.long())
+    with pytest.raises(ValueError):
+        moe_dispatch_cuda(h.t(), src)
+    out_e = moe_dispatch_cuda(h, src)
+    with pytest.raises(ValueError):
+        moe_combine_cuda(out_e, expert, slot, gate.double())
+    with pytest.raises(ValueError):
+        moe_combine_cuda(out_e, expert.cpu(), slot, gate)
+
+
+def test_tiny_moe_on_the_card_matches_the_cpu(cuda):
+    """moe_tiny in fp32: greedy_generate eager and graphed and the engine at
+    H = 1 and 8, card = CPU token for token, one route, dispatch and
+    combine a layer a forward."""
+    import dataclasses
+
+    from bobrapet_tpu_torch.models import moe
+
+    cfg = dataclasses.replace(moe.moe_tiny(), capacity_factor=4.0)
+    params_cpu = moe.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = _to(params_cpu, cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 9), generator=torch.Generator().manual_seed(1))
+    want = moe.greedy_generate(params_cpu, prompt, cfg, max_new_tokens=7)
+    for graph in (False, True):
+        for fn in (moe_route_cuda, moe_dispatch_cuda, moe_combine_cuda):
+            fn.launches = 0
+        out = moe.greedy_generate(params, prompt.to(cuda), cfg, max_new_tokens=7,
+                                  cuda_graph=graph)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), want)
+        for fn in (moe_route_cuda, moe_dispatch_cuda, moe_combine_cuda):
+            assert fn.launches == (1 + 7) * cfg.n_layers
+    pcfg = PagedConfig(max_slots=3, block_size=8, num_blocks=24, max_blocks_per_seq=4)
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in (5, 12, 9)]
+    outs = []
+    for tree in (params_cpu, params):
+        for h in (1, 8):
+            eng = ServingEngine(tree, cfg, pcfg, decode_horizon=h, dispatch_depth=1)
+            moe_route_cuda.launches = 0
+            for p in prompts:
+                eng.submit(p, 10)
+            eng.run()
+            if tree is params:
+                pc = eng.phase_counts
+                assert moe_route_cuda.launches == (pc["prefills"] + pc["device_steps"]) * 2
+            outs.append({r.rid: r.output for r in eng.finished})
+    assert all(o == outs[0] for o in outs)

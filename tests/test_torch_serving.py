@@ -398,14 +398,11 @@ class TestEngineSurface:
     @pytest.mark.parametrize("kwargs,pcfg_kw,match", [
         ({"role": "prefill"}, {}, "role='unified'"),
         ({"role": "decode"}, {}, "role='unified'"),
-        ({"moe": True}, {}, "dense LlamaConfig"),
-    ], ids=["prefill", "decode", "moe"])
+    ], ids=["prefill", "decode"])
     def test_unported_paths_raise(self, tiny, kwargs, pcfg_kw, match):
         _, params_t = tiny["float"]
         cfg = tiny["cfg_t"]
         kw = {"decode_horizon": 1, "dispatch_depth": 1, **kwargs}
-        if kw.pop("moe", False):
-            cfg = _MoEConfig(**dataclasses.asdict(cfg), n_experts=4)
         pcfg = PagedConfig(**{"prefix_caching": False, **pcfg_kw})
         with pytest.raises(NotImplementedError, match=match.replace("(", r"\(")):
             ServingEngine(params_t, cfg, pcfg, **kw)
@@ -480,7 +477,3 @@ class TestEngineSurface:
         assert [tengine._bucket(n) for n in range(1, 300)] == \
             [jengine._bucket(n) for n in range(1, 300)]
 
-
-@dataclasses.dataclass(frozen=True)
-class _MoEConfig(tllama.LlamaConfig):
-    n_experts: int = 4
