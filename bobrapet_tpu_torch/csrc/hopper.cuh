@@ -1,7 +1,10 @@
-// Hopper building blocks for the port's kernels: mbarriers, TMA tensor
-// loads, programmatic dependent launch, register moves between warpgroups,
-// wgmma (shared-memory descriptors, fences, the m64n128k16 bf16 product
-// with A in registers) and the host's tensor-map encoder.
+// Hopper building blocks for the port's kernels: mbarriers (and cp.async
+// completion on one), TMA tensor loads, programmatic dependent launch,
+// register moves between warpgroups, wgmma (shared-memory descriptors,
+// fences, the m64n128k16 bf16 product with A in registers, the m64n128
+// and n16 products with both operands in shared memory) and, on the host,
+// the tensor-map encoder, a launch with programmatic dependent launch and
+// the SM count.
 // Plain CUDA with no PyTorch header; the encoder reaches the driver's
 // cuTensorMapEncodeTiled through the runtime's entry-point query, so the
 // library links no libcuda.
@@ -73,6 +76,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       asm volatile("trap;\n");
     }
   }
+}
+
+// arrive on bar once every cp.async this thread issued before has landed;
+// .noinc: the barrier's expected count includes this arrival
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(smem_addr(bar))
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -195,6 +205,94 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// Both operands in 128-byte-swizzled shared memory. TA / TB 0: the operand
+// is K-major (K contiguous in its 128-byte rows: start + 32 bytes a k16
+// step, LBO 16, SBO 1024 between 8-row groups); 1: MN-major (M or N
+// contiguous, K along the rows: start + 2048 bytes a k16 step, LBO the
+// bytes between 64-element column chunks, SBO 1024 between 8-row K groups).
+// Accumulators as in the register-A product above, N / 2 a thread.
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16], both from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// ---------------------------------------------------------------------------
+// host: launches
+
+// a launch configuration with programmatic dependent launch: the kernel may
+// start launching while the one before it on the stream still runs, and
+// reads that kernel's results only after grid_dependency_wait
+struct PdlLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  PdlLaunch(dim3 grid, int threads, int smem, cudaStream_t st) {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  PdlLaunch(const PdlLaunch&) = delete;  // cfg points into this object
+  PdlLaunch& operator=(const PdlLaunch&) = delete;
+};
+
+// the current device's SM count, queried once a device; 0 where it fails
+inline int sm_count() {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (sms[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+    sms[dev] = n;
+  }
+  return sms[dev];
 }
 
 // ---------------------------------------------------------------------------

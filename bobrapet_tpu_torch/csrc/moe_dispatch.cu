@@ -40,13 +40,22 @@
 // one thread an expert, plus the chunks before. The per-expert probability
 // sums are taken in token order by one thread an expert, so reruns give
 // the same bits. At the port's T (8 to 1024) the whole route is a few
-// microseconds on one SM. Dispatch and combine are one block a row
-// (dispatch: E x C rows; combine: T rows) of kRowThreads threads moving
-// 16-byte packs where the row width and pointers allow, else elements.
+// microseconds on one SM; it lets the kernel after it (the gate/up product
+// of csrc/moe_experts.cu, launched with programmatic dependent launch)
+// start launching at once. The dispatch is one block a row (E x C rows) of
+// kRowThreads threads moving 16-byte packs where the row width and
+// pointers allow, else elements; the model no longer runs it (the gate/up
+// product gathers its rows itself), it stays as the counterpart of JAX's
+// dispatch einsum. The combine is latency, not bytes, at a decode (8
+// tokens of 8 KB): its grid is tokens x column chunks, with the chunk (32
+// to 128 threads of 16 bytes) picked so that every SM gets two blocks; each
+// thread issues its k loads before its sums, and the launch overlaps the
+// down product's tail (programmatic dependent launch).
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace bobra {
 namespace moe {
@@ -56,6 +65,7 @@ constexpr int kRouteWarps = kRouteThreads / 32;
 constexpr int kMaxExperts = 32;
 constexpr int kMaxTopK = 8;
 constexpr int kRowThreads = 128;
+constexpr int kCombineThreads = 128;  // the most threads of a combine block
 
 template <typename T>
 __global__ void __launch_bounds__(kRouteThreads)
@@ -69,6 +79,9 @@ __global__ void __launch_bounds__(kRouteThreads)
   __shared__ int base[kMaxExperts];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int E = n_experts, K = top_k;
+  // the gate/up product, launched with programmatic dependent launch, may
+  // start now: it reads nothing of this kernel's before its dependency wait
+  hopper::launch_dependents();
   // every capacity slot starts empty
   for (int i = tid; i < E * capacity; i += kRouteThreads) src[i] = -1;
   if (tid < E) base[tid] = 0;
@@ -170,36 +183,50 @@ struct alignas(sizeof(T) * kVec) Pack {
   T v[kVec];
 };
 
-// one token a block; kVec elements a thread per step (16 bytes when the
-// width and pointers allow, else 1)
+// Grid (tokens, column chunks): a block takes blockDim.x packs of kVec
+// elements (16 bytes where the width and pointers allow, else 1) of one
+// token, so a decode's few tokens still spread over the SMs. A thread loads
+// its k rows (and their maps) before the first sum.
 template <typename T, int kVec>
-__global__ void __launch_bounds__(kRowThreads)
+__global__ void __launch_bounds__(kCombineThreads)
     moe_combine_kernel(const T* __restrict__ expert_out, const int* __restrict__ expert,
                        const int* __restrict__ slot, const float* __restrict__ gate,
                        T* __restrict__ y, int d, int top_k, int capacity) {
   using P = Pack<T, kVec>;
+  hopper::launch_dependents();
+  hopper::grid_dependency_wait();  // the expert rows and the route's maps are written
   const int t = blockIdx.x;
+  const int col = (blockIdx.y * blockDim.x + threadIdx.x) * kVec;
+  if (col >= d) return;
   const int* ex = expert + static_cast<size_t>(t) * top_k;
   const int* sl = slot + static_cast<size_t>(t) * top_k;
   const float* g = gate + static_cast<size_t>(t) * top_k;
-  for (int col = threadIdx.x * kVec; col < d; col += kRowThreads * kVec) {
-    float acc[kVec];
+  P v[kMaxTopK];
+  float gk[kMaxTopK];
+  bool kept[kMaxTopK];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) acc[j] = 0.f;
-    for (int k = 0; k < top_k; ++k) {
-      const int s = sl[k];
-      if (s >= capacity) continue;  // dropped: past its expert's capacity
+  for (int k = 0; k < kMaxTopK; ++k) {
+    const int s = k < top_k ? sl[k] : capacity;
+    kept[k] = s < capacity;  // else dropped: past its expert's capacity
+    gk[k] = kept[k] ? g[k] : 0.f;
+    if (kept[k]) {
       const size_t row = static_cast<size_t>(ex[k]) * capacity + s;
-      const P v = *reinterpret_cast<const P*>(expert_out + row * d + col);
-      const float gk = g[k];
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(gk, to_float(v.v[j])));
+      v[k] = *reinterpret_cast<const P*>(expert_out + row * d + col);
     }
-    P o;
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) o.v[j] = from_float<T>(acc[j]);
-    *reinterpret_cast<P*>(y + static_cast<size_t>(t) * d + col) = o;
   }
+  float acc[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int k = 0; k < kMaxTopK; ++k) {
+    if (!kept[k]) continue;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(gk[k], to_float(v[k].v[j])));
+  }
+  P o;
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) o.v[j] = from_float<T>(acc[j]);
+  *reinterpret_cast<P*>(y + static_cast<size_t>(t) * d + col) = o;
 }
 
 inline bool aligned16(const void* a, const void* b, const void* c) {
@@ -212,24 +239,44 @@ inline int finish(cudaError_t err) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the threads of a combine block: the most (of 128, 64, 32) that still give
+// every SM two blocks, else 32
+inline int combine_threads(int tokens, int packs) {
+  const int sms = hopper::sm_count();
+  if (sms == 0) return kCombineThreads;
+  for (int threads = kCombineThreads; threads > 32; threads /= 2) {
+    if (static_cast<long long>(tokens) * ((packs + threads - 1) / threads) >= 2LL * sms) {
+      return threads;
+    }
+  }
+  return 32;
+}
+
+template <typename T, int kVec>
+cudaError_t launch_combine(const void* expert_out, const void* expert, const void* slot,
+                           const void* gate, void* y, int tokens, int d, int top_k,
+                           int capacity, cudaStream_t st) {
+  const int packs = (d + kVec - 1) / kVec;
+  const int threads = combine_threads(tokens, packs);
+  // the launch overlaps the tail of the kernel before it (the down product's)
+  hopper::PdlLaunch l(dim3(tokens, (packs + threads - 1) / threads, 1), threads, 0, st);
+  return cudaLaunchKernelEx(&l.cfg, moe_combine_kernel<T, kVec>, static_cast<const T*>(expert_out),
+                            static_cast<const int*>(expert), static_cast<const int*>(slot),
+                            static_cast<const float*>(gate), static_cast<T*>(y), d, top_k,
+                            capacity);
+}
+
 template <typename T>
 int launch_combine(const void* expert_out, const void* expert, const void* slot,
                    const void* gate, void* y, int tokens, int d, int top_k, int capacity,
                    cudaStream_t st) {
   constexpr int kVec = 16 / sizeof(T);
-  const T* eo = static_cast<const T*>(expert_out);
-  const int* ex = static_cast<const int*>(expert);
-  const int* sl = static_cast<const int*>(slot);
-  const float* g = static_cast<const float*>(gate);
-  T* out = static_cast<T*>(y);
   if (d % kVec == 0 && aligned16(expert_out, y, nullptr)) {
-    moe_combine_kernel<T, kVec><<<tokens, kRowThreads, 0, st>>>(eo, ex, sl, g, out, d, top_k,
-                                                                capacity);
-  } else {
-    moe_combine_kernel<T, 1><<<tokens, kRowThreads, 0, st>>>(eo, ex, sl, g, out, d, top_k,
-                                                             capacity);
+    return finish(launch_combine<T, kVec>(expert_out, expert, slot, gate, y, tokens, d, top_k,
+                                          capacity, st));
   }
-  return finish(cudaSuccess);
+  return finish(launch_combine<T, 1>(expert_out, expert, slot, gate, y, tokens, d, top_k,
+                                     capacity, st));
 }
 
 }  // namespace moe

@@ -42,6 +42,7 @@ import torch
 
 from .ops.attention import cached_attention_cuda, flash_attention_cuda
 from .ops.moe_dispatch import moe_combine_cuda, moe_dispatch_cuda, moe_route_cuda
+from .ops.moe_experts import moe_down_cuda, moe_gate_up_cuda
 from .ops.paged_attention import paged_attention_cuda, paged_attention_multi_cuda
 from .ops.pick_tokens import pick_tokens_cuda
 from .ops.quant_matmul import quant_matmul_cuda
@@ -50,7 +51,7 @@ from .ops.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
 #: every kernel wrapper with a ``launches`` counter
 COUNTED = (rmsnorm_cuda, add_rmsnorm_cuda, flash_attention_cuda, cached_attention_cuda,
            paged_attention_cuda, paged_attention_multi_cuda, quant_matmul_cuda, pick_tokens_cuda,
-           moe_route_cuda, moe_dispatch_cuda, moe_combine_cuda)
+           moe_route_cuda, moe_dispatch_cuda, moe_combine_cuda, moe_gate_up_cuda, moe_down_cuda)
 
 
 class GraphedStep:

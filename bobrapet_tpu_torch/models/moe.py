@@ -7,25 +7,28 @@ only the MLP of each layer is replaced by the routed block:
 
   router:   logits [T, E] = h @ w_router
   route:    top-k experts, gates and capacity slots (:func:`ops.moe_route`)
-  dispatch: expert_in [E, C, D] (:func:`ops.moe_dispatch`)
-  experts:  silu(expert_in @ w_gate) * (expert_in @ w_up) @ w_down, one
-            batched product over E each (``torch.bmm``)
+  gate/up:  act [E, C, F] = silu(x @ w_gate) * (x @ w_up), x each slot's
+            token row of h (:func:`ops.moe_gate_up`: the dispatch folded in)
+  down:     expert_out [E, C, D] = act @ w_down (:func:`ops.moe_down`)
   combine:  y [T, D] = sum_k gate * expert_out (:func:`ops.moe_combine`)
 
 JAX keeps the routing as one-hot tensors ``[T, E, C]`` contracted with the
 activations; the port keeps it as indices (see :mod:`ops.moe_dispatch`),
-which on a card are the route, dispatch and combine kernels. The values
-are JAX's: the copy into ``expert_in`` is exact either way, and the
-combine sums the same fp32 products. :func:`route_topk` rebuilds JAX's
-one-hot tensors from the route for parity.
+which on a card are the route, the two expert products and the combine
+kernels. The values are JAX's: the rows the products read are h's rows
+exactly, the products keep JAX's rounding points, and the combine sums the
+same fp32 products. :func:`route_topk` rebuilds JAX's one-hot tensors from
+the route for parity.
 
 The forward carries the residual stream and the pending delta as
 ``models.llama.forward`` does: :func:`moe_mlp_block` takes the norm over
 ``x + delta`` in one :func:`ops.add_rmsnorm` and returns its own output as
-the next delta. The expert products run over every capacity row, live or
-empty, as JAX's einsums do: at the no-drop capacity serving requires
-(``capacity_factor = n_experts``, C = T * k) that is E times the routed
-work (ROADMAP Queue 2 row 8).
+the next delta. JAX's einsums multiply every capacity row, live or empty:
+at the no-drop capacity serving requires (``capacity_factor =
+n_experts``, C = T * k) that is E times the routed work. On a card the
+expert kernels multiply each expert's live rows only (no ``[E, C, D]``
+input buffer, no ``torch.bmm``); on the CPU the plain versions run the
+dense sequence of JAX's einsums and give their bits.
 """
 
 from __future__ import annotations
@@ -35,10 +38,10 @@ import math
 from typing import Any, Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
-from ..ops.moe_dispatch import moe_aux, moe_combine, moe_dispatch, moe_route
+from ..ops.moe_dispatch import moe_aux, moe_combine, moe_route
+from ..ops.moe_experts import moe_down, moe_gate_up
 from ..ops.rmsnorm import add_rmsnorm
 from . import llama
 from .llama import LlamaConfig, _attention_block, _device_rows, _freqs_table, _logits
@@ -185,8 +188,8 @@ def moe_mlp_block(layer: dict[str, Any], x: torch.Tensor, delta: torch.Tensor,
                   cfg: MoEConfig, stats: Optional[list] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """The routed MLP in the delta form of ``llama._mlp_block``: the norm
-    over ``x + delta`` (:func:`ops.add_rmsnorm`), route, dispatch, the
-    expert products, combine. Returns ``(x + delta, the block's delta [B,
+    over ``x + delta`` (:func:`ops.add_rmsnorm`), route, the gate/up and
+    down products over the live rows, combine. Returns ``(x + delta, the block's delta [B,
     S, D] in cfg.dtype)``; the next norm adds the delta. With ``stats`` (a
     list) the route's per-expert ``(counts, probsum, tokens)`` are appended
     for the load-balancing loss (:func:`forward`)."""
@@ -199,10 +202,8 @@ def moe_mlp_block(layer: dict[str, Any], x: torch.Tensor, delta: torch.Tensor,
         logits, cfg.experts_per_token, cfg.capacity(b * s))
     if stats is not None:
         stats.append((counts, probsum, b * s))
-    expert_in = moe_dispatch(flat, src)  # [E, C, D]
-    act = F.silu(torch.bmm(expert_in, moe["w_gate"]).float())
-    up = torch.bmm(expert_in, moe["w_up"]).float()
-    expert_out = torch.bmm((act * up).to(cfg.dtype), moe["w_down"])  # [E, C, D]
+    act = moe_gate_up(flat, src, counts, moe["w_gate"], moe["w_up"])  # [E, C, F]
+    expert_out = moe_down(act, counts, moe["w_down"], b * s)  # [E, C, D]
     y = moe_combine(expert_out, expert, slot, gate)
     return x, y.view(b, s, d).to(cfg.dtype)
 

@@ -20,6 +20,14 @@ from .moe_dispatch import (
     moe_route_cuda,
     moe_route_reference,
 )
+from .moe_experts import (
+    moe_down,
+    moe_down_cuda,
+    moe_down_reference,
+    moe_gate_up,
+    moe_gate_up_cuda,
+    moe_gate_up_reference,
+)
 from .paged_attention import (
     paged_attention,
     paged_attention_cuda,
@@ -57,6 +65,12 @@ __all__ = [
     "moe_dispatch",
     "moe_dispatch_cuda",
     "moe_dispatch_reference",
+    "moe_down",
+    "moe_down_cuda",
+    "moe_down_reference",
+    "moe_gate_up",
+    "moe_gate_up_cuda",
+    "moe_gate_up_reference",
     "moe_route",
     "moe_route_cuda",
     "moe_route_reference",

@@ -27,7 +27,10 @@ queue in t-major, k-minor order, kept only when below the capacity C.
 On the card a wrapper launches its kernel or raises; on the CPU the
 dispatchers run the plain versions. The plain combine takes each product
 and add rounded on its own, as the kernel does, so the two agree bit for
-bit.
+bit. The model runs the route and the combine; the gate/up product of
+:mod:`ops.moe_experts` gathers its rows itself, so the dispatch runs only
+inside the expert products' plain versions (and its kernel stands as the
+counterpart of JAX's dispatch einsum).
 """
 
 from __future__ import annotations

@@ -27,11 +27,15 @@ Phases, each fatal on failure (exit 1, and no result line):
    more launches over as many copies of its logits, over 50 MB together,
    so that each launch finds its logits cold: the time the engine's graphs
    see, free of the single launch's floor; and the temperature floor:
-   4 rows at T = 1e-39 pick their argmax; the MoE route, dispatch and
-   combine over Mixtral's 8 experts, top 2, at the no-drop capacity, at
-   8 tokens (a decode), 64 (the engine's largest config-6 bucket) and
-   1,024 (the greedy prefill), and the route of 1,024 tokens whose every
-   row ties, held bit for bit) plus long-cache decodes (dense over 2048
+   4 rows at T = 1e-39 pick their argmax; the MoE route, dispatch,
+   gate/up and down expert products and combine over Mixtral's 8 experts
+   (d 4096, f 14336), top 2, at the no-drop capacity, at 8 tokens (a
+   decode), 64 (the engine's largest config-6 bucket) and 1,024 (the
+   greedy prefill), the expert products at a decode with an empty expert,
+   and the route of 1,024 tokens whose every row ties: route, dispatch and
+   combine bit for bit, the expert products on the live rows bits equal on
+   99% and within 2 bf16 ulps, timed beside the parent's dispatch, bmm and
+   elementwise sequence) plus long-cache decodes (dense over 2048
    rows, paged up to 1024), ragged, fp32 and narrow-head cases: max abs
    error against a stated tolerance, and the times (CUDA events, median of 50
    launches, L2 flushed before each) of the kernel, the plain version and
@@ -126,10 +130,13 @@ Phases, each fatal on failure (exit 1, and no result line):
    (bf16, random weights from --seed made on the card after phase 8's
    trees are freed): (a) greedy_generate of phase 4's traffic, eager,
    graphed, graphed, eager: identical tokens, exact launch counts (one
-   route, dispatch and combine a layer a forward beside every norm,
-   attention and pick), prefill ms, step ms and busy share, the step
-   against its bound (every weight but the embedding read once) and the
-   parts of a prefill and a step by op and kernel; (b) config 6's 16
+   route, gate/up, down and combine a layer a forward beside every norm,
+   attention and pick, and no dispatch), prefill ms, step ms and busy
+   share, the step against its bound (every weight but the embedding read
+   once), the parts of a prefill and a step by op and kernel (the expert
+   products' kernels, and bmm, which should read 0), and the bf16 prefill
+   logits and greedy tokens against the plain path's on the same tree; (b)
+   config 6's 16
    requests through the engine, the classic tick (H 1, depth 1) and its
    defaults (H 8, depth 2), greedy then sampled (0, 0.7, 1.0, 1.3), each
    drained in turns: the same tokens or streams in both modes, exact
@@ -303,6 +310,14 @@ MOE_CROSS_BUDGET = {1: 6, 8: 16}
 # another order (cuBLAS, TF32 off, against the CPU's), ~1e-5 on logits of
 # order 1; a kernel fault shows as errors of order 0.1 and more
 MOE_CROSS_TOL = 1e-3
+# phase 3's expert products at Mixtral's widths, bf16, each kernel against
+# its plain version on the live rows: the fp32 sums run in another order
+# than cuBLAS's, so a value may round to a neighbouring bf16 number; bits
+# equal on at least this share of the live elements, none further apart
+# than this many bf16 ulps
+MOE_EXPERT_BIT_SHARE = 0.99
+MOE_EXPERT_ULPS = 2
+MOE_DIM, MOE_FFN = 4096, 14336
 
 
 def serve_prompt_len(i: int) -> int:
@@ -1044,6 +1059,10 @@ PORT_KERNELS = (("paged_attention", ("PagedPolicy", "paged_attention_kernel")),
 # the MoE kernels' instances, told apart where phase 9 profiles
 MOE_PORT_KERNELS = (("moe_route", ("moe_route_kernel",)),
                     ("moe_dispatch", ("moe_dispatch_kernel",)),
+                    ("moe_gate_up", ("moe_wide_kernel<true", "moe_narrow_kernel<true",
+                                     "moe_f32_kernel<true")),
+                    ("moe_down", ("moe_wide_kernel<false", "moe_narrow_kernel<false",
+                                  "moe_f32_kernel<false")),
                     ("moe_combine", ("moe_combine_kernel",)))
 
 
@@ -1099,7 +1118,8 @@ def zero_counts(ops) -> None:
     for fn in (ops.rmsnorm_cuda, ops.add_rmsnorm_cuda, ops.flash_attention_cuda,
                ops.cached_attention_cuda, ops.paged_attention_cuda,
                ops.paged_attention_multi_cuda, ops.quant_matmul_cuda, ops.pick_tokens_cuda,
-               ops.moe_route_cuda, ops.moe_dispatch_cuda, ops.moe_combine_cuda):
+               ops.moe_route_cuda, ops.moe_dispatch_cuda, ops.moe_combine_cuda,
+               ops.moe_gate_up_cuda, ops.moe_down_cuda):
         fn.launches = 0
     for route in ops.quant_matmul_cuda.routes:
         ops.quant_matmul_cuda.routes[route] = 0
@@ -2365,15 +2385,20 @@ def lora_drains(torch, ops, serving, lora_mod, params, cfg, seed: int, dev) -> d
 
 
 def moe_counts(ops) -> dict:
-    """The three MoE wrappers' counters."""
+    """The MoE wrappers' counters."""
     return {"moe_route": ops.moe_route_cuda.launches,
             "moe_dispatch": ops.moe_dispatch_cuda.launches,
+            "moe_gate_up": ops.moe_gate_up_cuda.launches,
+            "moe_down": ops.moe_down_cuda.launches,
             "moe_combine": ops.moe_combine_cuda.launches}
 
 
 def moe_launches(forwards: int, n_layers: int) -> dict:
-    """One route, one dispatch and one combine a layer a forward."""
-    return {name: forwards * n_layers for name in ("moe_route", "moe_dispatch", "moe_combine")}
+    """A route, a gate/up, a down and a combine a layer a forward, and no
+    dispatch: the gate/up product gathers its own rows."""
+    n = forwards * n_layers
+    return {"moe_route": n, "moe_dispatch": 0, "moe_gate_up": n, "moe_down": n,
+            "moe_combine": n}
 
 
 def moe_route_bytes(t: int, e: int, k: int, c: int, es: int) -> int:
@@ -2392,6 +2417,43 @@ def moe_combine_bytes(t: int, k: int, d: int, es: int) -> int:
     slot and gate read once, its row written once (this run's data: every
     (t, k) kept at no-drop capacity)."""
     return t * k * d * es + 12 * t * k + t * d * es
+
+
+def moe_product_flops(rows: int, d: int, f: int, part: str) -> int:
+    """The routed FLOPs of one expert product over ``rows`` live rows:
+    gate/up two [rows, d] x [d, f] products, down one [rows, f] x [f, d]."""
+    return (2 if part == "gate_up" else 1) * 2 * rows * d * f
+
+
+def moe_product_bytes(tokens: int, rows: int, live_experts: int, e: int, c: int, d: int,
+                      f: int, part: str, es: int) -> int:
+    """What one expert product must move, each input read once and each
+    output written once: the live experts' weights (gate/up two [d, f],
+    down one [f, d]); gate/up reads the T rows of h, src [E, C] and counts
+    and writes the live rows of act; down reads those rows and counts and
+    writes the live rows of out."""
+    if part == "gate_up":
+        return live_experts * 2 * d * f * es + tokens * d * es + 4 * e * c + 4 * e + rows * f * es
+    return live_experts * f * d * es + rows * f * es + 4 * e + rows * d * es
+
+
+def moe_live_expert_flops(tokens: int, cfg) -> int:
+    """The expert products' FLOPs one forward of ``tokens`` tokens runs on
+    the card at the no-drop capacity: every (t, k) is a live row, and only
+    live rows are multiplied (``moe_expert_flops``' ``routed``)."""
+    rows = tokens * cfg.experts_per_token
+    return sum(moe_product_flops(rows, cfg.dim, cfg.ffn_hidden, part)
+               for part in ("gate_up", "down")) * cfg.n_layers
+
+
+def bf16_ulps(torch, a, b):
+    """Per element, the bf16 ulps between bf16 tensors ``a`` and ``b``
+    (+0 and -0 the same number)."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -32768 - bits, bits)
+
+    return (ordered(a) - ordered(b)).abs()
 
 
 def moe_ties(torch, t: int, e: int, gen, dev):
@@ -2503,27 +2565,117 @@ def moe_combine_case(torch, ops, flush, name, t, d, dtype, gen, dev):
     }
 
 
+def moe_expert_case(torch, ops, flush, label, t, weights, gen, dev, empty=False) -> list:
+    """The gate/up and down kernels of ``t`` tokens at Mixtral's widths
+    (bf16, 8 experts, top 2, C = 2t; the route of random logits, with
+    ``empty`` expert 0 never chosen), each against its plain version on the
+    live rows: bits equal on MOE_EXPERT_BIT_SHARE of them and none more than
+    MOE_EXPERT_ULPS apart. The down kernel takes the gate/up kernel's rows,
+    so each is held alone. The bound is the larger of the routed FLOPs at the
+    bf16 peak and the bytes (the live experts' weights, the rows) at the HBM
+    rate. Each is timed against the parent's sequence for the same function
+    (``parent_sequence_ms``: for gate/up the dispatch kernel, torch.bmm over
+    every capacity row and the fp32 elementwise; for down one torch.bmm).
+    The down product is one batched product, so that torch.bmm is also its
+    library call (``library_ms``); no single PyTorch call computes the
+    gate/up product with its gather and SwiGLU (``library_ms`` None)."""
+    from bobrapet_tpu_torch.ops.moe_experts import live_rows
+
+    bf16, silu = torch.bfloat16, torch.nn.functional.silu
+    w_gate, w_up, w_down = weights
+    e, k, c = MOE_EXPERTS, MOE_TOP_K, MOE_TOP_K * t
+    d, f = w_gate.shape[1], w_gate.shape[2]
+    logits = torch.randn((t, e), generator=gen, device=dev) * 2
+    if empty:
+        logits[:, 0] = -30.0
+    _, _, _, src, counts, _ = ops.moe_route_reference(logits.to(bf16), k, c)
+    h = torch.randn((t, d), generator=gen, device=dev).to(bf16)
+    act = ops.moe_gate_up_cuda(h, src, counts, w_gate, w_up)
+    out = ops.moe_down_cuda(act, counts, w_down, t)
+    want_act = ops.moe_gate_up_reference(h, src, counts, w_gate, w_up)
+    want_out = ops.moe_down_reference(act, counts, w_down)
+    torch.cuda.synchronize()
+    live = live_rows(counts, c)
+    rows, live_e = int(live.sum()), int((counts > 0).sum())
+    if empty and int(counts[0]) != 0:
+        fail(f"moe experts {label}: expert 0 took a token")
+
+    def parent_gate_up():
+        x = ops.moe_dispatch_cuda(h, src)
+        return (silu(torch.bmm(x, w_gate).float()) * torch.bmm(x, w_up).float()).to(bf16)
+
+    cases = []
+    for part, got, want, run, plain, parent, library in (
+            ("gate_up", act, want_act,
+             lambda: ops.moe_gate_up_cuda(h, src, counts, w_gate, w_up),
+             lambda: ops.moe_gate_up_reference(h, src, counts, w_gate, w_up), parent_gate_up,
+             None),
+            ("down", out, want_out, lambda: ops.moe_down_cuda(act, counts, w_down, t),
+             lambda: ops.moe_down_reference(act, counts, w_down),
+             lambda: torch.bmm(want_act, w_down), "torch.bmm")):
+        g, r = got[live], want[live]
+        if not torch.isfinite(g.float()).all():
+            fail(f"moe {part} {label}: the kernel's live rows are not finite")
+        ulps = bf16_ulps(torch, g, r)
+        share, worst = float((ulps == 0).float().mean()), int(ulps.max())
+        print(f"  moe {part} {label}: {rows} live rows, {live_e} live experts, bits equal on "
+              f"{share:.6f}, at most {worst} bf16 ulps apart", flush=True)
+        if share < MOE_EXPERT_BIT_SHARE or worst > MOE_EXPERT_ULPS:
+            fail(f"moe {part} {label}: the kernel differs from the plain version (bits equal "
+                 f"on {share}, {worst} ulps)")
+        b_ms, b_by = bound(moe_product_bytes(t, rows, live_e, e, c, d, f, part, 2),
+                           moe_product_flops(rows, d, f, part), "bfloat16")
+        # the kernel first, as every phase-3 case: the parent's dense
+        # sequence, timed before it, would leave the card hot
+        ms, plain_ms = time_ms(torch, run, flush), time_ms(torch, plain, flush)
+        parent_ms = time_ms(torch, parent, flush)
+        cases.append({
+            "case": f"moe {part} {label}", "kernel": f"moe_{part}", "tokens": t,
+            "capacity": c, "rows": rows, "live_experts": live_e,
+            "dtype": "bfloat16", "max_abs_err": float((g.float() - r.float()).abs().max()),
+            "bit_share": share, "max_ulps": worst, "ms": ms, "plain_ms": plain_ms,
+            "parent_sequence_ms": parent_ms,
+            # the down product's parent sequence is one torch.bmm: its library call
+            "library_ms": parent_ms if library else None, "library": library,
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    return cases
+
+
 def moe_kernel_cases(torch, ops, flush, gen, dev) -> list:
-    """Phase 3's MoE cases: route, dispatch and combine at each of
-    MOE_TOKENS (bf16, d = 4096), and the route with forced ties."""
-    bf16, d = torch.bfloat16, 4096
+    """Phase 3's MoE cases: route, dispatch, gate/up, down and combine at
+    each of MOE_TOKENS (bf16, d = 4096, f = 14336), the route with forced
+    ties, and the expert products with an empty expert."""
+    bf16, d = torch.bfloat16, MOE_DIM
+    e, f = MOE_EXPERTS, MOE_FFN
+
+    def weight(shape, fan_in):
+        w = torch.randn(shape, generator=gen, device=dev)
+        return w.mul_(fan_in ** -0.5).to(bf16)
+
+    weights = (weight((e, d, f), d), weight((e, d, f), d), weight((e, f, d), f))
     cases = []
     for label, t in MOE_TOKENS:
         cases.append(moe_route_case(torch, ops, flush, f"moe route {label}", t, bf16, gen, dev))
         cases.append(moe_dispatch_case(torch, ops, flush, f"moe dispatch {label}", t, d, bf16,
                                        gen, dev))
+        cases += moe_expert_case(torch, ops, flush, label, t, weights, gen, dev)
         cases.append(moe_combine_case(torch, ops, flush, f"moe combine {label}", t, d, bf16,
                                       gen, dev))
+    cases += moe_expert_case(torch, ops, flush, "decode, expert 0 empty", BATCH, weights, gen,
+                             dev, empty=True)
     cases.append(moe_route_case(torch, ops, flush, "moe route ties", BATCH * PROMPT, bf16, gen,
                                 dev, ties=True))
+    del weights
     return cases
 
 
 def moe_split(torch, prof, steps: int) -> dict:
     """Device ms a step by part, from a profile of eager steps: the expert
-    products (``aten::bmm``: the only batched products on the path), the
-    other products (``aten::mm``: q, k, v, o, the router and the LM head),
-    each port kernel, PyTorch's elementwise kernels, and the total."""
+    products (the gate/up and down kernels: ``expert_products_ms``; and
+    ``aten::bmm``, the plain versions' batched products, which should read
+    0), the other products (``aten::mm``: q, k, v, o, the router and the LM
+    head), each port kernel, PyTorch's elementwise kernels, and the total."""
     from torch.autograd import DeviceType
 
     events = prof.key_averages()
@@ -2535,7 +2687,10 @@ def moe_split(torch, prof, steps: int) -> dict:
 
     shares = port_kernel_shares(kernels, steps, PORT_KERNELS + MOE_PORT_KERNELS)
     return {"device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / steps,
-            "expert_bmm_ms": op_ms("aten::bmm"), "other_mm_ms": op_ms("aten::mm"),
+            "expert_bmm_ms": op_ms("aten::bmm"),
+            "expert_products_ms": (shares["moe_gate_up"]["ms_per_step"]
+                                   + shares["moe_down"]["ms_per_step"]),
+            "other_mm_ms": op_ms("aten::mm"),
             **{f"{name}_ms": s["ms_per_step"] for name, s in shares.items()},
             "elementwise_ms": elementwise_share(kernels, steps)["ms_per_step"]}
 
@@ -2589,12 +2744,51 @@ def moe_cfg(moe, n_layers: int, dtype=None):
                                dtype=dtype or cfg.dtype)
 
 
+def moe_plain_agreement(torch, ops, moe, params, cfg, prompt, tokens, dev) -> dict:
+    """Phase 9(a'): the kernels' path against the plain path on the same
+    tree: the expert products' plain versions (the parent's dispatch,
+    torch.bmm and elementwise sequence) put in for the kernels in
+    ``moe_mlp_block``, eager. The bf16 prefill logits' largest difference
+    and the argmax agreement of their last position, and the share of the
+    greedy tokens (``tokens``, the kernels' path) the plain path repeats,
+    with its first divergence. Printed, not held to a bound: bf16 near-ties
+    may flip a token and the rest follow; the kernels are held in phase 3
+    and the path in fp32 against the CPU in phase 9(c)."""
+    b, s = prompt.shape
+    pos = torch.arange(s, device=dev).expand(b, s)
+    with torch.no_grad():
+        kern, _ = moe.routed_forward(params, prompt, cfg, moe.init_cache(cfg, b, s, device=dev),
+                                     pos)
+        saved = moe.moe_gate_up, moe.moe_down
+        moe.moe_gate_up, moe.moe_down = ops.moe_gate_up_reference, ops.moe_down_reference
+        try:
+            plain, _ = moe.routed_forward(params, prompt, cfg,
+                                          moe.init_cache(cfg, b, s, device=dev), pos)
+            plain_toks = moe.greedy_generate(params, prompt, cfg, max_new_tokens=NEW_TOKENS,
+                                             cuda_graph=False)
+        finally:
+            moe.moe_gate_up, moe.moe_down = saved
+    if not torch.isfinite(kern).all() or not torch.isfinite(plain).all():
+        fail("phase 9: non-finite prefill logits on the kernels' or the plain path")
+    same = (plain_toks == tokens).all(dim=0)
+    differs = (~same).nonzero()
+    out = {"prefill_logits_max_abs_diff": float((kern - plain).abs().max()),
+           "prefill_logits_max_abs": float(plain.abs().max()),
+           "prefill_last_argmax_agree": float((kern[:, -1].argmax(-1) == plain[:, -1].argmax(-1))
+                                              .float().mean()),
+           "greedy_tokens_identical_share": float((plain_toks == tokens).float().mean()),
+           "greedy_first_divergent_step": int(differs[0]) if len(differs) else None}
+    print("moe kernels' path vs plain path (bf16, same tree): " + json.dumps(out), flush=True)
+    return out
+
+
 def moe_greedy(torch, ops, moe, params, cfg, prompt, dev, card: str) -> dict:
     """Phase 9(a): greedy_generate over the Mixtral tree, eager, graphed,
     graphed, eager: identical tokens and exact launch counts each run, then
     prefill ms, step ms and busy share (request_split), the step against
-    its bound (every weight but the embedding read once), and the parts of
-    a prefill and a step (moe_step_profile)."""
+    its bound (every weight but the embedding read once), the parts of a
+    prefill and a step (moe_step_profile), and the agreement with the plain
+    path (moe_plain_agreement)."""
     expected = {**greedy_launches(cfg.n_layers), **moe_launches(1 + NEW_TOKENS, cfg.n_layers)}
     runs, outputs = [], []
     for graph in GREEDY_RUNS:
@@ -2608,8 +2802,8 @@ def moe_greedy(torch, ops, moe, params, cfg, prompt, dev, card: str) -> dict:
         print(f"moe greedy (cuda_graph={graph}) launches {launches}, expected {expected}",
               flush=True)
         if launches != expected:
-            fail("phase 9: the MoE greedy path did not run every route, dispatch, combine, norm, "
-                 "attention and pick through the kernels")
+            fail("phase 9: the MoE greedy path did not run every route, expert product, combine, "
+                 "norm, attention and pick through the kernels (and no dispatch)")
         if (tuple(toks.shape) != (BATCH, NEW_TOKENS) or toks.dtype != torch.int32
                 or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size):
             fail(f"phase 9: bad generated tokens: {toks.dtype} {tuple(toks.shape)}")
@@ -2633,7 +2827,12 @@ def moe_greedy(torch, ops, moe, params, cfg, prompt, dev, card: str) -> dict:
         "decode_bytes": read_bytes,
         "prefill_expert_flops": moe_expert_flops(BATCH * PROMPT, cfg),
         "decode_expert_flops": moe_expert_flops(BATCH, cfg),
-        "parts": moe_step_profile(torch, moe, params, prompt, cfg, dev), "card": card,
+        "prefill_expert_flops_run": moe_live_expert_flops(BATCH * PROMPT, cfg),
+        "decode_expert_flops_run": moe_live_expert_flops(BATCH, cfg),
+        "parts": moe_step_profile(torch, moe, params, prompt, cfg, dev),
+        "plain_agreement": moe_plain_agreement(torch, ops, moe, params, cfg, prompt, outputs[0],
+                                               dev),
+        "card": card,
     }
 
 
@@ -2643,7 +2842,8 @@ def moe_serve_drain(torch, ops, eng, prompts, temps=None) -> dict:
     d = serve_drain(torch, ops, eng, prompts, temps)
     got, want = moe_counts(ops), moe_launches(d["prefills"] + d["ticks"], eng.cfg.n_layers)
     if got != want:
-        fail(f"phase 9: the MoE engine's route, dispatch and combine ran {got}, expected {want}")
+        fail(f"phase 9: the MoE engine's route, expert products and combine ran {got}, expected "
+             f"{want}")
     d["launches"].update(got)
     return d
 
@@ -2942,8 +3142,11 @@ def main() -> None:
               + pick_cases + moe_cases):
         route = f" (route {c['route']})" if c.get("route") else ""
         graphed = f" (graphed {c['graphed_ms']:.5f})" if "graphed_ms" in c else ""
+        library = ("none" if c["library_ms"] is None else f"{c['library_ms']:.5f} ms")
+        parent = (f", parent's sequence {c['parent_sequence_ms']:.5f} ms"
+                  if "parent_sequence_ms" in c else "")
         print(f"  {c['case']}{route}: kernel {c['ms']:.5f} ms{graphed}, plain "
-              f"{c['plain_ms']:.5f} ms, library {c['library_ms']:.5f} ms, bound "
+              f"{c['plain_ms']:.5f} ms, library {library}{parent}, bound "
               f"{c['bound_ms']:.6f} ms ({c['bound_by']})", flush=True)
     # the int8 draft's decode step (M = 8): the 7 products of 32 layers and
     # the LM head, kernel against the plain version (the repair's after and
@@ -3178,7 +3381,20 @@ def main() -> None:
                 f"bobrapet_tpu/models/moe.py:{line}",
                 [c for c in moe_cases if c["kernel"] == f"moe_{step}"],
                 f"moe {step} greedy prefill")
-          for step, line in (("route", 142), ("dispatch", 197), ("combine", 209))),
+          for step, line in (("route", 142), ("combine", 209))),
+        {**entry("moe_dispatch", "bobrapet_tpu_torch/csrc/moe_dispatch.cu",
+                 "bobrapet_tpu/models/moe.py:197",
+                 [c for c in moe_cases if c["kernel"] == "moe_dispatch"],
+                 "moe dispatch greedy prefill"),
+         "main_path": False,
+         "note": "off the main path: the gate/up product gathers its rows itself"},
+        *({**entry(f"moe_{part}", "bobrapet_tpu_torch/csrc/moe_experts.cu",
+                   f"bobrapet_tpu/models/moe.py:{line}", cases, f"moe {part} greedy prefill"),
+           "parent_sequence_ms": next(c["parent_sequence_ms"] for c in cases
+                                      if c["case"] == f"moe {part} greedy prefill")}
+          for part, line, cases in (
+              (part, line, [c for c in moe_cases if c["kernel"] == f"moe_{part}"])
+              for part, line in (("gate_up", 200), ("down", 206)))),
     ], "build_s": build_s, "host_us_per_call": host_costs}
     print(json.dumps(kernels), flush=True)
     print(f"card: {card}", flush=True)

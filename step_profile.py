@@ -4,7 +4,7 @@ tick on one CUDA card, for any checkout of the port.
 
     python3 step_profile.py [--tree DIR] [--seed N] [--graph | --wrappers | --tokens |
                             --pick [--no-pdl] |
-                            --quant [--no-pdl]]
+                            --quant [--no-pdl] | --moe]
 
 Imports ``bobrapet_tpu_torch`` from DIR (default: this script's own
 checkout) and builds its kernels, makes Llama-3-8B at full width and
@@ -31,7 +31,16 @@ pick at every pick case of chip_smoke.py's phase 3 (``pick_case``:
 kernel under the single-launch timer and as a CUDA graph of launches over
 cold copies of the logits, plain version, torch.argmax, bound), and makes
 no model; --no-pdl launches the pick without programmatic dependent
-launch where the tree's kernel has it. Prints one JSON line. With --tokens it prints instead a digest of the tokens
+launch where the tree's kernel has it. With --moe it makes instead
+chip_smoke.py's phase-9 Mixtral tree (Mixtral-8x7B at full width, 16 of
+its 32 layers, bf16 from --seed) and runs its greedy request's parts
+(``request_split`` with the tree's routed forward: prefill ms, decode step
+ms eager and as the CUDA graph, busy share) and the profiled split of a
+prefill and an eager step (``moe_step_profile``: expert products, bmm,
+other products, port kernels, elementwise); where the tree has the expert
+kernels, first their phase-3 cases (``moe_expert_case`` at each of
+MOE_TOKENS: kernel alone, plain version, the parent's sequence, bound).
+Prints one JSON line. With --tokens it prints instead a digest of the tokens
 of each leg of chip_smoke.py's main paths at full width, through the
 tree's own entry points (greedy_generate bf16 and int8, the default-built
 engine on config 6's traffic greedy and sampled, the prefix engine on
@@ -73,6 +82,8 @@ def main() -> None:
                     help="print a digest of every main-path leg's tokens instead")
     ap.add_argument("--pick", action="store_true",
                     help="time the token pick at chip_smoke.py's pick cases instead")
+    ap.add_argument("--moe", action="store_true",
+                    help="time the Mixtral tree's greedy prefill and decode step instead")
     ap.add_argument("--no-pdl", action="store_true",
                     help="with --quant or --pick: launch the int8 products or the pick "
                          "without programmatic dependent launch")
@@ -105,6 +116,9 @@ def main() -> None:
         return
     if args.tokens:
         token_digests(smoke, torch, args, dev)
+        return
+    if args.moe:
+        moe_profile(smoke, torch, args, dev)
         return
     cfg = llama.llama3_8b()
     params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
@@ -204,6 +218,43 @@ def pick_profile(smoke, torch, args, ops, dev) -> None:
              for name, rows, temps, dt in smoke.PICK_CASES]
     print(json.dumps({"tree": str(args.tree), "card": smoke.card_line(), "pdl": pdl,
                       "cases": cases}), flush=True)
+
+
+def moe_profile(smoke, torch, args, dev) -> None:
+    """``--moe``: the Mixtral tree's greedy request, eager and graphed, and
+    the split of a prefill and an eager step."""
+    from bobrapet_tpu_torch import ops
+    from bobrapet_tpu_torch.models import moe
+
+    cases = []
+    if hasattr(ops, "moe_gate_up_cuda"):
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        e, d, f = smoke.MOE_EXPERTS, smoke.MOE_DIM, smoke.MOE_FFN
+        weights = tuple((torch.randn(shape, generator=gen, device=dev) * fan ** -0.5)
+                        .to(torch.bfloat16)
+                        for shape, fan in (((e, d, f), d), ((e, d, f), d), ((e, f, d), f)))
+        for label, t in smoke.MOE_TOKENS:
+            cases += smoke.moe_expert_case(torch, ops, flush, label, t, weights, gen, dev)
+        del weights, flush
+    cfg = smoke.moe_cfg(moe, smoke.MOE_LAYERS)
+    params = moe.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed + 20), dev)
+    prompt = torch.randint(0, cfg.vocab_size, (smoke.BATCH, smoke.PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(args.seed + 21))
+    keys = ("prefill_ms", "decode_step_ms", "decode_step_device_ms", "decode_device_busy_share",
+            "decode_port_kernels")
+    splits = {}
+    for graph in (False, True):
+        split = smoke.request_split(torch, moe.llama, params, prompt, cfg, dev,
+                                    cuda_graph=graph, forward_fn=moe.routed_forward)
+        splits["graph" if graph else "eager"] = {k: split[k] for k in keys}
+    print(json.dumps({
+        "tree": str(args.tree), "card": smoke.card_line(), "layers": cfg.n_layers,
+        "expert_cases": [{k: c[k] for k in ("case", "ms", "plain_ms", "parent_sequence_ms",
+                                            "bound_ms", "bound_by", "bit_share", "max_ulps")}
+                         for c in cases],
+        "greedy": splits, "parts": smoke.moe_step_profile(torch, moe, params, prompt, cfg, dev),
+    }), flush=True)
 
 
 def quant_profile(smoke, torch, args, llama, params, prompt, cfg, dev) -> None:

@@ -459,8 +459,11 @@ def test_moe_bounds_of_the_greedy_prefill(smoke):
     assert by == "bytes" and ms == pytest.approx(0.0426, rel=0.01)
     ms, by = smoke.bound(smoke.moe_combine_bytes(t, 2, d, 2), 2 * t * 2 * d, "bfloat16")
     assert by == "bytes" and ms == pytest.approx(0.0075, rel=0.01)
+    # a route, a gate/up, a down and a combine a layer a forward, and no
+    # dispatch: the gate/up product gathers its rows itself
     assert smoke.moe_launches(1 + smoke.NEW_TOKENS, 16) == {
-        "moe_route": 1040, "moe_dispatch": 1040, "moe_combine": 1040}
+        "moe_route": 1040, "moe_dispatch": 0, "moe_gate_up": 1040, "moe_down": 1040,
+        "moe_combine": 1040}
 
 
 def test_moe_phase_is_mixtral_at_half_depth(smoke):

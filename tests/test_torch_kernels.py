@@ -15,7 +15,10 @@ casts before the weight multiply, the TPU kernel once after), so in bf16
 the kernel must also match the plain version bit for bit on at least 99%
 of elements: only the fp32 sum order differs. The MoE kernels: dispatch
 and combine bit for bit (a copy; the same roundings), the route's integer
-outputs bit for bit and its gates within 2 fp32 ulps.
+outputs bit for bit and its gates within 2 fp32 ulps; the expert products
+on the live rows in bf16 bit for bit on at least 99% of elements and none
+more than 2 bf16 ulps apart (the fp32 sums run in another order than
+cuBLAS's), in fp32 within 1e-5 of the rows' largest magnitude.
 """
 
 import importlib
@@ -37,6 +40,10 @@ from bobrapet_tpu_torch.ops import (
     moe_combine_reference,
     moe_dispatch_cuda,
     moe_dispatch_reference,
+    moe_down_cuda,
+    moe_down_reference,
+    moe_gate_up_cuda,
+    moe_gate_up_reference,
     moe_route_cuda,
     moe_route_reference,
     paged_attention,
@@ -52,6 +59,7 @@ from bobrapet_tpu_torch.ops import (
     rmsnorm_cuda,
     rmsnorm_reference,
 )
+from bobrapet_tpu_torch.ops.moe_experts import live_rows
 from bobrapet_tpu_torch.serving import PagedConfig, ServingEngine
 
 norm_ops = importlib.import_module("bobrapet_tpu_torch.ops.rmsnorm")
@@ -975,15 +983,17 @@ def test_tiny_moe_on_the_card_matches_the_cpu(cuda):
     params = _to(params_cpu, cuda)
     prompt = torch.randint(0, cfg.vocab_size, (3, 9), generator=torch.Generator().manual_seed(1))
     want = moe.greedy_generate(params_cpu, prompt, cfg, max_new_tokens=7)
+    counted = (moe_route_cuda, moe_gate_up_cuda, moe_down_cuda, moe_combine_cuda)
     for graph in (False, True):
-        for fn in (moe_route_cuda, moe_dispatch_cuda, moe_combine_cuda):
+        for fn in counted + (moe_dispatch_cuda,):
             fn.launches = 0
         out = moe.greedy_generate(params, prompt.to(cuda), cfg, max_new_tokens=7,
                                   cuda_graph=graph)
         torch.cuda.synchronize()
         assert torch.equal(out.cpu(), want)
-        for fn in (moe_route_cuda, moe_dispatch_cuda, moe_combine_cuda):
+        for fn in counted:
             assert fn.launches == (1 + 7) * cfg.n_layers
+        assert moe_dispatch_cuda.launches == 0  # the gate/up product gathers its rows
     pcfg = PagedConfig(max_slots=3, block_size=8, num_blocks=24, max_blocks_per_seq=4)
     g = torch.Generator().manual_seed(2)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in (5, 12, 9)]
@@ -1000,3 +1010,174 @@ def test_tiny_moe_on_the_card_matches_the_cpu(cuda):
                 assert moe_route_cuda.launches == (pc["prefills"] + pc["device_steps"]) * 2
             outs.append({r.rid: r.output for r in eng.finished})
     assert all(o == outs[0] for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# sparse MoE: the expert products over the live rows (csrc/moe_experts.cu)
+# ---------------------------------------------------------------------------
+
+#: widths off the wide route's 128 (gate/up) and 256 (down) column tiles
+EXPERT_D, EXPERT_F = 320, 448
+
+
+def _bf16_ulps(a, b):
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -32768 - bits, bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _expert_close(got, want, live, dtype):
+    g, w = got[live], want[live]
+    assert torch.isfinite(g.float()).all()
+    if dtype == torch.bfloat16:
+        ulps = _bf16_ulps(g, w)
+        assert float((ulps == 0).float().mean()) >= 0.99 and int(ulps.max()) <= 2
+    else:
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+
+
+def _expert_weights(e, d, f, dtype, device, seed):
+    return (_randn((e, d, f), dtype, device, seed) * d ** -0.5,
+            _randn((e, d, f), dtype, device, seed + 1) * d ** -0.5,
+            _randn((e, f, d), dtype, device, seed + 2) * f ** -0.5)
+
+
+def _expert_route(t, e, c, case, device, seed):
+    logits = _router_logits(t, e, torch.float32, device, seed, ties=case == "ties")
+    if case == "empty":
+        logits[:, 0] = -30.0  # expert 0: no token
+    elif case == "droppy":
+        logits[:, 1] = 30.0   # expert 1: every token, past the capacity
+    return moe_route_reference(logits.to(torch.bfloat16), 2, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,c,case", [(8, 16, "random"), (4, 8, "random"), (8, 16, "empty"),
+                                      (8, 6, "droppy"), (64, 128, "ties"),
+                                      (64, 40, "droppy"), (1024, 2048, "random"),
+                                      (300, 600, "empty")])
+def test_moe_expert_kernels_match_plain(cuda, dtype, t, c, case):
+    """gate/up then down against their plain versions on the live rows, at
+    the narrow route (C <= 16, one 16-row instance) and the wide route's
+    tiles; an empty expert, tied logits, a droppy capacity (counts past C),
+    n_e off every tile; rows past n_e are never written. The down product's
+    grid bounded by the route's T gives the bits of one bounded by C."""
+    e = 8
+    _, _, _, src, counts, _ = _expert_route(t, e, c, case, cuda, t + c)
+    w_gate, w_up, w_down = _expert_weights(e, EXPERT_D, EXPERT_F, dtype, cuda, 5)
+    h = _randn((t, EXPERT_D), dtype, cuda, 9)
+    live = live_rows(counts, c)
+    if case == "empty":
+        assert counts[0] == 0
+    if case == "droppy":
+        assert (counts > c).any()
+    moe_gate_up_cuda.launches = moe_down_cuda.launches = 0
+    act = moe_gate_up_cuda(h, src, counts, w_gate, w_up)
+    out_k = moe_down_cuda(act, counts, w_down, t)
+    torch.cuda.synchronize()
+    assert moe_gate_up_cuda.launches == moe_down_cuda.launches == 1
+    _expert_close(act, moe_gate_up_reference(h, src, counts, w_gate, w_up), live, dtype)
+    _expert_close(out_k, moe_down_reference(act, counts, w_down), live, dtype)
+    # no row past n_e is written: a down product over a marked buffer
+    marked = act.clone()
+    marked[~live] = float("nan")
+    out = moe_down_cuda(marked, counts, w_down)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[live].float()).all()
+    assert torch.equal(out[live], out_k[live])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_expert_kernels_give_the_same_bits_every_run(cuda, dtype):
+    """Thirty runs of gate/up then down back to back, each launch overlapping
+    the one before (programmatic dependent launch): the same bits every run,
+    so no ring slot is read before it lands or written while read."""
+    t, c, e = 64, 128, 8
+    _, _, _, src, counts, _ = _expert_route(t, e, c, "random", cuda, 3)
+    w_gate, w_up, w_down = _expert_weights(e, EXPERT_D, EXPERT_F, dtype, cuda, 6)
+    h = _randn((t, EXPERT_D), dtype, cuda, 10)
+    live = live_rows(counts, c)
+    outs = [moe_down_cuda(moe_gate_up_cuda(h, src, counts, w_gate, w_up), counts, w_down)[live]
+            for _ in range(30)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+def test_moe_expert_graph_replays_follow_the_counts(cuda):
+    """One CUDA graph of route, gate/up, down and combine replayed over
+    routes with other counts (an expert emptied, one filled): every replay
+    equals the eager kernels on its own route, so no tile is skipped or run
+    on a stale count."""
+    dtype, t, e = torch.bfloat16, 8, 8
+    c = 2 * t
+    w_gate, w_up, w_down = _expert_weights(e, EXPERT_D, EXPERT_F, dtype, cuda, 7)
+    logits = torch.zeros((t, e), dtype=dtype, device=cuda)
+    h = torch.zeros((t, EXPERT_D), dtype=dtype, device=cuda)
+
+    def step():
+        expert, slot, gate, src, counts, _ = moe_route_cuda(logits, 2, c)
+        act = moe_gate_up_cuda(h, src, counts, w_gate, w_up)
+        return moe_combine_cuda(moe_down_cuda(act, counts, w_down), expert, slot, gate)
+
+    logits.copy_(_router_logits(t, e, dtype, cuda, 1))
+    h.copy_(_randn((t, EXPERT_D), dtype, cuda, 2))
+    step()  # build, set attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = step()
+    for i in range(6):
+        x = _router_logits(t, e, torch.float32, cuda, 10 + i)
+        if i % 3 == 1:
+            x[:, 2] = -30.0  # expert 2 empty
+        elif i % 3 == 2:
+            x[:, 5] = 30.0   # expert 5 takes every token
+        logits.copy_(x.to(dtype))
+        h.copy_(_randn((t, EXPERT_D), dtype, cuda, 20 + i))
+        graph.replay()
+        want = step()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("t,e,k,c,d", [(8, 16, 8, 64, 4096), (8, 16, 8, 20, 4096),
+                                       (7, 8, 3, 9, 100), (1000, 8, 2, 2000, 4096)])
+def test_moe_combine_redesign_holds_every_top_k(cuda, t, e, k, c, d):
+    """The combine's column chunks and its loads issued before its sums:
+    bit for bit the plain version up to k = 8, with drops, on the 16-byte
+    and the element path."""
+    logits = _router_logits(t, e, torch.float32, cuda, t + k)
+    expert, slot, gate, _, _, _ = moe_route_reference(logits, k, c)
+    out_e = _randn((e, c, d), torch.bfloat16, cuda, 11)
+    got = moe_combine_cuda(out_e, expert, slot, gate)
+    torch.cuda.synchronize()
+    assert torch.equal(got, moe_combine_reference(out_e, expert, slot, gate))
+
+
+def test_moe_expert_entries_refuse_what_they_do_not_take(cuda):
+    import ctypes
+
+    from bobrapet_tpu_torch.ops import moe_experts as mx
+
+    e, t, c = 4, 8, 32
+    _, _, _, src, counts, _ = _expert_route(t, e, c, "random", cuda, 4)
+    w_gate, w_up, w_down = _expert_weights(e, 64, 128, torch.bfloat16, cuda, 8)
+    h = _randn((t, 64), torch.bfloat16, cuda, 12)
+    act = torch.empty((e, c, 128), dtype=torch.bfloat16, device=cuda)
+    fn = kernel_function("bobra_moe_gate_up", mx._GATE_UP_ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [h.data_ptr(), src.data_ptr(), counts.data_ptr(), w_gate.data_ptr(),
+            w_up.data_ptr(), act.data_ptr()]
+    # no token, an unknown type, a bf16 width off 64
+    for sizes in ((0, e, c, 64, 128, 1), (t, e, c, 64, 128, 7), (t, e, c, 48, 128, 1)):
+        assert fn(*args, *sizes, ctypes.c_void_p(stream)) != 0
+    assert fn(*args, t, e, c, 64, 128, 1, ctypes.c_void_p(stream)) == 0
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError):
+        moe_gate_up_cuda(h[:, :48].contiguous(), src, counts, w_gate[:, :48].contiguous(),
+                         w_up[:, :48].contiguous())
+    with pytest.raises(ValueError):
+        moe_down_cuda(act, counts.cpu(), w_down)
+    with pytest.raises(TypeError):
+        moe_gate_up_cuda(h, src, counts, w_gate.float(), w_up)
