@@ -8,7 +8,7 @@ card unless the caller passes ``device="cpu"``, which takes the kernels'
 plain PyTorch versions.
 """
 
-from . import graphs, models, ops, serving
+from . import graphs, models, ops, sdk, serving, storage, traffic
 from .device import resolve_device
 
-__all__ = ["graphs", "models", "ops", "resolve_device", "serving"]
+__all__ = ["graphs", "models", "ops", "resolve_device", "sdk", "serving", "storage", "traffic"]

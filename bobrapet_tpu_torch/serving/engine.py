@@ -75,6 +75,18 @@ finishes.
   per second each way, and keeps the draft only if it pays
   (``spec_guard``).
 
+- Disaggregated serving (``role``): a ``"prefill"`` engine retires every
+  request at its first sampled token (``prefilled``), its prompt blocks
+  exported through the shared prefix registry (``prefix_shared``,
+  :class:`~.prefix_cache.SharedPrefixRegistry`); a ``"decode"`` engine
+  adopts them at admission with one copy a pool (:meth:`_import_blocks`)
+  and continues from the first token (``submit(rid=, output=)``, which
+  :class:`~.router.ServingRouter` calls). A block-aligned prompt then needs
+  no prefill forward at all on the decode side. ``"decode"`` and
+  ``"unified"`` run the same loop; the role is a routing statement.
+- Tenant weights (:meth:`set_tenant_weights`): the pending queue becomes
+  :class:`~bobrapet_tpu_torch.traffic.fairness.WeightedFairQueue`.
+
 On a card every norm (each but the first fused with the residual add
 before it), the prefill attention, the decode attention (one query a slot,
 or T: a verify, a draft catch-up), every int8 product and every token pick
@@ -85,6 +97,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
+import logging
 import time
 from collections import deque
 from statistics import median
@@ -109,6 +123,7 @@ from ..models.moe import moe_mlp_block, routed_forward
 from ..models.quant import is_quantized
 from ..ops.paged_attention import paged_attention
 from ..ops.pick_tokens import pick_tokens
+from ..tree import flatten_with_path
 from .paged_cache import (
     SCRATCH_BLOCK,
     BlockAllocator,
@@ -117,7 +132,7 @@ from .paged_cache import (
     init_pools,
     write_prefill,
 )
-from .prefix_cache import PrefixCache
+from .prefix_cache import GLOBAL_SHARED_PREFIXES, PrefixCache, SharedPrefixRegistry
 from .spec_decode import (
     _draft_append,
     _draft_sync_block,
@@ -127,12 +142,15 @@ from .spec_decode import (
     _spec_verify,
 )
 
+_log = logging.getLogger(__name__)
+
 
 @dataclasses.dataclass
 class Request:
     """The JAX engine's request, field for field and in its order. The port
     serves it at any ``temperature`` (0: greedy) under any adapter of the
-    engine's stack; ``tenant`` and ``trace`` are carried for a router."""
+    engine's stack; ``tenant`` is carried for a router, and ``trace``
+    waits for the observability slice."""
 
     rid: int
     prompt: list[int]
@@ -264,13 +282,12 @@ class ServingEngine:
                  pipeline_decode: bool = True,
                  decode_horizon: int = 8,
                  dispatch_depth: int = 2,
+                 prefix_shared: Any = False,
                  role: str = "unified"):
         if decode_horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
         if dispatch_depth < 1:
             raise ValueError("dispatch_depth must be >= 1")
-        if role not in self.ROLES:
-            raise ValueError(f"role must be one of {sorted(self.ROLES)}, got {role!r}")
         pcfg = pcfg or PagedConfig()
         if draft_params is not None:
             # the JAX engine's checks, in its order
@@ -315,10 +332,6 @@ class ServingEngine:
                     "int8 weight-only quantization is dense-family "
                     "only (the MoE dispatch einsums do not consume "
                     "quantized leaves)")
-        if role != "unified":
-            raise NotImplementedError(
-                f"role {role!r} is not ported yet: pass role='unified' (disaggregated "
-                "serving comes with ROADMAP Queue 1 item 7)")
         self.params = params
         self.cfg = cfg
         self.pcfg = pcfg
@@ -396,7 +409,12 @@ class ServingEngine:
         self.blocks = PrefixCache(self.allocator, pcfg.block_size)
         #: a draining engine refuses new submissions but serves its queue
         self.draining = False
-        self.pending: deque[Request] = deque()
+        #: a FIFO until set_tenant_weights installs the weighted-fair queue
+        self.pending: Any = deque()
+        self._tenant_weights: Optional[dict[str, float]] = None
+        #: tenant labels admitted so far (bounded: MAX_TENANT_LABELS)
+        self._tenant_labels: set[str] = set()
+        self._sharing_scope_cache: Optional[str] = None
         self.slots: list[Optional[_SlotState]] = [None] * pcfg.max_slots
         self.finished: list[Request] = []
         self._next_rid = 0
@@ -459,15 +477,31 @@ class ServingEngine:
                              "prefills": 0, "chunks": 0, "spec_rounds": 0, "spec_ticks": 0,
                              "draft_prefills": 0, "draft_syncs": 0, "draft_appends": 0,
                              "prefill_picks": 0}
+        # identity, not truth: an empty registry is falsy
+        if prefix_shared is not False and prefix_shared is not None:
+            self.set_prefix_sharing(prefix_shared)
+        #: disaggregated serving role: "prefill" retires every request at
+        #: its first sampled token (the exported prompt blocks and that
+        #: token are its product); "decode" and "unified" decode to the end
+        #: ("decode" is a routing statement, not another loop)
+        self.set_role(role)
 
     # -- public API --------------------------------------------------------
 
     def submit(self, prompt: list[int], max_new_tokens: int,
                temperature: float = 0.0, eos_token: Optional[int] = None,
-               adapter: Optional[int] = None) -> int:
+               adapter: Optional[int] = None, tenant: str = "",
+               rid: Optional[int] = None,
+               output: Optional[list[int]] = None) -> int:
         """Queue a request under LoRA ``adapter`` (None or 0: the base
         model), greedy at ``temperature`` 0, else sampled at it; returns its
-        rid."""
+        rid. ``rid`` and ``output`` are the KV-handoff continuation (the
+        router's): a pinned rid keeps a sampled stream the same across
+        engines (the pick is keyed by (rid, token index)), and ``output``
+        preseeds the tokens already generated, so admission adopts the
+        exported prompt blocks and prefills only the rest.
+        ``max_new_tokens`` stays the whole budget, the preseed included."""
+        preseed = list(output or [])
         if self.draining:
             raise ValueError(
                 "engine is draining (scale-down or role change in progress): "
@@ -475,6 +509,10 @@ class ServingEngine:
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1 (the prefill always "
                              "samples one token)")
+        if preseed and max_new_tokens <= len(preseed):
+            raise ValueError(
+                f"max_new_tokens ({max_new_tokens}) must exceed the preseeded output "
+                f"({len(preseed)} tokens) — nothing would be left to decode")
         if not prompt:
             raise ValueError("prompt must hold at least one token")
         if len(prompt) + max_new_tokens > self.pcfg.capacity:
@@ -485,12 +523,31 @@ class ServingEngine:
             raise ValueError(
                 f"adapter {adapter} out of range (engine has {self.n_adapters} incl. the base "
                 "at 0)")
-        rid = self._next_rid
-        self._next_rid += 1
+        if rid is None:
+            rid = self._next_rid
+        elif rid < 0:
+            raise ValueError("rid must be >= 0")
+        self._next_rid = max(self._next_rid, rid + 1)
         self.pending.append(Request(rid, list(prompt), max_new_tokens, temperature, eos_token,
-                                    adapter=adapter or 0, submitted_at=time.perf_counter(),
+                                    adapter=adapter or 0, tenant=self._bound_tenant(tenant),
+                                    output=preseed, preseeded=len(preseed),
+                                    submitted_at=time.perf_counter(),
                                     submitted_wall=time.time()))
         return rid
+
+    #: distinct tenant labels one engine will ever mint
+    MAX_TENANT_LABELS = 64
+
+    def _bound_tenant(self, tenant: Any) -> str:
+        """The wire tenant in a bounded label vocabulary: past
+        MAX_TENANT_LABELS distinct values every new one is "other"."""
+        t = str(tenant or "")[:64]
+        if t in self._tenant_labels:
+            return t
+        if len(self._tenant_labels) < self.MAX_TENANT_LABELS:
+            self._tenant_labels.add(t)
+            return t
+        return "other"
 
     def run(self, max_steps: int = 100_000) -> list[Request]:
         """Drive until every submitted request finishes; returns them in
@@ -527,17 +584,132 @@ class ServingEngine:
         """True exactly when a requested drain has fully retired."""
         return self.draining and self.in_flight == 0
 
+    def set_tenant_weights(self, weights: Optional[dict[str, float]]) -> None:
+        """Live: swap the pending queue between FIFO and the weighted
+        start-time fair queue. Queued requests move over in arrival order:
+        a reload reorders later service and loses nothing."""
+        weights = dict(weights) if weights else None
+        if weights == self._tenant_weights:
+            return
+        self._tenant_weights = weights
+        if weights:
+            from ..traffic.fairness import WeightedFairQueue
+
+            fresh: Any = WeightedFairQueue(weights)
+        else:
+            fresh = deque()
+        fresh.extend(self.pending)
+        self.pending = fresh
+
+    def set_role(self, role: str) -> None:
+        """Live: takes effect at the next sampled token. A demotion from
+        prefill lets every request whose first token lands after it decode
+        here to its end; a promotion to prefill retires each decoding
+        request at its next committed token with the output it has (a
+        handoff continuation preseeds it downstream)."""
+        if role not in self.ROLES:
+            raise ValueError(f"role must be one of {sorted(self.ROLES)}, got {role!r}")
+        if role == "prefill" and not self.pcfg.prefix_caching:
+            raise ValueError(
+                "prefill role requires prefix_caching=True — the KV handoff to the decode "
+                "pool rides the prefix cache's block registration/export")
+        if role == "prefill" and self.blocks.shared is None:
+            _log.warning("prefill-role engine has NO shared prefix registry: nothing will be "
+                         "exported for the decode pool to adopt")
+        self.role = role
+
     def set_prefix_sharing(self, enabled: Any) -> None:
-        """Cross-engine prefix sharing: False or None leaves the engine
-        local-only, which it always is; anything else raises, since the
-        shared registry is not ported."""
+        """Live: cross-engine prefix sharing through a
+        :class:`~.prefix_cache.SharedPrefixRegistry` (``True``: the
+        process's global one) or none (``False``/``None``). Only engines
+        with the same weights fingerprint (params, LoRA stack, live draft)
+        ever share a block; the adapter salt stays in the chain."""
         if enabled is False or enabled is None:
+            self.blocks.disable_sharing()
             return
         if not self.pcfg.prefix_caching:
             raise ValueError("prefix sharing requires prefix_caching=True")
-        raise NotImplementedError(
-            "cross-engine prefix sharing is not ported yet: pass False (the shared "
-            "registry and its spill come with ROADMAP Queue 1 item 7, the port's engram)")
+        reg = enabled if isinstance(enabled, SharedPrefixRegistry) else GLOBAL_SHARED_PREFIXES
+        self.blocks.enable_sharing(reg, self._sharing_scope(), self._export_block,
+                                   self._import_block, import_many_cb=self._import_blocks)
+
+    def _sharing_scope(self) -> str:
+        """The weights fingerprint that namespaces shared blocks: blake2b
+        over the config's repr and, per leaf of the params, the LoRA stack
+        and the live draft (with its config), the shape, dtype, a strided
+        fp32 sample of 16 values and the fp32 sum. Computed once (one copy
+        to the host); a guard-retired draft is left out, so the engine then
+        shares with draft-less engines (:meth:`_retire_draft_scope`)."""
+        if self._sharing_scope_cache is None:
+            trees = [(b"params", self.params)]
+            if self.loras is not None:
+                trees.append((b"loras", self.loras))
+            if self.draft_params is not None and self.spec_active:
+                trees.append((b"draft", self.draft_params))
+            stats = []
+            for _tag, tree in trees:
+                for _path, leaf in flatten_with_path(tree):
+                    flat = leaf.reshape(-1)
+                    stride = max(1, flat.shape[0] // 16)
+                    stats.append(torch.cat([flat[::stride][:16].float(),
+                                            flat.sum(dtype=torch.float32).reshape(1)]))
+            values = iter(torch.cat(stats).cpu().split([len(x) for x in stats]))
+            h = hashlib.blake2b(digest_size=16)
+            h.update(repr(self.cfg).encode())
+            for tag, tree in trees:
+                if tag == b"draft":
+                    h.update(repr(self.draft_cfg).encode())
+                h.update(tag)
+                for _path, leaf in flatten_with_path(tree):
+                    h.update(str(tuple(leaf.shape)).encode())
+                    h.update(str(leaf.dtype).encode())
+                    h.update(next(values).numpy().tobytes())
+            self._sharing_scope_cache = h.hexdigest()
+        return self._sharing_scope_cache
+
+    def _export_block(self, blk: int) -> dict[str, torch.Tensor]:
+        """The shared registry's payload of one full prompt block: its K/V
+        across every layer (and the draft's), copied out of the pools: an
+        index of the pool is a view, and the next write to the block would
+        change a registry entry."""
+        payload = {"k": self.pools["k"][:, blk].clone(), "v": self.pools["v"][:, blk].clone()}
+        if self.draft_params is not None and self.spec_active:
+            payload["dk"] = self.dpools["k"][:, blk].clone()
+            payload["dv"] = self.dpools["v"][:, blk].clone()
+        return payload
+
+    def _import_block(self, blk: int, payload: dict) -> bool:
+        """Adopt another engine's exported block into this engine's pools (a
+        copy instead of a prefill forward). A speculative engine refuses a
+        payload without draft K/V: adopting a hole would collapse its
+        accept rate."""
+        return self._import_blocks([blk], [payload])
+
+    def _import_blocks(self, blks: list[int], payloads: list[dict]) -> bool:
+        """Adopt a run of exported blocks (a handoff's whole prompt chain):
+        one ``index_copy_`` along the block dimension a pool, on the current
+        stream, which the horizons replay on, so it lands before the next
+        dispatch. Same refusal of draft-less payloads as
+        :meth:`_import_block`."""
+        needs_draft = self.draft_params is not None and self.spec_active
+        if needs_draft and any("dk" not in p for p in payloads):
+            return False
+        ids = self._upload(blks, torch.long)
+        pairs = [(self.pools, "k", "v")] + ([(self.dpools, "dk", "dv")] if needs_draft else [])
+        for pools, kn, vn in pairs:
+            for name, key in (("k", kn), ("v", vn)):
+                parts = [p[key] for p in payloads]
+                if self.device.type == "cuda" and any(t.device.type == "cpu" for t in parts):
+                    # a run mixing registry entries in device memory with
+                    # ones read back from the disk tier: all on the host,
+                    # so one pinned upload below carries the run
+                    parts = [t.cpu() for t in parts]
+                # payloads [L, B, Hkv, D] -> [L, n, B, Hkv, D]
+                run = torch.stack(parts, dim=1)
+                if run.device != self.device:
+                    run = run.pin_memory().to(self.device, non_blocking=True)
+                pools[name].index_copy_(1, ids, run.to(pools[name].dtype))
+        return True
 
     def set_dispatch_depth(self, depth: int) -> None:
         """Live: a smaller depth commits the pipeline down to it at the next
@@ -586,6 +758,7 @@ class ServingEngine:
         self._spec_watch = [0, 0.0]
         self._watch_commit_t = None
         self.spec_active = True
+        self._retire_draft_scope()
 
     def reset_phase_stats(self) -> None:
         """Zero the per-phase counters (after a warm-up)."""
@@ -1072,6 +1245,11 @@ class ServingEngine:
         if (req.eos_token is not None and tok == req.eos_token) or (
                 len(req.output) >= req.max_new_tokens):
             req.done = True
+        elif self.role == "prefill":
+            # the prefill pool's product is the exported prompt blocks and
+            # this token: retire now, a decode engine continues
+            req.done = True
+            req.prefilled = True
 
     def _sample_host(self, logits: torch.Tensor, req: Request) -> int:
         """The request's next token from one row of logits (a prefill's
@@ -1778,10 +1956,14 @@ class ServingEngine:
         }
 
     def _retire_draft_scope(self) -> None:
-        """After the draft is retired the JAX engine moves its shared prefix
-        exports to the draft-less namespace; the port shares no prefix
-        across engines (``set_prefix_sharing``), so there is nothing to
-        move."""
+        """After the draft is retired (or re-armed) the engine serves as a
+        draft-less (or draft) engine does: rescope prefix sharing, so that
+        its exports land in, and its imports come from, that namespace, and
+        draft-less payloads never squat the draft scope's publish-once
+        keys."""
+        if self.blocks.shared is not None:
+            self._sharing_scope_cache = None
+            self.blocks.rescope(self._sharing_scope())
 
     def _spec_coverage(self, slot: _SlotState, k: int) -> bool:
         """Cover the verify's writes through ``seq_len + k - 1`` without

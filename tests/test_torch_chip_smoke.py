@@ -487,3 +487,158 @@ def test_moe_phase_is_mixtral_at_half_depth(smoke):
     # the two engine modes drained in turns
     assert smoke.MOE_SERVE_ORDER == ("classic", "default", "default", "classic")
     assert set(smoke.MOE_SERVE_MODES) == set(smoke.MOE_SERVE_ORDER)
+
+
+def test_phase_list_ends_with_the_engram_then_the_result(smoke):
+    doc = smoke.__doc__
+    assert "\n10. the serving engram at Llama-3-8B width and depth" in doc
+    assert "\n11. one JSON line of kernels, the card line, and last" in doc
+    text = (ROOT / "chip_smoke.py").read_text()
+    assert 'phase_mark(t_start, "10")' in text and 'phase_mark(t_start, "11")' in text
+
+
+def test_phase_10_traffic_is_config_6_over_block_aligned_prompts(smoke):
+    lens = [smoke.disagg_prompt_len(i) for i in range(smoke.SERVE_REQUESTS)]
+    budgets = [smoke.serve_budget(i) for i in range(smoke.SERVE_REQUESTS)]
+    assert set(lens) == {16, 32, 48} and all(n % 16 == 0 for n in lens)
+    paging = smoke.ENGRAM_PAGING
+    block = paging["blockSize"]
+    cap = block * paging["maxBlocksPerSeq"]
+    assert max(n + b for n, b in zip(lens, budgets)) <= cap
+    # every slot at its longest never exhausts the pool: no preemption
+    most = max(-(-(n + b + 1) // block) for n, b in zip(lens, budgets))
+    assert paging["maxSlots"] * most <= paging["numBlocks"] - 1
+    # a handoff adopts every prompt block: 31 a drain, 2 MiB of K/V each
+    # at Llama-3-8B (32 layers x 16 rows x 8 heads x 128, bf16, K and V)
+    assert sum(n // block for n in lens) == 31
+    assert 31 * 2 * 32 * 16 * 8 * 128 * 2 == 65_011_712
+    assert smoke.ENGRAM_CONFIG["model"] == "8b" and smoke.ENGRAM_DIR.startswith("build/")
+    assert (smoke.ENGRAM_CONFIG["decodeHorizon"], smoke.ENGRAM_CONFIG["dispatchDepth"]) == (8, 2)
+
+
+def test_engine_counts_is_exact_against_the_phase_counts(smoke):
+    from types import SimpleNamespace as NS
+
+    pc = {"prefills": 16, "device_steps": 0, "prefill_picks": 16, "spec_rounds": 0,
+          "spec_ticks": 0}
+    pc2 = {**pc, "prefills": 0, "device_steps": 144, "prefill_picks": 0}
+    engines = [NS(phase_counts=pc, cfg=NS(n_layers=32)), NS(phase_counts=pc2)]
+    ops = NS(**{name: NS(launches=0) for name in (
+        "rmsnorm_cuda", "add_rmsnorm_cuda", "flash_attention_cuda", "cached_attention_cuda",
+        "paged_attention_cuda", "pick_tokens_cuda")})
+    ops.rmsnorm_cuda.launches = 160 * 65
+    ops.add_rmsnorm_cuda.launches = 160 * 64
+    ops.flash_attention_cuda.launches = 16 * 32
+    ops.paged_attention_cuda.launches = 144 * 32
+    ops.pick_tokens_cuda.launches = 160
+    got = smoke.engine_counts(ops, engines, "test")
+    assert got == {"rmsnorm": 10400, "add_rmsnorm": 10240, "flash_attention": 512,
+                   "cached_attention": 0, "paged_attention": 4608, "pick_tokens": 160}
+    ops.flash_attention_cuda.launches += 32  # a prefill on the decode engine
+    with pytest.raises(SystemExit):
+        smoke.engine_counts(ops, engines, "test")
+
+
+def test_phase_10_runs_on_the_cpu_at_tiny_size(smoke, monkeypatch, tmp_path):
+    """The whole of phase 10 at llama_tiny size on the CPU (plain versions,
+    so no launch is counted): the wire JSON through serve(ctx) carries the
+    tokens of a plain engine's drain, serve's own engine is the one counted,
+    the prefill engine only prefills, the decode engine never does over
+    block-aligned prompts and prefills each suffix once over config 6's own,
+    and the resumed engine adopts all 31 prompt blocks from disk."""
+    import torch
+
+    from bobrapet_tpu_torch import ops, serving
+    from bobrapet_tpu_torch.models import llama
+
+    def fail(msg):
+        raise AssertionError(msg)
+
+    seen = []
+
+    def counts(_ops, engines, what):
+        seen.append((what, [(e.phase_counts["prefills"], e.phase_counts["device_steps"])
+                            for e in engines]))
+        return {}
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(smoke, "fail", fail)
+    monkeypatch.setattr(smoke, "engine_counts", counts)
+    monkeypatch.setattr(smoke, "ENGRAM_CONFIG", {**smoke.ENGRAM_CONFIG, "model": "tiny"})
+    monkeypatch.setattr(smoke, "ENGRAM_DIR", str(tmp_path / "engram"))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg, dev = llama.llama_tiny(), torch.device("cpu")
+        params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**smoke.SERVE_PAGING))
+        prompts = smoke.serve_prompts(torch, cfg, 11, dev)
+        rids = [eng.submit(p, smoke.serve_budget(i)) for i, p in enumerate(prompts)]
+        by_rid = {r.rid: r.output for r in eng.run()}
+        out = smoke.engram_phase(torch, ops, serving, llama, cfg, 0, dev, "cpu",
+                                 [by_rid[r] for r in rids])
+    finally:
+        torch.set_num_threads(n)
+    assert out["checkpoint"]["bit_for_bit"] and out["serve"]["served"] == 16
+    assert out["resume"] == {**out["resume"], "blocks_adopted_from_disk": 31,
+                             "greedy_tokens": True}
+    whats = dict(seen)
+    assert whats["serve(ctx)"][0][0] == 16
+    for name in ("greedy", "sampled"):
+        (pf_prefills, pf_steps), (dec_prefills, dec_steps) = whats[f"the {name} router drain"]
+        assert (pf_prefills, pf_steps, dec_prefills) == (16, 0, 0) and dec_steps > 0
+        leg = out["disaggregated"][name]
+        assert leg["identical_to_unified"] and leg["block_aligned"]
+        assert leg["disaggregated"]["registry_hits"] == 31
+        assert leg["disaggregated"]["spill_writes"] == 31
+    # config 6's own prompts (8-36 tokens): the decode engine adopts their
+    # 12 full blocks and prefills every request's suffix once over them
+    lens = [smoke.serve_prompt_len(i) for i in range(smoke.SERVE_REQUESTS)]
+    assert all(n % 16 for n in lens) and sum(n // 16 for n in lens) == 12
+    (pf_prefills, pf_steps), (dec_prefills, dec_steps) = whats["the config6_prompts router drain"]
+    assert (pf_prefills, pf_steps, dec_prefills) == (16, 0, 16) and dec_steps > 0
+    leg = out["disaggregated"]["config6_prompts"]
+    assert leg["identical_to_unified"] and not leg["block_aligned"]
+    assert leg["disaggregated"]["registry_hits"] == 12
+    assert leg["disaggregated"]["decode_prefills"] == 16
+    assert leg["disaggregated"]["replay_h1_depth1_identical"]
+    assert leg["disaggregated"]["identical_token_share"] == 1.0
+    # the prefill engine's 12, and the block each 15-token prompt fills
+    # with its first token on the decode engine (3 such prompts)
+    assert sum(n % 16 == 15 for n in lens) == 3
+    assert leg["disaggregated"]["spill_writes"] == 15
+    assert whats["the resume from disk"][0][0] == 0
+    assert not (tmp_path / "engram").exists()
+
+
+def test_phase_10_handoff_tie_check_recomputes_both_paths(smoke):
+    """The near-tie check of a handed-off greedy stream: None where the
+    tokens agree; at a divergence, token j's logits through the unified
+    path (its argmax the engine's greedy token) and the handed-off path,
+    equal in fp32 up to rounding."""
+    import torch
+
+    from bobrapet_tpu_torch import serving
+    from bobrapet_tpu_torch.models import llama
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg, dev = llama.llama_tiny(), torch.device("cpu")
+        params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        eng = serving.ServingEngine(params, cfg, serving.PagedConfig(**smoke.SERVE_PAGING))
+        prompt = smoke.serve_prompts(torch, cfg, 11, dev)[4]
+        assert len(prompt) % 16 and len(prompt) > 16
+        eng.submit(prompt, 6)
+        uni = eng.run()[0].output
+        cap = eng.pcfg.capacity
+        assert smoke.handoff_tie_check(torch, llama, params, cfg, prompt, uni, list(uni), 16,
+                                       cap, dev) is None
+        dis = uni[:3] + [(uni[3] + 1) % cfg.vocab_size] + uni[4:]
+        c = smoke.handoff_tie_check(torch, llama, params, cfg, prompt, uni, dis, 16, cap, dev)
+    finally:
+        torch.set_num_threads(n)
+    assert c["position"] == 3 and (c["unified"], c["handed_off"]) == (uni[3], dis[3])
+    assert c["recomputed_argmax"] == [uni[3], uni[3]]
+    assert c["margin"] > 0 and c["max_abs_logit_err"] < 1e-3

@@ -396,24 +396,43 @@ class TestEngineSurface:
         assert eng.in_flight == 1
 
     @pytest.mark.parametrize("kwargs,pcfg_kw,match", [
-        ({"role": "prefill"}, {}, "role='unified'"),
-        ({"role": "decode"}, {}, "role='unified'"),
+        ({"role": "prefill"}, {}, "prefix_caching=True"),
+        ({"role": "decode"}, {}, None),
     ], ids=["prefill", "decode"])
     def test_unported_paths_raise(self, tiny, kwargs, pcfg_kw, match):
-        _, params_t = tiny["float"]
+        """The roles are ported: each call does what JAX's engine does. A
+        prefill engine without prefix caching raises JAX's ValueError; a
+        decode engine constructs, as JAX's does."""
+        params_j, params_t = tiny["float"]
         cfg = tiny["cfg_t"]
         kw = {"decode_horizon": 1, "dispatch_depth": 1, **kwargs}
-        pcfg = PagedConfig(**{"prefix_caching": False, **pcfg_kw})
-        with pytest.raises(NotImplementedError, match=match.replace("(", r"\(")):
-            ServingEngine(params_t, cfg, pcfg, **kw)
+        pcfg = {"prefix_caching": False, **pcfg_kw}
+        if match is None:
+            eng = ServingEngine(params_t, cfg, PagedConfig(**pcfg), **kw)
+            jeng = JServingEngine(params_j, tiny["cfg_j"], JPagedConfig(**pcfg), **kw)
+            assert eng.role == jeng.role == kwargs["role"]
+            return
+        with pytest.raises(ValueError, match=match) as got:
+            ServingEngine(params_t, cfg, PagedConfig(**pcfg), **kw)
+        with pytest.raises(ValueError) as want:
+            JServingEngine(params_j, tiny["cfg_j"], JPagedConfig(**pcfg), **kw)
+        assert str(got.value) == str(want.value)
 
     def test_cross_engine_prefix_sharing_raises_naming_item_7(self, tiny):
+        """Cross-engine sharing is ported: set_prefix_sharing(True) joins
+        the process's global registry, as JAX's engine does, and False
+        leaves it again."""
+        from bobrapet_tpu_torch.serving import GLOBAL_SHARED_PREFIXES
+
         _, params_t = tiny["float"]
         eng = ServingEngine(params_t, tiny["cfg_t"], PagedConfig(), decode_horizon=1,
                             dispatch_depth=1)
-        eng.set_prefix_sharing(False)  # local-only, as it always is
-        with pytest.raises(NotImplementedError, match="item 7"):
-            eng.set_prefix_sharing(True)
+        eng.set_prefix_sharing(False)
+        assert eng.blocks.shared is None
+        eng.set_prefix_sharing(True)
+        assert eng.blocks.shared is GLOBAL_SHARED_PREFIXES and len(eng.blocks.scope) == 32
+        eng.set_prefix_sharing(False)
+        assert eng.blocks.shared is None
 
     @pytest.mark.parametrize("horizon", [1, 8])
     def test_the_jax_default_paged_config_serves(self, tiny, horizon):
