@@ -8,7 +8,8 @@ card unless the caller passes ``device="cpu"``, which takes the kernels'
 plain PyTorch versions.
 """
 
-from . import graphs, models, ops, sdk, serving, storage, traffic
+from . import graphs, models, ops, parallel, sdk, serving, storage, traffic
 from .device import resolve_device
 
-__all__ = ["graphs", "models", "ops", "resolve_device", "sdk", "serving", "storage", "traffic"]
+__all__ = ["graphs", "models", "ops", "parallel", "resolve_device", "sdk", "serving", "storage",
+           "traffic"]

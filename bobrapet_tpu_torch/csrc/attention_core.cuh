@@ -42,6 +42,7 @@ constexpr int kDecodeStages = 4;     // the most tiles a decode block keeps in f
 constexpr int kDecodeRows = 16;      // packed rows of the decode kernel: one m16 tile
 constexpr int kMaxSplits = 8;        // blocks of one cluster in the decode kernel
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMasked = -1e30f;    // a causally masked score: the reference's NEG_INF
 // the most dynamic shared memory a block may ask for on sm_90
 constexpr int kMaxDynamicSmem = 232448;

@@ -71,13 +71,14 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 
-template <typename T, int D>
+template <typename T, int D, bool kLse = false>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        T* __restrict__ o, int sq, int sk, int group,
                        long long q_sb, long long q_ss, long long k_sb, long long k_ss,
                        long long v_sb, long long v_ss, long long o_sb, long long o_ss,
-                       int causal, int q_offset, float scale, const int* __restrict__ lens) {
+                       int causal, int q_offset, float scale, const int* __restrict__ lens,
+                       float* __restrict__ lse = nullptr) {
   static_assert(kThreads % D == 0 && kBlockM % (kThreads / D) == 0, "unsupported head dim");
   constexpr int kRowsPerWarp = kBlockM / kWarps;        // score phase
   constexpr int kRowStride = kThreads / D;              // output phase
@@ -166,7 +167,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 
   if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) l_s[warp + kWarps * i] = l[i];
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      l_s[warp + kWarps * i] = l[i];
+      // the row's log-sum-exp of the scaled scores [B, Hq, Sq]
+      const int qi = row0 + warp + kWarps * i;
+      if constexpr (kLse) {
+        if (qi < sq) lse[(static_cast<long long>(b) * gridDim.y + hq) * sq + qi] = m[i] + logf(l[i]);
+      }
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -180,13 +188,19 @@ int launch_flash_f32(const float* q, const float* k, const float* v, float* o, i
                      int sk, int hq, int group, int d, long long q_sb, long long q_ss,
                      long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                      long long o_sb, long long o_ss, int causal, int q_offset, float scale,
-                     const int* lens, cudaStream_t st) {
+                     const int* lens, cudaStream_t st, float* lse = nullptr) {
   const dim3 grid((sq + kBlockM - 1) / kBlockM, hq, b);
 #define BOBRA_FLASH(DD)                                                                       \
-  flash_attention_kernel<float, DD><<<grid, kThreads, 0, st>>>(q, k, v, o, sq, sk, group,      \
-                                                              q_sb, q_ss, k_sb, k_ss, v_sb,     \
-                                                              v_ss, o_sb, o_ss, causal,         \
-                                                              q_offset, scale, lens)
+  if (lse != nullptr) {                                                                       \
+    flash_attention_kernel<float, DD, true><<<grid, kThreads, 0, st>>>(                       \
+        q, k, v, o, sq, sk, group, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal,     \
+        q_offset, scale, lens, lse);                                                          \
+  } else {                                                                                    \
+    flash_attention_kernel<float, DD><<<grid, kThreads, 0, st>>>(q, k, v, o, sq, sk, group,    \
+                                                                q_sb, q_ss, k_sb, k_ss, v_sb,   \
+                                                                v_ss, o_sb, o_ss, causal,       \
+                                                                q_offset, scale, lens);         \
+  }
   switch (d) {
     case 32: BOBRA_FLASH(32); break;   // llama_tiny
     case 128: BOBRA_FLASH(128); break;  // llama3_1b, llama3_8b
@@ -215,9 +229,9 @@ __host__ __device__ constexpr int rows_smem_bytes() {
 // fragments read per k-step) so that several fit an SM and one block's
 // loads overlap another's math; the row blocks with the most keys start
 // first. A three-stage ring needs one block barrier per tile.
-template <int D>
+template <int D, bool kLse = false>
 __global__ void __launch_bounds__(kThreads, kRowMinBlocks)
-flash_rows_kernel(const DensePolicy<D> P) {
+flash_rows_kernel(const DensePolicy<D> P, float* __restrict__ lse = nullptr) {
   constexpr int kChunks = D / 8;
   constexpr int kTile = tile_bytes<D>(kRowKeys);
   constexpr int kNT = kRowKeys / 8;  // score n-tiles of a warp: the whole key tile
@@ -311,6 +325,21 @@ flash_rows_kernel(const DensePolicy<D> P) {
   }
   cp_async_wait<0>();
   quad_sum(l);
+  if constexpr (kLse) {
+    // each packed row's log-sum-exp of the scaled scores, natural units,
+    // into [B, Hq, Sq]: m and l are in log2 units of the scaled scores
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row0 + warp * 16 + g + 8 * hh;
+        if (r < rows) {
+          const long long head = static_cast<long long>(h) * P.group + r % P.group;
+          lse[(static_cast<long long>(b) * gridDim.y * P.group + head) * P.sq + r / P.group] =
+              (m[hh] + log2f(l[hh])) * kLn2;
+        }
+      }
+    }
+  }
 
   // the output tile goes through q's shared memory, so that device memory
   // sees whole 16-byte chunks of each packed row
@@ -335,21 +364,23 @@ flash_rows_kernel(const DensePolicy<D> P) {
   }
 }
 
-template <int D>
-int launch_rows(const DensePolicy<D>& P, int hkv, int batch, cudaStream_t st) {
+template <int D, bool kLse = false>
+int launch_rows(const DensePolicy<D>& P, int hkv, int batch, cudaStream_t st,
+                float* lse = nullptr) {
   static bool ready[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(flash_rows_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(flash_rows_kernel<D, kLse>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                rows_smem_bytes<D>());
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[dev] = true;
   }
   const dim3 grid((P.sq * P.group + kRowBlock - 1) / kRowBlock, hkv, batch);
-  flash_rows_kernel<D><<<grid, kThreads, rows_smem_bytes<D>(), st>>>(P);
+  flash_rows_kernel<D, kLse><<<grid, kThreads, rows_smem_bytes<D>(), st>>>(P, lse);
   return 0;
 }
 
@@ -383,6 +414,36 @@ int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_decode(P, sq * group, splits, split_chunk(sk, splits), hkv, b, 0, st);
+}
+
+// the rows kernel at any number of packed rows, writing each row's
+// log-sum-exp beside the output (the training forward)
+template <int D>
+int launch_flash_lse_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                          int b, int sq, int sk, int hkv, int group, long long q_sb,
+                          long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                          long long v_ss, long long o_sb, long long o_ss, int causal,
+                          int q_offset, float scale, cudaStream_t st) {
+  DensePolicy<D> P;
+  P.q = static_cast<const bf16*>(q);
+  P.k = static_cast<const bf16*>(k);
+  P.v = static_cast<const bf16*>(v);
+  P.o = static_cast<bf16*>(o);
+  P.sq = sq;
+  P.sk = sk;
+  P.group = group;
+  P.causal = causal;
+  P.q_offset = q_offset;
+  P.q_sb = q_sb;
+  P.q_ss = q_ss;
+  P.k_sb = k_sb;
+  P.k_ss = k_ss;
+  P.v_sb = v_sb;
+  P.v_ss = v_ss;
+  P.o_sb = o_sb;
+  P.o_ss = o_ss;
+  P.scale_log2 = scale * kLog2e;
+  return launch_rows<D, true>(P, hkv, b, st, lse);
 }
 
 // the decode core over a whole cache of `cap` rows with device lengths,
@@ -513,6 +574,57 @@ extern "C" int bobra_cached_attention(const void* q, const void* k, const void* 
       case 128:
         err = attn::launch_cached_bf16<128>(q, k, v, o, len, b, sq, cap, hkv, group, q_sb, q_ss,
                                             k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, scale, splits, st);
+        break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The training forward: bobra_flash_attention's layout and arguments (no
+// splits) with each row's log-sum-exp of the scaled scores, natural log,
+// written to lse [b, hq, sq] fp32 contiguous, for the backward
+// (csrc/flash_attention_bwd.cu). bf16 always takes the rows kernel (any
+// number of packed rows), fp32 the scalar kernel. Returns the cudaError_t
+// of the launch.
+extern "C" int bobra_flash_attention_lse(const void* q, const void* k, const void* v, void* o,
+                                         void* lse, int b, int sq, int sk, int hq, int group,
+                                         int d, long long q_sb, long long q_ss, long long k_sb,
+                                         long long k_ss, long long v_sb, long long v_ss,
+                                         long long o_sb, long long o_ss, int causal,
+                                         int q_offset, float scale, int dtype, void* stream) {
+  using namespace bobra;
+  if (lse == nullptr || b <= 0 || sq <= 0 || sk <= 0 || hq <= 0 || group <= 0 ||
+      hq % group != 0 || q_offset < 0 || b > 65535 || hq > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
+  int err;
+  if (dtype == kFloat32) {
+    err = launch_flash_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                           static_cast<const float*>(v), static_cast<float*>(o), b, sq, sk, hq,
+                           group, d, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal,
+                           q_offset, scale, nullptr, st, lse_f);
+  } else if (dtype == kBFloat16) {
+    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+    const long long strides = q_sb | q_ss | k_sb | k_ss | v_sb | v_ss | o_sb | o_ss;
+    if (ptrs % 16 != 0 || strides % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int hkv = hq / group;
+    switch (d) {
+      case 32:
+        err = attn::launch_flash_lse_bf16<32>(q, k, v, o, lse_f, b, sq, sk, hkv, group, q_sb,
+                                              q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal,
+                                              q_offset, scale, st);
+        break;
+      case 128:
+        err = attn::launch_flash_lse_bf16<128>(q, k, v, o, lse_f, b, sq, sk, hkv, group, q_sb,
+                                               q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal,
+                                               q_offset, scale, st);
         break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -145,6 +145,19 @@ def launch(fn: ctypes._CFuncPtr, device_index: int, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """A kernel wrapper that autograd cannot see refuses a tensor that
+    requires grad while grad is enabled: its output would have no
+    ``grad_fn``, and a backward through it would quietly give no gradient
+    to anything before it. Checked before the device, so the CPU sees it."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and autograd cannot see this kernel; "
+            "call it under torch.no_grad(), or through the op that carries its "
+            "backward (ops.attention, ops.rmsnorm, ops.add_rmsnorm)")
+
+
 def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

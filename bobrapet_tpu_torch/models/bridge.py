@@ -41,3 +41,29 @@ def params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
         return tensor_from_numpy(node, device)
 
     return walk(tree)
+
+
+def opt_state_from_numpy(state: Any, device: DeviceLike = None) -> Any:
+    """An optimizer state carried across: optax's ``(ScaleByAdamState(count,
+    mu, nu), EmptyState(), EmptyState())``, leaves as numpy arrays (or any
+    tuple of named tuples, dicts and lists), becomes the port's state
+    (:mod:`parallel.optim`): named tuples of the port's own classes of the
+    same name and fields, every array leaf a tensor on ``device`` (the
+    count a 0-d int32). The state half of weights and state carried across."""
+    from ..parallel.optim import NAMED_STATES
+
+    device = resolve_device(device)
+
+    def walk(node: Any) -> Any:
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            cls = NAMED_STATES[type(node).__name__]
+            return cls(*(walk(getattr(node, f)) for f in node._fields))
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(walk(v) for v in node)
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return tensor_from_numpy(node, device)
+
+    return walk(state)

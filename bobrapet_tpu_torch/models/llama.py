@@ -226,12 +226,14 @@ def _attention_block(
     rows: Optional[tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
     lora_layer: Optional[dict[str, Any]] = None,
     lora_scale: float = 1.0,
+    attn_fn: Optional[Callable[..., torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(x + delta, the block's own delta)``: the output
     projection is not yet added to the residual stream; the next norm
     adds it. ``rows`` (a cache with a device cursor): the batch and cache
     row of every new token and each row's valid length after the write,
-    from :func:`_device_rows`."""
+    from :func:`_device_rows`. ``attn_fn(q, k, v)`` replaces causal
+    :func:`ops.attention` where there is no cache."""
     b, s, _ = x.shape
     x, q, k, v = _qkv(layer, x, delta, freqs, cfg, positions, lora_layer, lora_scale)
     if rows is not None:
@@ -252,6 +254,8 @@ def _attention_block(
         cache["v"][:, cursor:end] = v.to(cache["v"].dtype)
         cache["cursor"] = end
         out = _cached_attention(q, cache["k"], cache["v"], end, cfg)
+    elif attn_fn is not None:
+        out = attn_fn(q, k, v)
     else:
         out = attention(q, k, v, causal=True)
     out = out.reshape(b, s, cfg.dim)
@@ -296,10 +300,14 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     lora: Optional[dict[str, Any]] = None,
     lora_scale: float = 1.0,
+    attn_fn: Optional[Callable[..., torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, Optional[list[dict[str, Any]]]]:
     """Token ids [B, S] -> fp32 logits [B, S, V] (+ the cache). ``lora`` is
     one adapter's tree (:mod:`models.lora`); its deltas ride every site it
-    holds, scaled by ``lora_scale``.
+    holds, scaled by ``lora_scale``. ``attn_fn(q, k, v)`` overrides the
+    attention of a cache-less forward (JAX's hook; None is causal
+    :func:`ops.attention`). Without a cache the forward runs under
+    autograd: it writes no parameter and no tensor it was given.
 
     Unlike the JAX forward, this one consumes ``cache``: each layer's k/v
     rows are written and its cursor advanced in place, and the same list
@@ -316,7 +324,7 @@ def forward(
         layer_cache = cache[i] if cache is not None else None
         lora_layer = lora["layers"][i] if lora is not None else None
         x, delta = _attention_block(layer, x, delta, freqs, cfg, layer_cache, positions, rows,
-                                    lora_layer, lora_scale)
+                                    lora_layer, lora_scale, attn_fn)
         x, delta = _mlp_block(layer, x, delta, cfg, lora_layer, lora_scale)
     if rows is not None:
         cursor.add_(tokens.shape[1])  # the one tensor every layer holds

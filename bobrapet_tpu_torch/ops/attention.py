@@ -13,6 +13,13 @@ whole KV cache with each batch row's valid length in an int32 tensor on
 the device. Its kernel (the C entry ``bobra_cached_attention`` of the same
 source) takes no length from the host, so a CUDA graph can replay a
 greedy decode step while the lengths move.
+
+Training: :func:`attention` on a card, with grad enabled and an input that
+requires it, goes through an ``autograd.Function`` whose forward is
+:func:`flash_attention_lse_cuda` (the rows kernel, also writing each row's
+log-sum-exp) and whose backward is :func:`flash_attention_backward_cuda`
+(``csrc/flash_attention_bwd.cu``). Without grad it calls
+:func:`flash_attention_cuda` as before.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ from typing import Optional
 
 import torch
 
-from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch
+from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch, refuse_grad
+from .rmsnorm import wide
 
 NEG_INF = -1e30
 #: head widths the kernel is instantiated for: those of the presets
@@ -49,6 +57,20 @@ _CACHED_ARGTYPES = (
     + [ctypes.c_longlong] * 8                  # batch/seq strides of q, k, v, o
     + [ctypes.c_float]                         # scale
     + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # splits, dtype, stream
+)
+
+
+_LSE_ARGTYPES = (
+    [ctypes.c_void_p] * 5                      # q, k, v, o, lse
+    + [ctypes.c_int] * 6                       # b, sq, sk, hq, group, d
+    + [ctypes.c_longlong] * 8                  # batch/seq strides of q, k, v, o
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_float]  # causal, q_offset, scale
+    + [ctypes.c_int, ctypes.c_void_p]          # dtype, stream
+)
+_BWD_ARGTYPES = (
+    [ctypes.c_void_p] * 10                     # q, k, v, o, do, lse, delta, dq, dk, dv
+    + [ctypes.c_int] * 8                       # b, sq, sk, hq, group, d, causal, q_offset
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, dtype, stream
 )
 
 
@@ -90,7 +112,7 @@ def attention_reference(
     sm_scale: Optional[float] = None,
     kv_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain attention with GQA, in fp32.
+    """Plain attention with GQA, in fp32 (float64 stays float64).
 
     q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D]. Query token i sits at
     absolute position q_offset + i. kv_mask [B, Sk] marks valid keys
@@ -99,9 +121,9 @@ def attention_reference(
     sk, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    qf = q.float() * scale
-    kf = k.float()
-    vf = v.float()
+    qf = wide(q) * scale
+    kf = wide(k)
+    vf = wide(v)
     if group > 1:
         kf = kf.repeat_interleave(group, dim=2)
         vf = vf.repeat_interleave(group, dim=2)
@@ -114,6 +136,61 @@ def attention_reference(
         scores = torch.where(kv_mask.bool()[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+
+
+def _causal_scores(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Scaled scores ``[B, Hq, Sq, Sk]`` in fp32 (float64 stays), causally
+    masked with NEG_INF; and k's heads repeated over the group."""
+    _, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kf = wide(k).repeat_interleave(group, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", wide(q) * (1.0 / math.sqrt(d)), kf)
+    if causal:
+        q_pos = q_offset + torch.arange(sq, device=q.device)
+        k_pos = torch.arange(sk, device=q.device)
+        scores = torch.where(q_pos[:, None] >= k_pos[None, :], scores, NEG_INF)
+    return scores, kf, group
+
+
+def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  causal: bool = True, q_offset: int = 0
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)``: :func:`attention_reference`'s output and each row's
+    log-sum-exp of its scaled, masked scores, fp32 ``[B, Hq, Sq]``: the
+    plain version of :func:`flash_attention_lse_cuda`."""
+    scores, _, _ = _causal_scores(q, k, causal, q_offset)
+    return (attention_reference(q, k, v, causal=causal, q_offset=q_offset),
+            torch.logsumexp(scores, dim=-1))
+
+
+def flash_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                       o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                                       causal: bool = True, q_offset: int = 0
+                                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of causal GQA attention, without autograd: the
+    probabilities recomputed from ``lse`` (``exp(scores - lse)``), ``D =
+    rowsum(do * o)``, ``dS = P * (do v^T - D)``; dk and dv of a kv head
+    summed over its group's query heads; fp32 (float64 stays), outputs in
+    the inputs' types. The plain version of
+    :func:`flash_attention_backward_cuda`."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    scores, kf, group = _causal_scores(q, k, causal, q_offset)
+    vf = wide(v).repeat_interleave(group, dim=2)
+    dof = wide(do)
+    p = torch.exp(scores - wide(lse)[..., None])                        # [B, Hq, Sq, Sk]
+    delta = (dof * wide(o)).sum(dim=-1).transpose(1, 2)                 # [B, Hq, Sq]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, wide(q)) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, sk, hkv, group, d).sum(dim=3)
+    dv = dv.reshape(b, sk, hkv, group, d).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_heads_packed(name: str, t: torch.Tensor) -> None:
@@ -141,6 +218,7 @@ def flash_attention_cuda(
     shapes; one launch per call. Raises on what the kernel does not take,
     including a tensor that is not on a card; it never computes the plain
     version instead."""
+    refuse_grad("flash_attention_cuda", q, k, v)
     dev = q.get_device()
     if not q.is_cuda or k.get_device() != dev or v.get_device() != dev:
         raise ValueError(
@@ -227,6 +305,7 @@ def cached_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     own ``launches`` and into ``flash_attention_cuda.launches`` (a kernel
     of the same source). Raises on what the kernel does not take; it never
     computes the plain version instead."""
+    refuse_grad("cached_attention_cuda", q, k, v)
     dev = q.get_device()
     if not q.is_cuda or any(t.get_device() != dev for t in (k, v, lens)):
         raise ValueError(
@@ -274,6 +353,123 @@ def cached_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 cached_attention_cuda.launches = 0
 
 
+def _check_train_inputs(name: str, q_offset: int, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, *more: torch.Tensor) -> tuple[int, int, int, int, int]:
+    """The checks of the training entries (contiguous q, k, v and the
+    rest on one card, one type, a kernel head width, a host ``q_offset``
+    >= 0): ``(b, sq, sk, hq, hkv)``. Types first, then shapes, then the
+    device."""
+    tensors = (q, k, v) + more
+    if q.dtype not in KERNEL_DTYPES or any(t.dtype != q.dtype for t in (k, v)):
+        raise TypeError(f"{name} takes float32 or bfloat16 q, k, v of one type, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv != 0:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {KERNEL_HEAD_DIMS}")
+    if b * sq * sk * hq == 0:
+        raise ValueError(f"{name}: empty input")
+    if isinstance(q_offset, torch.Tensor) or int(q_offset) != q_offset or q_offset < 0:
+        raise ValueError(f"q_offset must be a host int >= 0, got {q_offset!r}")
+    dev = q.get_device()
+    if not q.is_cuda or any(t.get_device() != dev for t in tensors):
+        raise ValueError(f"{name} needs every tensor on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+    return b, sq, sk, hq, hkv
+
+
+def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             causal: bool = True, q_offset: int = 0
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``bobra_flash_attention_lse`` (``csrc/flash_attention.cu``):
+    ``(o, lse)``, the output of :func:`flash_attention_cuda` and each row's
+    log-sum-exp of its scaled scores, fp32 ``[B, Hq, Sq]``. bf16 always
+    takes the rows kernel, fp32 the scalar kernel. q, k, v contiguous on
+    one card. Counts into its own ``launches`` only. Raises on what the
+    kernel does not take; it never computes the plain version instead."""
+    refuse_grad("flash_attention_lse_cuda", q, k, v)
+    b, sq, sk, hq, hkv = _check_train_inputs("flash_attention_lse_cuda", q_offset, q, k, v)
+    d = q.shape[-1]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    fn = kernel_function("bobra_flash_attention_lse", _LSE_ARGTYPES)
+    err = launch(fn, q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), b, sq, sk, hq, hq // hkv, d,
+                 q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                 v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+                 int(bool(causal)), int(q_offset), 1.0 / math.sqrt(d), KERNEL_DTYPES[q.dtype])
+    check_launch("flash_attention_lse", err)
+    flash_attention_lse_cuda.launches += 1
+    return out, lse
+
+
+#: launches of the log-sum-exp entry since the count was last set to 0
+flash_attention_lse_cuda.launches = 0
+
+
+def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                                  causal: bool = True, q_offset: int = 0
+                                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/flash_attention_bwd.cu``: ``(dq, dk, dv)`` from the
+    forward's q, k, v, o, the output gradient ``do`` and ``lse`` of
+    :func:`flash_attention_lse_cuda`. Every tensor contiguous on one card,
+    q, k, v, o, do of one type, lse fp32. Three launches (D, dk/dv, dq),
+    counted as one; deterministic. Raises on what the kernel does not take;
+    it never computes the plain version instead."""
+    name = "flash_attention_backward_cuda"
+    refuse_grad(name, q, k, v, o, do)
+    b, sq, sk, hq, hkv = _check_train_inputs(name, q_offset, q, k, v, o, do, lse)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"{name}: o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} "
+                         f"{do.dtype} must match q {tuple(q.shape)} {q.dtype}")
+    if tuple(lse.shape) != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"{name}: lse must be fp32 {(b, hq, sq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    d = q.shape[-1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    fn = kernel_function("bobra_flash_attention_backward", _BWD_ARGTYPES)
+    err = launch(fn, q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, sq, sk, hq, hq // hkv, d, int(bool(causal)), int(q_offset),
+                 1.0 / math.sqrt(d), KERNEL_DTYPES[q.dtype])
+    check_launch("flash_attention_backward", err)
+    flash_attention_backward_cuda.launches += 1
+    return dq, dk, dv
+
+
+#: launches of the backward since the count was last set to 0
+flash_attention_backward_cuda.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention on a card under autograd: the log-sum-exp forward kernel,
+    the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention_lse_cuda(q, k, v, causal=causal, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward_cuda(q, k, v, out, do.contiguous(), lse,
+                                                   causal=ctx.causal, q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
+
+
 def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lens: torch.Tensor) -> torch.Tensor:
     """Dispatch: the plain version for CPU tensors, the kernel otherwise."""
@@ -291,13 +487,17 @@ def attention(
     sm_scale: Optional[float] = None,
     kv_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Dispatch: the plain version for CPU tensors, the flash kernel
-    otherwise (prefill and decode alike). A ``kv_mask`` or an ``sm_scale``
-    on a card raises: no caller on the card needs them yet (the embedder,
-    which takes a mask, is not ported)."""
+    """Dispatch: the plain version for CPU tensors (autograd differentiates
+    it), the flash kernel otherwise (prefill and decode alike): through its
+    ``autograd.Function`` (the log-sum-exp forward and the backward kernel)
+    when grad is enabled and an input requires it. A ``kv_mask`` or an
+    ``sm_scale`` on a card raises: no caller on the card needs them yet
+    (the embedder, which takes a mask, is not ported)."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, q_offset=q_offset,
                                    sm_scale=sm_scale, kv_mask=kv_mask)
     if kv_mask is not None or sm_scale is not None:
         raise NotImplementedError("the CUDA flash kernel takes no kv_mask and no sm_scale")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, bool(causal), q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)

@@ -39,7 +39,7 @@ import ctypes
 
 import torch
 
-from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch
+from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch, refuse_grad
 
 _ROUTE_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # logits, expert, slot
@@ -145,6 +145,7 @@ def moe_route_cuda(logits: torch.Tensor, top_k: int, capacity: int) -> RouteOut:
     """Launch the route kernel on router logits ``[T, E]`` (fp32 or bf16,
     contiguous, on a card). Raises on anything else; it never computes the
     plain version instead."""
+    refuse_grad("moe_route_cuda", logits)
     if logits.dtype not in KERNEL_DTYPES:
         raise TypeError(f"moe_route_cuda takes float32 or bfloat16 logits, got {logits.dtype}")
     if logits.dim() != 2 or logits.shape[0] < 1 or not 1 <= logits.shape[1] <= MAX_EXPERTS:
@@ -178,6 +179,7 @@ def moe_dispatch_cuda(h: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     route's ``src [E, C]`` int32, both contiguous on one card; returns
     ``[E, C, D]``. ``src`` entries must be -1 or rows of ``h`` (the route's
     are). Raises on anything else."""
+    refuse_grad("moe_dispatch_cuda", h, src)
     if h.dtype not in KERNEL_DTYPES:
         raise TypeError(f"moe_dispatch_cuda takes float32 or bfloat16 rows, got {h.dtype}")
     if h.dim() != 2 or src.dim() != 2 or src.dtype != torch.int32 or h.shape[1] < 1:
@@ -204,6 +206,7 @@ def moe_combine_cuda(expert_out: torch.Tensor, expert: torch.Tensor, slot: torch
     all contiguous on one card; returns ``[T, D]`` in ``expert_out``'s type.
     ``expert`` entries must lie in ``[0, E)`` (the route's do). Raises on
     anything else."""
+    refuse_grad("moe_combine_cuda", expert_out, gate)
     if expert_out.dtype not in KERNEL_DTYPES:
         raise TypeError(f"moe_combine_cuda takes float32 or bfloat16 expert rows, got "
                         f"{expert_out.dtype}")

@@ -39,7 +39,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch
+from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch, refuse_grad
 from .moe_dispatch import moe_dispatch_reference
 
 _GATE_UP_ARGTYPES = [
@@ -123,6 +123,7 @@ def moe_gate_up_cuda(h: torch.Tensor, src: torch.Tensor, counts: torch.Tensor,
     entries must be rows of ``h``, each at most once an expert (the route's
     are: no expert has more than T live rows). Raises on anything else; it
     never computes the plain version instead."""
+    refuse_grad("moe_gate_up_cuda", h, w_gate, w_up)
     if h.dtype not in KERNEL_DTYPES:
         raise TypeError(f"moe_gate_up_cuda takes float32 or bfloat16 rows, got {h.dtype}")
     if (h.dim() != 2 or w_gate.dim() != 3 or w_up.shape != w_gate.shape or src.dim() != 2
@@ -157,6 +158,7 @@ def moe_down_cuda(act: torch.Tensor, counts: torch.Tensor, w_down: torch.Tensor,
     with only the live rows written. ``tokens``, the route's T (default C),
     bounds the live rows an expert can have and so the grid's row tiles.
     Raises on anything else."""
+    refuse_grad("moe_down_cuda", act, w_down)
     if act.dtype not in KERNEL_DTYPES:
         raise TypeError(f"moe_down_cuda takes float32 or bfloat16 rows, got {act.dtype}")
     if (act.dim() != 3 or w_down.dim() != 3 or w_down.shape[0] != act.shape[0]

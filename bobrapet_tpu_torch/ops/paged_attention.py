@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch
+from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch, refuse_grad
 from .attention import DECODE_ROWS, KERNEL_HEAD_DIMS, NEG_INF, check_aligned, kv_splits
 
 #: q heads per kv head the kernel holds in one block (one tile of rows)
@@ -105,6 +105,7 @@ def paged_attention_cuda(
     the table's capacity blocks, one launch per call. Raises on what the
     kernel does not take, including a tensor that is not on a card; it
     never computes the plain version instead."""
+    refuse_grad("paged_attention_cuda", q, k_pool, v_pool)
     tensors = (q, k_pool, v_pool, block_tables, seq_lens)
     dev = q.get_device()
     if not q.is_cuda or any(t.get_device() != dev for t in tensors):
@@ -217,6 +218,7 @@ def paged_attention_multi_cuda(
     group at most 16; in bf16 the T x group packed rows go in tiles of 16).
     The wrapper never reads the tables or lengths. Raises on what the
     kernel does not take; it never computes the plain version instead."""
+    refuse_grad("paged_attention_multi_cuda", q, k_pool, v_pool)
     tensors = (q, k_pool, v_pool, block_tables, lens)
     dev = q.get_device()
     if not q.is_cuda or any(t.get_device() != dev for t in tensors):

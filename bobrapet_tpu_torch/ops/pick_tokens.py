@@ -32,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch
+from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch, refuse_grad
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # logits, temps, rids
@@ -166,6 +166,7 @@ def pick_tokens_cuda(logits: torch.Tensor, temps: Optional[torch.Tensor] = None,
     card, so the picks on one card must be ordered, as the port launches
     them (one stream at a time; captured graphs replayed one after another).
     Two picks in flight at once on two streams would mix their rows."""
+    refuse_grad("pick_tokens_cuda", logits)
     if logits.dtype not in KERNEL_DTYPES:
         raise TypeError(f"pick_tokens_cuda takes float32 or bfloat16 logits, got {logits.dtype}")
     if logits.dim() != 2 or logits.shape[1] < 1 or not 1 <= logits.shape[0] <= 65535:

@@ -23,7 +23,7 @@ import functools
 
 import torch
 
-from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch
+from ..kernels import KERNEL_DTYPES, check_launch, kernel_function, launch, refuse_grad
 
 #: output columns of a block of the bf16 kernel, the K rows of one warp's
 #: stage, its warps, and the most blocks of a thread-block cluster that
@@ -165,6 +165,7 @@ def quant_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> 
     ``quant_matmul_cuda.launches`` and ``quant_matmul_cuda.routes``. Raises
     on what the kernel does not take, including a tensor that is not on a
     card; it never computes the plain version instead."""
+    refuse_grad("quant_matmul_cuda", x, scale)
     dev = x.get_device()
     if not x.is_cuda or q.get_device() != dev or scale.get_device() != dev:
         raise ValueError(

@@ -61,6 +61,9 @@ def _structure(tree: Any) -> str:
         return "{" + ", ".join(f"{k!r}: {_structure(tree[k])}" for k in sorted(tree)) + "}"
     if isinstance(tree, list):
         return "[" + ", ".join(_structure(v) for v in tree) + "]"
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        inner = ", ".join(_structure(v) for v in tree)
+        return f"CustomNode(namedtuple[{type(tree).__name__}], [{inner}])"
     if isinstance(tree, tuple):
         inner = ", ".join(_structure(v) for v in tree)
         return f"({inner},)" if len(tree) == 1 else f"({inner})"
@@ -75,6 +78,8 @@ def _unflatten(like: Any, leaves: list[Any]) -> Any:
             return None
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(build(v) for v in node))
         if isinstance(node, (list, tuple)):
             return type(node)(build(v) for v in node)
         return next(it)

@@ -167,6 +167,27 @@ Phases, each fatal on failure (exit 1, and no result line):
    registry on the same spill directory and a fresh decode engine adopt
    the prompt blocks from disk and give (c)'s greedy tokens with no
    prefill forward;
+10b. the train step (phase 10's trees freed): (a) the training kernels
+   against their plain versions, timed beside the bound and SDPA's or
+   F.rms_norm's forward and backward: the attention forward with
+   log-sum-exp and its backward at the step's shapes (q [8, 512, 32, 128],
+   k/v [8, 512, 8, 128], causal, bf16), ragged S of 100 and 77 at group
+   sizes 4 and 1 in bf16 and fp32, the RMSNorm backward in plain and add
+   mode at [4096, 4096] in bf16 and fp32 (each twice, the same bits); (b)
+   the port's make_train_step at Llama-3-8B width, 16 of its 32 layers,
+   bf16, on a one-rank mesh: 10 steps of adamw(3e-4, weight_decay=0.1) on
+   make_token_batch's 8 x 513 tokens, every loss finite, the first near
+   ln(V), the fifth and the last lower, the same steps with attention and
+   the norms on their plain versions within 2% each, exact launch counts
+   every step (L
+   log-sum-exp forwards and attention backwards, 2L + 1 norm forwards and
+   backwards); ms a step split into forward, backward and optimizer,
+   tokens/s, MFU, peak memory and a profiled step's busy share; the last
+   step again with remat=True and (d) on the mesh build_mesh_from_env
+   builds (initialize_distributed a no-op without a span): the same loss
+   and parameters bit for bit; (c) two layers at the 8B widths in fp32,
+   one step on the card and on the CPU: losses within 1e-5, gradients and
+   parameters within the stated tolerances;
 11. one JSON line of kernels, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -362,6 +383,73 @@ ENGRAM_PAGING = {"maxSlots": 8, "blockSize": 16, "numBlocks": 256, "maxBlocksPer
 ENGRAM_CONFIG = {"model": "8b", "checkpoint": ENGRAM_PREFIX, "paging": ENGRAM_PAGING,
                  "decodeHorizon": 8, "dispatchDepth": 2}
 ENGRAM_HUB = "inproc"
+
+# phase 10b: the train step (bobrapet_tpu/parallel/train.py:36) at
+# Llama-3-8B width. Params, grads and optax's bf16 moments take 8 bytes a
+# parameter, so the 8.03B of the full depth (64 GB) leave no room for the
+# activations: 16 of the 32 layers (4.54B parameters), the measured peak
+# under 70 GB. Traffic: make_token_batch's 8 x (512 + 1) tokens (S a
+# multiple of 128, the JAX package's flash condition), 10 steps of
+# adamw(3e-4, weight_decay=0.1) (JAX's default) on one repeated batch.
+TRAIN_LAYERS = 16
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 10
+TRAIN_LR, TRAIN_WD = 3e-4, 0.1
+# the loss after this many steps must be below the first, and the last
+# below it. Not every step: AdamW at 3e-4 without warmup moves every random
+# weight by ~2% a step at these widths and overshoots once (the loss rises
+# at step 2 on the plain path as on the kernels)
+TRAIN_FALLING = 5
+# the same steps with attention and the norms on their plain versions
+# (autograd differentiates them): each loss within this share of the
+# kernels' (bf16 rounding in another order, carried through the steps;
+# 0.32% at most in the first A/B on the card)
+TRAIN_PLAIN_RTOL = 0.02
+# the first loss against ln(V): random weights give logits of unit
+# variance, which adds about 1/2 to ln(V); a broken forward or head lands
+# far from it
+TRAIN_FIRST_LOSS_TOL = 1.0
+# the card against the CPU in fp32: two layers at the 8B widths, 2 x (64 +
+# 1) tokens, the scalar kernels against the plain versions
+TRAIN_CROSS_LAYERS, TRAIN_CROSS_BATCH, TRAIN_CROSS_SEQ = 2, 2, 64
+# losses of the fp32 card and CPU steps: sums in another order, ~1e-7
+TRAIN_CROSS_LOSS_RTOL = 1e-5
+# each leaf's gradient (10 x Adam's first moment after one step), card vs
+# CPU, within this share of the leaf's largest gradient: fp32 sums in
+# another order give ~1e-6; a kernel fault gives errors of order 1
+TRAIN_CROSS_GRAD_RTOL = 1e-4
+# parameters after the step, within this of the CPU's (of 1 + |p|).
+# Adam's update -lr g / (|g| + 1e-8) is the same up to rounding wherever
+# |g| exceeds 1000x the leaf's largest gradient difference; within that
+# of zero (but not 0) the quotient may swing by up to 2 lr. A parameter
+# past the tolerance must lie there, and such parameters must stay rare
+TRAIN_CROSS_PARAM_TOL = 1e-6
+TRAIN_CROSS_FLOOR, TRAIN_CROSS_FLIP_SHARE = 1e3, 1e-4
+# phase 10b's kernel cases: (name, b, s, hq, hkv, dtype) of the attention
+# forward with log-sum-exp and its backward, causal, q_offset 0
+TRAIN_ATTN_CASES = (("train step", TRAIN_BATCH, TRAIN_SEQ, 32, 8, "bfloat16"),
+                    ("ragged group 4", 2, 100, 32, 8, "bfloat16"),
+                    ("ragged group 4 fp32", 2, 100, 32, 8, "float32"),
+                    ("ragged group 1", 2, 77, 8, 8, "bfloat16"),
+                    ("ragged group 1 fp32", 2, 77, 8, 8, "float32"))
+# the RMSNorm backward at the train step's rows (8 x 512 tokens)
+TRAIN_NORM_ROWS = TRAIN_BATCH * TRAIN_SEQ
+# the backward kernels against their plain versions (atol, rtol): bf16, the
+# plain versions compute in fp32 from the same inputs; the attention
+# kernel feeds P and dS to the tensor cores as two bf16 parts (~16 bits)
+# and sums in another order, then rounds once: one bf16 ulp of |plain|
+# plus 1e-2 for the cancellations of gradients of order 1-10; the norm:
+# two ulps plus 1e-3, in the add mode of |plain| + |the norm's own
+# gradient| (rounded before ds is added). fp32: the forward's
+# 2e-4; the norm's weight gradient sums 4,096 rows in another order:
+# 1e-5 of |plain| plus 1e-4.
+TRAIN_TOL = {
+    ("attention_bwd", "bfloat16"): (1e-2, 2.0 ** -7),
+    ("attention_bwd", "float32"): (2e-4, 2e-4),
+    ("rmsnorm_bwd", "bfloat16"): (1e-3, 2.0 ** -6),
+    ("rmsnorm_bwd", "float32"): (1e-4, 1e-5),
+}
+# the log-sum-exp of each row, card vs plain (fp32, values ~6-10)
+TRAIN_LSE_TOL = 1e-4
 # the disaggregated legs: config 6's 16 requests and budgets with
 # block-aligned prompts of 16, 32 or 48 tokens, so a handoff adopts every
 # prompt block and the decode engine runs no prefill at all (traffic built
@@ -522,13 +610,17 @@ def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(torch, kind, name, out, ref, dtype_name) -> float:
-    atol, rtol = QUANT_TOL[dtype_name] if kind == "quant" else TOL[(kind, dtype_name)]
+def compare(torch, kind, name, out, ref, dtype_name, mag=None) -> float:
+    """Max abs error of ``out`` against ``ref``; fails past ``atol + rtol *
+    |ref|`` (``mag`` in place of ``|ref|`` where a rounding before the last
+    step bounds the error: the add-mode norm backward)."""
+    atol, rtol = (QUANT_TOL[dtype_name] if kind == "quant"
+                  else {**TOL, **TRAIN_TOL}[(kind, dtype_name)])
     out, ref = out.float(), ref.float()
     if not torch.isfinite(out).all():
         fail(f"{name}: kernel output not finite")
     err = (out - ref).abs()
-    worst = float((err - rtol * ref.abs()).max())
+    worst = float((err - rtol * (ref.abs() if mag is None else mag)).max())
     max_err = float(err.max())
     print(f"  {name}: max_abs_err {max_err:.3e} (tolerance {atol:g} + {rtol:.4g}*|plain|)",
           flush=True)
@@ -3463,6 +3555,486 @@ def engram_phase(torch, ops, serving, llama, cfg, seed: int, dev, card: str,
     return out
 
 
+def attention_bwd_flops(b: int, sq: int, sk: int, hq: int, d: int, causal: bool = True,
+                        q_offset: int = 0) -> int:
+    """The backward's products over the unmasked pairs: S = q k^T again,
+    dP = do v^T, dv = P^T do, dk = dS^T q, dq = dS k; 2 flops a
+    multiply-add, 5 products against the forward's 2 (2.5x)."""
+    return 10 * d * attention_pairs(sq, sk, causal, q_offset) * b * hq
+
+
+def attention_bwd_bytes(b: int, sq: int, sk: int, hq: int, hkv: int, d: int, es: int) -> int:
+    """q, k, v, o, do read once and dq, dk, dv written once, and the fp32
+    log-sum-exp of every row read once."""
+    return 4 * (b * sq * hq * d + b * sk * hkv * d) * es + 4 * b * hq * sq
+
+
+def rmsnorm_bwd_bytes(rows: int, d: int, es: int, add: bool) -> int:
+    """dy and x read once (and ds in the add mode), dx written once; the
+    weight read and its gradient written once."""
+    return (4 if add else 3) * rows * d * es + 2 * d * es
+
+
+def rmsnorm_bwd_flops(rows: int, d: int, add: bool) -> int:
+    """About 10 an element: two products in x's type, the two row sums,
+    dx's three terms, the weight gradient's product and sum (and the add)."""
+    return (11 if add else 10) * rows * d
+
+
+def train_nonembed_params(cfg) -> int:
+    """Every parameter but the embedding table (the LM head is a product)."""
+    return cfg.param_count - cfg.vocab_size * cfg.dim
+
+
+def train_step_flops(cfg, batch: int, seq: int) -> dict:
+    """A train step's model FLOPs: 6 N T for the weights' products (N the
+    non-embedding parameters, T the tokens; forward 2, backward 4) and the
+    causal attention's 12 d pairs a head and layer (forward 4, backward 8;
+    the backward's recomputed S not counted, as model FLOPs do not)."""
+    tokens = batch * seq
+    dense = 6 * train_nonembed_params(cfg) * tokens
+    attn = 12 * cfg.head_dim * attention_pairs(seq, seq, True, 0) * batch * cfg.n_heads \
+        * cfg.n_layers
+    return {"tokens": tokens, "nonembed_params": train_nonembed_params(cfg), "dense": dense,
+            "attention": attn, "total": dense + attn}
+
+
+def train_mfu(flops: float, step_s: float) -> float:
+    """Model FLOPs utilization against the H100's dense bf16 peak."""
+    return flops / step_s / PEAK_FLOPS["bfloat16"]
+
+
+def train_launches(n_layers: int, remat: bool = False) -> dict:
+    """The kernels of one train step: a log-sum-exp forward and a backward
+    of attention a layer, 2L + 1 norm forwards (2L in the add mode) and as
+    many backwards; remat runs every forward again inside the backward;
+    nothing of the serving entries."""
+    fwd = 2 if remat else 1
+    return {"rmsnorm": fwd * (2 * n_layers + 1), "add_rmsnorm": fwd * 2 * n_layers,
+            "flash_attention": 0, "cached_attention": 0, "paged_attention": 0,
+            "flash_attention_lse": fwd * n_layers, "flash_attention_backward": n_layers,
+            "rmsnorm_backward": 2 * n_layers + 1, "add_rmsnorm_backward": 2 * n_layers}
+
+
+def zero_train_counts(ops) -> None:
+    zero_counts(ops)
+    for fn in (ops.flash_attention_lse_cuda, ops.flash_attention_backward_cuda,
+               ops.rmsnorm_backward_cuda, ops.add_rmsnorm_backward_cuda):
+        fn.launches = 0
+
+
+def read_train_counts(ops) -> dict:
+    return {**read_counts(ops),
+            "flash_attention_lse": ops.flash_attention_lse_cuda.launches,
+            "flash_attention_backward": ops.flash_attention_backward_cuda.launches,
+            "rmsnorm_backward": ops.rmsnorm_backward_cuda.launches,
+            "add_rmsnorm_backward": ops.add_rmsnorm_backward_cuda.launches}
+
+
+def train_attention_case(torch, F, ops, flush, name, b, s, hq, hkv, dtype, gen, dev) -> list:
+    """The log-sum-exp forward and the backward at q [b, s, hq, 128], k/v
+    [b, s, hkv, 128], causal, each against its plain version on the same
+    inputs; timed beside SDPA's forward and backward (a yardstick only)."""
+    d = 128
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    q, k, v, do = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d), randn(b, s, hq, d)
+    out, lse = ops.flash_attention_lse_cuda(q, k, v)
+    ref_o, ref_lse = ops.flash_attention_lse_reference(q, k, v)
+    fwd_err = compare(torch, "attention", f"attention lse {name}", out, ref_o, dtype)
+    lse_err = float((lse - ref_lse).abs().max())
+    print(f"  attention lse {name}: lse max_abs_err {lse_err:.3e} (tolerance {TRAIN_LSE_TOL})",
+          flush=True)
+    if lse_err > TRAIN_LSE_TOL:
+        fail(f"attention lse {name}: the log-sum-exp disagrees with its plain version")
+    got = ops.flash_attention_backward_cuda(q, k, v, out, do, lse)
+    want = ops.flash_attention_backward_reference(q, k, v, out, do, lse)
+    bwd_err = max(compare(torch, "attention_bwd", f"attention backward {name} d{n}", g, w, dtype)
+                  for n, g, w in zip("qkv", got, want))
+    again = ops.flash_attention_backward_cuda(q, k, v, out, do, lse)
+    if not all(torch.equal(a, g) for a, g in zip(again, got)):
+        fail(f"attention backward {name}: two runs gave different bits")
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    es = q.element_size()
+    f_ms, f_by = bound((2 * q.numel() + k.numel() + v.numel()) * es + 4 * b * hq * s,
+                       4 * d * attention_pairs(s, s, True, 0) * b * hq, dtype)
+    b_ms, b_by = bound(attention_bwd_bytes(b, s, s, hq, hkv, d, es),
+                       attention_bwd_flops(b, s, s, hq, d), dtype)
+    shape = {"q": [b, s, hq, d], "kv": [b, s, hkv, d], "dtype": dtype}
+    with torch.no_grad():
+        fwd = {"case": f"attention lse {name}", "kernel": "flash_attention_lse", **shape,
+               "max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
+               "ms": time_ms(torch, lambda: ops.flash_attention_lse_cuda(q, k, v), flush),
+               "plain_ms": time_ms(torch, lambda: ops.flash_attention_lse_reference(q, k, v),
+                                   flush),
+               "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+               "library": "scaled_dot_product_attention (is_causal, enable_gqa) forward",
+               "bound_ms": f_ms, "bound_by": f_by}
+        bwd = {"case": f"attention backward {name}", "kernel": "flash_attention_backward",
+               **shape, "max_abs_err": bwd_err, "same_bits_twice": True,
+               "ms": time_ms(torch, lambda: ops.flash_attention_backward_cuda(
+                   q, k, v, out, do, lse), flush),
+               "plain_ms": time_ms(torch, lambda: ops.flash_attention_backward_reference(
+                   q, k, v, out, do, lse), flush)}
+    bwd.update({
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True), flush),
+        "library": "scaled_dot_product_attention (is_causal, enable_gqa) backward",
+        "bound_ms": b_ms, "bound_by": b_by})
+    return [fwd, bwd]
+
+
+def train_norm_case(torch, F, ops, flush, name, rows, d, dtype, gen, dev, add=False) -> dict:
+    """The RMSNorm backward (plain or add mode) at [rows, d] against its
+    plain version, timed beside F.rms_norm's backward (a yardstick)."""
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    x, dy, ds = randn(rows, d), randn(rows, d), randn(rows, d)
+    w = (torch.randn((d,), generator=gen, device=dev) * 0.1 + 1.0).to(dt)
+    if add:
+        kernel = lambda: ops.add_rmsnorm_backward_cuda(ds, dy, x, w, 1e-5)  # noqa: E731
+        plain = lambda: ops.add_rmsnorm_backward_reference(ds, dy, x, w, 1e-5)  # noqa: E731
+    else:
+        kernel = lambda: ops.rmsnorm_backward_cuda(dy, x, w, 1e-5)  # noqa: E731
+        plain = lambda: ops.rmsnorm_backward_reference(dy, x, w, 1e-5)  # noqa: E731
+    got, want = kernel(), plain()
+    # the add mode rounds the norm's gradient, then adds ds and rounds again:
+    # an ulp of the first outlives a cancellation
+    mag = (ops.rmsnorm_backward_reference(dy, x, w, 1e-5)[0].float().abs()
+           + want[0].float().abs()) if add else None
+    err = max(compare(torch, "rmsnorm_bwd", f"{name} d{n}", g, r, dtype, m)
+              for n, g, r, m in zip(("x", "w"), got, want, (mag, None)))
+    if not all(torch.equal(a, g) for a, g in zip(kernel(), got)):
+        fail(f"{name}: two runs gave different bits")
+    xl, wl = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    lib_out = F.rms_norm(xl, (d,), wl, 1e-5)
+    b_ms, b_by = bound(rmsnorm_bwd_bytes(rows, d, x.element_size(), add),
+                       rmsnorm_bwd_flops(rows, d, add), dtype)
+    return {"case": name, "kernel": "rmsnorm_backward", "mode": "add" if add else "plain",
+            "shape": [rows, d], "dtype": dtype, "max_abs_err": err, "same_bits_twice": True,
+            "ms": time_ms(torch, kernel, flush), "plain_ms": time_ms(torch, plain, flush),
+            "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (xl, wl), dy, retain_graph=True), flush),
+            "library": "F.rms_norm backward (dx, dw; no ds)",
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def train_kernel_cases(torch, F, ops, flush, gen, dev) -> list:
+    """Phase 10b (a): every training kernel against its plain version."""
+    cases = []
+    for name, b, s, hq, hkv, dtype in TRAIN_ATTN_CASES:
+        cases += train_attention_case(torch, F, ops, flush, name, b, s, hq, hkv, dtype, gen, dev)
+    for dtype in ("bfloat16", "float32"):
+        for add in (False, True):
+            name = (f"{'add_' if add else ''}rmsnorm backward train"
+                    f"{'' if dtype == 'bfloat16' else ' fp32'}")
+            cases.append(train_norm_case(torch, F, ops, flush, name, TRAIN_NORM_ROWS, 4096,
+                                         dtype, gen, dev, add=add))
+    for c in cases:
+        print(f"  {c['case']}: kernel {c['ms']:.5f} ms, plain {c['plain_ms']:.5f} ms, library "
+              f"{c['library_ms']:.5f} ms, bound {c['bound_ms']:.6f} ms ({c['bound_by']})",
+              flush=True)
+    return cases
+
+
+class StepTimer:
+    """CUDA events at a train step's start and at each part's end (the
+    step's ``phase_hook``): device ms of forward, backward, optimizer."""
+
+    PARTS = ("forward", "backward", "update")
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events = {}
+
+    def start(self) -> None:
+        self.events = {"start": self.torch.cuda.Event(enable_timing=True)}
+        self.events["start"].record()
+
+    def __call__(self, name: str) -> None:
+        self.events[name] = self.torch.cuda.Event(enable_timing=True)
+        self.events[name].record()
+
+    def split(self) -> dict:
+        marks = ("start",) + self.PARTS
+        return {part: self.events[a].elapsed_time(self.events[part])
+                for a, part in zip(marks, self.PARTS)}
+
+
+def cpu_copy(torch, tree) -> list:
+    """The leaves of a tree on the host, in flatten order."""
+    from bobrapet_tpu_torch.parallel.optim import tree_leaves
+
+    return [t.to("cpu") for t in tree_leaves(tree)]
+
+
+def same_bits(torch, leaves: list, tree) -> bool:
+    from bobrapet_tpu_torch.parallel.optim import tree_leaves
+
+    return all(torch.equal(a, b.to("cpu")) for a, b in zip(leaves, tree_leaves(tree)))
+
+
+def train_step_leg(torch, ops, llama, train, mesh_mod, ctx_mod, seed: int, dev,
+                   card: str) -> dict:
+    """Phase 10b (b) and (d): the train step at Llama-3-8B width,
+    TRAIN_LAYERS deep, bf16, on a one-rank mesh; then remat, and the mesh
+    from the span env, from the state before the last step."""
+    import math
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dataclasses.replace(llama.llama3_8b(), n_layers=TRAIN_LAYERS)
+    mesh = mesh_mod.build_mesh({"data": 1}, device_type=dev.type)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, state, opt = train.init_train_state(cfg, mesh, gen,
+                                                train.adamw(TRAIN_LR, weight_decay=TRAIN_WD))
+    tokens = train.make_token_batch(torch.Generator(device=dev).manual_seed(seed + 1), cfg,
+                                    TRAIN_BATCH, TRAIN_SEQ, mesh)
+    step = train.make_train_step(cfg, mesh, optimizer=opt)
+    timer = StepTimer(torch)
+    step.phase_hook = timer
+    want = train_launches(cfg.n_layers)
+    losses, steps, launches = [], [], None
+    for i in range(TRAIN_STEPS - 1):
+        zero_train_counts(ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer.start()
+        params, state, loss = step(params, state, tokens)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = read_train_counts(ops)
+        if got != want:
+            fail(f"train step {i}: launches {got}, expected {want}: not every attention and "
+                 "norm, forward and backward, went through the kernels")
+        launches = got if launches is None else {k: launches[k] + got[k] for k in got}
+        losses.append(float(loss))
+        steps.append({"step_ms": seconds * 1e3, **{f"{k}_ms": v for k, v in timer.split().items()}})
+    # the last step from the state before it, three ways: plain, remat, and
+    # on the mesh the span env builds
+    zero_train_counts(ops)
+    timer.start()
+    new_params, _, loss = step(params, state, tokens)
+    torch.cuda.synchronize()
+    if read_train_counts(ops) != want:
+        fail("the last train step did not run every kernel")
+    launches = {k: launches[k] + want[k] for k in want}
+    losses.append(float(loss))
+    steps.append({"step_ms": None, **{f"{k}_ms": v for k, v in timer.split().items()}})
+    last = cpu_copy(torch, new_params)
+    del new_params
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  train losses {losses}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail("a train loss is not finite")
+    ln_v = math.log(cfg.vocab_size)
+    if abs(losses[0] - ln_v) > TRAIN_FIRST_LOSS_TOL:
+        fail(f"the first loss {losses[0]} is not near ln(V) = {ln_v}")
+    if not losses[-1] < losses[TRAIN_FALLING] < losses[0]:
+        fail(f"the loss does not fall over the first {TRAIN_FALLING} steps and after: {losses}")
+
+    remat = train.make_train_step(cfg, mesh, optimizer=opt, remat=True)
+    zero_train_counts(ops)
+    r_params, _, r_loss = remat(params, state, tokens)
+    torch.cuda.synchronize()
+    r_launches = read_train_counts(ops)
+    if r_launches != train_launches(cfg.n_layers, remat=True):
+        fail(f"the remat step's launches {r_launches}")
+    remat_same = float(r_loss) == losses[-1] and same_bits(torch, last, r_params)
+    del r_params
+    print(f"  remat step: loss {float(r_loss)} (plain {losses[-1]}), same parameters bit for "
+          f"bit: {remat_same}", flush=True)
+    if not remat_same:
+        fail("remat=True gave another step than remat=False")
+
+    # (d) the span env on one card
+    dctx = ctx_mod.DistributedContext({})
+    if dctx.initialize_distributed() is not False:
+        fail("initialize_distributed with no span env is not a no-op")
+    env_mesh = mesh_mod.build_mesh_from_env({"BOBRA_MESH_AXES": '{"data": 1}'},
+                                            device_type=dev.type)
+    if dict(zip(env_mesh.mesh_dim_names, env_mesh.shape)) != {"data": 1}:
+        fail(f"the env mesh is {env_mesh}")
+    env_step = train.make_train_step(cfg, env_mesh, optimizer=opt)
+    e_params, _, e_loss = env_step(params, state, tokens)
+    torch.cuda.synchronize()
+    env_same = float(e_loss) == losses[-1] and same_bits(torch, last, e_params)
+    del e_params
+    print(f"  span-env mesh step: same loss and parameters bit for bit: {env_same}", flush=True)
+    if not env_same:
+        fail("the step on the mesh from the span env differs from the step on build_mesh's")
+
+    # the card's busy share of one profiled step, after the timed ones
+    step.phase_hook = None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        p_params, _, _ = step(params, state, tokens)
+        torch.cuda.synchronize()
+    del p_params, params, state, last
+    plain = plain_path_losses(torch, ops, llama, train, cfg, mesh, opt, tokens, seed, dev)
+    gaps = [abs(a - b) / b for a, b in zip(plain, losses)]
+    print(f"  plain-path losses {plain}: largest relative gap {max(gaps):.5f}", flush=True)
+    if max(gaps) > TRAIN_PLAIN_RTOL:
+        fail("the kernels' train steps leave the plain path's")
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    timed = steps[1:-1]
+    step_ms = p50([s["step_ms"] for s in timed])
+    flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "model": "llama3_8b widths", "n_layers": cfg.n_layers, "params": cfg.param_count,
+        "dtype": "bfloat16", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "optimizer": f"adamw({TRAIN_LR}, weight_decay={TRAIN_WD})", "losses": losses,
+        "first_loss_vs_ln_v": losses[0] - ln_v, "launches": launches,
+        "launches_per_step": want, "remat_launches": r_launches,
+        "remat_same_bits": remat_same, "span_env_mesh_same_bits": env_same,
+        "plain_path_losses": plain, "plain_path_max_rel_gap": max(gaps),
+        "step_ms_p50": step_ms,
+        "split_ms_p50": {part: p50([s[f"{part}_ms"] for s in timed]) for part in StepTimer.PARTS},
+        "steps": steps, "tokens_per_s": flops["tokens"] / step_ms * 1e3,
+        "flops": flops, "mfu": train_mfu(flops["total"], step_ms / 1e3),
+        "peak_memory_gb": peak_gb,
+        "profiled_step_device_ms": device_ms or None,
+        "device_busy_share": device_ms / step_ms if device_ms else None,
+        "port_kernels_ms": port_kernel_shares(kernels, 1, TRAIN_PORT_KERNELS),
+        "top_kernels": [{"name": e.key[:70], "ms": e.self_device_time_total / 1e3,
+                         "calls": e.count} for e in top],
+        "card": card,
+    }
+
+
+def plain_path_losses(torch, ops, llama, train, cfg, mesh, opt, tokens, seed: int,
+                      dev) -> list:
+    """Phase 10b's steps from the same seed with the model's attention and
+    norms on their plain versions (autograd differentiates them), on the
+    card: the other side of the kernels' A/B. No training kernel may run."""
+    saved = (llama.attention, llama.rmsnorm, llama.add_rmsnorm)
+    llama.attention = lambda q, k, v, causal=True, q_offset=0: ops.attention_reference(
+        q, k, v, causal=causal, q_offset=q_offset)
+    llama.rmsnorm, llama.add_rmsnorm = ops.rmsnorm_reference, ops.add_rmsnorm_reference
+    try:
+        params, state, _ = train.init_train_state(
+            cfg, mesh, torch.Generator(device=dev).manual_seed(seed), opt)
+        step = train.make_train_step(cfg, mesh, optimizer=opt)
+        zero_train_counts(ops)
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            params, state, loss = step(params, state, tokens)
+            losses.append(float(loss))
+        if any(read_train_counts(ops).values()):
+            fail("the plain path ran a kernel")
+    finally:
+        llama.attention, llama.rmsnorm, llama.add_rmsnorm = saved
+    return losses
+
+
+# the training kernels' instances by the names the profiler gives them
+TRAIN_PORT_KERNELS = (("flash_attention_lse", ("flash_rows_kernel", "flash_attention_kernel")),
+                      ("flash_attention_backward", ("flash_bwd_", "attn_bwd_")),
+                      ("rmsnorm_backward", ("rmsnorm_bwd_kernel", "rmsnorm_dw_reduce")),
+                      ("rmsnorm", ("rmsnorm_kernel",)))
+
+
+def train_cross_check(torch, ops, llama, train, mesh_mod, seed: int, dev) -> dict:
+    """Phase 10b (c): two layers at the 8B widths in fp32 (the scalar
+    kernels), one train step on the card and one on the CPU (the plain
+    versions) from the same weights and tokens."""
+    from bobrapet_tpu_torch.parallel.optim import tree_leaves
+
+    cfg = dataclasses.replace(llama.llama3_8b(), n_layers=TRAIN_CROSS_LAYERS,
+                              dtype=torch.float32)
+    mesh = mesh_mod.build_mesh({"data": 1}, device_type=dev.type)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    params, state, opt = train.init_train_state(cfg, mesh, gen,
+                                                train.adamw(TRAIN_LR, weight_decay=TRAIN_WD))
+    tokens = train.make_token_batch(torch.Generator(device=dev).manual_seed(seed + 6), cfg,
+                                    TRAIN_CROSS_BATCH, TRAIN_CROSS_SEQ, mesh)
+    step = train.make_train_step(cfg, mesh, optimizer=opt)
+    params_cpu = tree_to(params, "cpu")
+    state_cpu = opt.init(params_cpu)
+    zero_train_counts(ops)
+    g_params, g_state, g_loss = step(params, state, tokens)
+    torch.cuda.synchronize()
+    card_launches = read_train_counts(ops)
+    if card_launches != train_launches(cfg.n_layers):
+        fail(f"fp32 train step: launches {card_launches}")
+    del params, state
+    t0 = time.perf_counter()
+    c_params, c_state, c_loss = step(params_cpu, state_cpu, tokens.cpu())
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(float(g_loss) - float(c_loss)) / abs(float(c_loss))
+    worst_grad, worst_param, flips, total = 0.0, 0.0, 0, 0
+    for gp, cp, gm, cm in zip(tree_leaves(g_params), tree_leaves(c_params),
+                              tree_leaves(g_state[0].mu), tree_leaves(c_state[0].mu)):
+        g_grad, c_grad = gm.cpu() * 10, cm * 10  # one step: mu = (1 - b1) g
+        dg = float((g_grad - c_grad).abs().max())
+        scale = float(c_grad.abs().max())
+        worst_grad = max(worst_grad, dg / scale if scale else dg)
+        if dg > TRAIN_CROSS_GRAD_RTOL * scale:
+            fail(f"fp32 card vs CPU: a gradient differs by {dg} against a largest {scale}")
+        err = (gp.cpu() - cp).abs()
+        past = err > TRAIN_CROSS_PARAM_TOL * (1 + cp.abs())
+        worst_param = max(worst_param, float(err.max()))
+        total += err.numel()
+        if past.any():
+            near0 = (c_grad.abs() < TRAIN_CROSS_FLOOR * dg) & (c_grad != 0)
+            if bool((past & ~near0).any()):
+                fail("fp32 card vs CPU: a parameter differs past Adam's rounding")
+            if float(err[past].max()) > 2 * TRAIN_LR + TRAIN_CROSS_PARAM_TOL:
+                fail("fp32 card vs CPU: a parameter at a near-zero gradient moved past 2 lr")
+            flips += int(past.sum())
+    out = {"layers": cfg.n_layers, "dtype": "float32", "tokens": [TRAIN_CROSS_BATCH,
+                                                                   TRAIN_CROSS_SEQ + 1],
+           "card_loss": float(g_loss), "cpu_loss": float(c_loss), "loss_rel_err": loss_rel,
+           "max_grad_rel_err": worst_grad, "max_param_err": worst_param,
+           "params_past_tolerance": flips, "cpu_s": cpu_s,
+           "card_launches": card_launches}
+    print("  train card vs CPU (fp32): " + json.dumps(out), flush=True)
+    if loss_rel > TRAIN_CROSS_LOSS_RTOL:
+        fail("fp32 card vs CPU: the losses differ")
+    if flips > TRAIN_CROSS_FLIP_SHARE * total:
+        fail(f"fp32 card vs CPU: {flips} parameters past the tolerance, at near-zero gradients")
+    return out
+
+
+def train_phase(torch, F, ops, llama, seed: int, dev, card: str) -> dict:
+    """Phase 10b: the training kernels, the train step at 8B width with
+    remat and the span-env mesh, and fp32 card against CPU."""
+    from bobrapet_tpu_torch import parallel as train
+    from bobrapet_tpu_torch.parallel import mesh as mesh_mod
+    from bobrapet_tpu_torch.sdk import context as ctx_mod
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    cases = train_kernel_cases(torch, F, ops, flush, gen, dev)
+    del flush
+    leg = train_step_leg(torch, ops, llama, train, mesh_mod, ctx_mod, seed, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cross = train_cross_check(torch, ops, llama, train, mesh_mod, seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the one-rank group build_mesh started for the meshes above
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    return {"cases": cases, "step": leg, "cross": cross, "phase_s": time.perf_counter() - t0}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3790,6 +4362,15 @@ def main() -> None:
     print("engram phase: " + json.dumps(engram_out), flush=True)
     for key, counts in engram_out["launches"].items():
         launches_by_path[f"engram_{key}"] = counts
+    del engram_out
+
+    phase_mark(t_start, "10b")
+    # ---- 10b. the train step (phase 10's trees freed)
+    trained = train_phase(torch, F, ops, llama, args.seed, dev, card)
+    print("train phase: " + json.dumps(trained), flush=True)
+    launches_by_path["train"] = trained["step"]["launches"]
+    launches_by_path["train_remat"] = trained["step"]["remat_launches"]
+    launches_by_path["train_fp32_cross"] = trained["cross"]["card_launches"]
 
     phase_mark(t_start, "11")
     # ---- 11. result
@@ -3869,6 +4450,15 @@ def main() -> None:
           for part, line, cases in (
               (part, line, [c for c in moe_cases if c["kernel"] == f"moe_{part}"])
               for part, line in (("gate_up", 200), ("down", 206)))),
+        *(entry(name, f"bobrapet_tpu_torch/csrc/{src}", replaces,
+                [c for c in trained["cases"] if c["kernel"] == name], main_case)
+          for name, src, replaces, main_case in (
+              ("flash_attention_lse", "flash_attention.cu", "bobrapet_tpu/ops/attention.py:117",
+               "attention lse train step"),
+              ("flash_attention_backward", "flash_attention_bwd.cu",
+               "bobrapet_tpu/ops/attention.py:161", "attention backward train step"),
+              ("rmsnorm_backward", "rmsnorm_bwd.cu", "bobrapet_tpu/ops/rmsnorm.py:19",
+               "add_rmsnorm backward train"))),
     ], "build_s": build_s, "host_us_per_call": host_costs}
     print(json.dumps(kernels), flush=True)
     print(f"card: {card}", flush=True)

@@ -642,3 +642,147 @@ def test_phase_10_handoff_tie_check_recomputes_both_paths(smoke):
     assert c["position"] == 3 and (c["unified"], c["handed_off"]) == (uni[3], dis[3])
     assert c["recomputed_argmax"] == [uni[3], uni[3]]
     assert c["margin"] > 0 and c["max_abs_logit_err"] < 1e-3
+
+
+def test_phase_10b_sits_between_the_engram_and_the_result(smoke):
+    doc = smoke.__doc__
+    i10, i10b, i11 = (doc.index(s) for s in (
+        "\n10. the serving engram", "\n10b. the train step", "\n11. one JSON line"))
+    assert i10 < i10b < i11
+    text = (ROOT / "chip_smoke.py").read_text()
+    m10, m10b, m11 = (text.index(f'phase_mark(t_start, "{p}")') for p in ("10", "10b", "11"))
+    assert m10 < m10b < m11
+    # it runs after phase 10 frees its trees
+    assert text.index("del engram_out") < m10b
+
+
+def test_phase_10b_bounds_of_the_training_kernels(smoke):
+    # attention backward at the step's shapes: 5 products over the causal
+    # pairs (2.5x the forward), q, k, v, o, do, dq, dk, dv and lse once
+    pairs = 512 * 513 // 2
+    flops = smoke.attention_bwd_flops(8, 512, 512, 32, 128)
+    assert flops == 10 * 128 * pairs * 8 * 32 == 2.5 * 4 * 128 * pairs * 8 * 32
+    assert flops / 1e9 == pytest.approx(43.03, abs=0.01)
+    nbytes = smoke.attention_bwd_bytes(8, 512, 512, 32, 8, 128, 2)
+    assert nbytes == 4 * (8 * 512 * 32 * 128 + 8 * 512 * 8 * 128) * 2 + 4 * 8 * 32 * 512
+    assert nbytes / 1e6 == pytest.approx(168.3, abs=0.1)
+    ms, by = smoke.bound(nbytes, flops, "bfloat16")
+    assert by == "bytes" and ms == pytest.approx(0.0502, abs=1e-4)
+    assert flops / smoke.PEAK_FLOPS["bfloat16"] * 1e3 == pytest.approx(0.0435, abs=1e-4)
+    # the norm backward at the step's 4,096 rows: dy, x (ds) in, dx out
+    add = smoke.rmsnorm_bwd_bytes(smoke.TRAIN_NORM_ROWS, 4096, 2, True)
+    plain = smoke.rmsnorm_bwd_bytes(smoke.TRAIN_NORM_ROWS, 4096, 2, False)
+    assert add == 4 * 4096 * 4096 * 2 + 2 * 4096 * 2 and plain == add - 4096 * 4096 * 2
+    assert smoke.bound(add, smoke.rmsnorm_bwd_flops(4096, 4096, True), "bfloat16") == (
+        pytest.approx(0.04007, abs=1e-5), "bytes")
+    assert smoke.TRAIN_ATTN_CASES[0][1:] == (8, 512, 32, 8, "bfloat16")
+    assert {c[-1] for c in smoke.TRAIN_ATTN_CASES} == {"bfloat16", "float32"}
+    assert {c[3] // c[4] for c in smoke.TRAIN_ATTN_CASES} == {4, 1}
+    assert all(c[2] % 64 for c in smoke.TRAIN_ATTN_CASES[1:])
+
+
+def test_phase_10b_mfu_arithmetic(smoke):
+    from bobrapet_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(n_layers=smoke.TRAIN_LAYERS)
+    layer = 2 * 4096 * 4096 + 2 * 4096 * 1024 + 3 * 4096 * 14336 + 2 * 4096
+    n = smoke.train_nonembed_params(cfg)
+    assert n == cfg.n_layers * layer + 4096 + 4096 * 128256  # layers, final norm, LM head
+    assert cfg.param_count / 1e9 == pytest.approx(4.54, abs=0.01)
+    f = smoke.train_step_flops(cfg, smoke.TRAIN_BATCH, smoke.TRAIN_SEQ)
+    assert f["tokens"] == 4096 and f["dense"] == 6 * n * 4096
+    assert f["attention"] == 12 * 128 * (512 * 513 // 2) * 8 * 32 * cfg.n_layers
+    assert f["total"] / 1e12 == pytest.approx(99.5, abs=0.1)
+    # 100% of the bf16 peak would take ~100.6 ms a step
+    assert smoke.train_mfu(f["total"], f["total"] / 989e12) == pytest.approx(1.0)
+    # params, grads and bf16 moments: 8 bytes a parameter
+    assert 8 * cfg.param_count / 1e9 == pytest.approx(36.3, abs=0.1)
+    assert 8 * llama.LlamaConfig().param_count / 1e9 == pytest.approx(64.2, abs=0.1)
+
+
+@pytest.mark.parametrize("layers", [2, 16])
+def test_phase_10b_launch_arithmetic(smoke, layers):
+    plain = smoke.train_launches(layers)
+    assert (plain["flash_attention_lse"], plain["flash_attention_backward"]) == (layers, layers)
+    assert plain["rmsnorm"] == plain["rmsnorm_backward"] == 2 * layers + 1
+    assert plain["add_rmsnorm"] == plain["add_rmsnorm_backward"] == 2 * layers
+    assert plain["flash_attention"] == plain["cached_attention"] == plain["paged_attention"] == 0
+    remat = smoke.train_launches(layers, remat=True)
+    assert remat["flash_attention_lse"] == 2 * layers and remat["rmsnorm"] == 2 * (2 * layers + 1)
+    assert remat["flash_attention_backward"] == layers
+    assert remat["rmsnorm_backward"] == 2 * layers + 1
+
+
+def test_phase_10b_runs_on_the_cpu_at_tiny_size(smoke, monkeypatch):
+    """Phase 10b's steps at a tiny config on the CPU (plain versions, so
+    the launch counts are fed as the card would give them, and the kernel
+    cases, which need the card, are left out): ten steps whose losses fall,
+    remat and the span-env mesh bit for bit, the plain path's steps (here
+    the same path), fp32 card against CPU."""
+    import torch
+
+    from bobrapet_tpu_torch import ops
+    from bobrapet_tpu_torch.models import llama
+
+    def fail(msg):
+        raise AssertionError(msg)
+
+    class Event:
+        def __init__(self, **_):
+            pass
+
+        def record(self):
+            pass
+
+        def elapsed_time(self, _):
+            return 1.0
+
+    class Profile:
+        def __init__(self, **_):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *_):
+            return False
+
+        def key_averages(self):
+            return []
+
+    layers = 2
+    none = dict.fromkeys(smoke.train_launches(layers), 0)
+    counts = iter([smoke.train_launches(layers)] * smoke.TRAIN_STEPS
+                  + [smoke.train_launches(layers, remat=True), none,
+                     smoke.train_launches(layers)])
+    tiny = llama.LlamaConfig(vocab_size=512, dim=128, n_layers=layers, n_heads=4, n_kv_heads=2,
+                             ffn_hidden=256, max_seq_len=256, dtype=torch.bfloat16)
+    monkeypatch.setattr(smoke, "fail", fail)
+    monkeypatch.setattr(smoke, "read_train_counts", lambda _ops: next(counts))
+    monkeypatch.setattr(smoke, "train_kernel_cases", lambda *a: [])
+    monkeypatch.setattr(smoke, "TRAIN_LAYERS", layers)
+    monkeypatch.setattr(smoke, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(smoke, "TRAIN_SEQ", 16)
+    monkeypatch.setattr(smoke, "TRAIN_CROSS_SEQ", 8)
+    monkeypatch.setattr(llama, "llama3_8b", lambda: tiny)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = smoke.train_phase(torch, torch.nn.functional, ops, llama, 0,
+                                torch.device("cpu"), "cpu")
+    finally:
+        torch.set_num_threads(n)
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    step = out["step"]
+    assert len(step["losses"]) == smoke.TRAIN_STEPS and step["remat_same_bits"]
+    assert step["span_env_mesh_same_bits"] and step["n_layers"] == layers
+    assert step["launches"]["flash_attention_backward"] == layers * smoke.TRAIN_STEPS
+    assert step["plain_path_max_rel_gap"] == 0.0
+    assert llama.attention is importlib.import_module("bobrapet_tpu_torch.ops.attention").attention
+    assert out["cross"]["loss_rel_err"] <= smoke.TRAIN_CROSS_LOSS_RTOL

@@ -1181,3 +1181,169 @@ def test_moe_expert_entries_refuse_what_they_do_not_take(cuda):
         moe_down_cuda(act, counts.cpu(), w_down)
     with pytest.raises(TypeError):
         moe_gate_up_cuda(h, src, counts, w_gate.float(), w_up)
+
+
+# ---------------------------------------------------------------------------
+# training: the log-sum-exp forward, the attention and RMSNorm backwards
+#
+# Tolerances. fp32 (scalar kernels): 2e-4 of |plain| plus 2e-4, the
+# forward's. bf16: the plain versions compute in fp32 from the same bf16
+# inputs; the kernels feed P and dS to the tensor cores as two bf16 parts
+# (~16 bits) and sum in another order, then round once: one bf16 ulp of
+# |plain| (2^-7) plus 1e-2 (the gradients here are of order 1-10, so 1e-2
+# is a fraction of an ulp of the large ones and covers the small ones'
+# cancellations). The norm backward: two bf16 ulps plus 1e-3, of |plain|
+# and in the add mode also of the norm's own gradient (it rounds that,
+# adds ds and rounds again, so an ulp of the first outlives a
+# cancellation); fp32 1e-5 of |plain| plus 1e-5 of the largest value (the
+# weight gradient sums every row in another order).
+
+TRAIN_FLASH_CASES = [
+    # (b, sq, hq, hkv, d): causal, sq = sk, q_offset 0
+    (8, 512, 32, 8, 128),   # the train step's shape
+    (2, 100, 32, 8, 128),   # ragged, group 4
+    (1, 130, 4, 4, 32),     # ragged, group 1, narrow heads
+    (2, 77, 8, 8, 128),     # group 1
+    (1, 1, 4, 1, 32),       # one token
+]
+
+
+def _train_inputs(case, dtype, device):
+    b, sq, hq, hkv, d = case
+    q = _randn((b, sq, hq, d), dtype, device, 31)
+    k = _randn((b, sq, hkv, d), dtype, device, 32)
+    v = _randn((b, sq, hkv, d), dtype, device, 33)
+    do = _randn((b, sq, hq, d), dtype, device, 34)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", TRAIN_FLASH_CASES, ids=str)
+def test_flash_lse_kernel_matches_plain(cuda, dtype, case):
+    from bobrapet_tpu_torch.ops import flash_attention_lse_cuda, flash_attention_lse_reference
+
+    q, k, v, _ = _train_inputs(case, dtype, cuda)
+    before = (flash_attention_lse_cuda.launches, flash_attention_cuda.launches)
+    out, lse = flash_attention_lse_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert (flash_attention_lse_cuda.launches, flash_attention_cuda.launches) == (
+        before[0] + 1, before[1])
+    ref, ref_lse = flash_attention_lse_reference(q, k, v)
+    _close(out, ref, dtype, 2.0 ** -7, 1e-3, 2e-4)
+    assert lse.dtype == torch.float32 and lse.shape == ref_lse.shape
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    if dtype == torch.bfloat16 and case[1] * case[2] // case[3] > 16:
+        # the same output bits as the serving entry's rows kernel
+        assert torch.equal(out, flash_attention_cuda(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", TRAIN_FLASH_CASES, ids=str)
+def test_flash_backward_kernel_matches_plain(cuda, dtype, case):
+    from bobrapet_tpu_torch.ops import (
+        flash_attention_backward_cuda,
+        flash_attention_backward_reference,
+        flash_attention_lse_cuda,
+    )
+
+    q, k, v, do = _train_inputs(case, dtype, cuda)
+    out, lse = flash_attention_lse_cuda(q, k, v)
+    before = flash_attention_backward_cuda.launches
+    got = flash_attention_backward_cuda(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    assert flash_attention_backward_cuda.launches == before + 1
+    want = flash_attention_backward_reference(q, k, v, out, do, lse)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        _close(g, w, dtype, 2.0 ** -7, 1e-2, 2e-4)
+    # the same bits again: no atomics
+    again = flash_attention_backward_cuda(q, k, v, out, do, lse)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("add", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(4096, 4096), (8, 4096), (1024, 2048), (3, 7, 128),
+                                   (5, 100)])
+def test_rmsnorm_backward_kernel_matches_plain(cuda, dtype, shape, add):
+    from bobrapet_tpu_torch.ops import (
+        add_rmsnorm_backward_cuda,
+        add_rmsnorm_backward_reference,
+        rmsnorm_backward_cuda,
+        rmsnorm_backward_reference,
+    )
+
+    x = _randn(shape, dtype, cuda, 41)
+    w = (_randn(shape[-1:], torch.float32, cuda, 42) * 0.1 + 1).to(dtype)
+    dy = _randn(shape, dtype, cuda, 43)
+    ds = _randn(shape, dtype, cuda, 44)
+    if add:
+        got = add_rmsnorm_backward_cuda(ds, dy, x, w, 1e-5)
+        want = add_rmsnorm_backward_reference(ds, dy, x, w, 1e-5)
+    else:
+        got = rmsnorm_backward_cuda(dy, x, w, 1e-5)
+        want = rmsnorm_backward_reference(dy, x, w, 1e-5)
+    torch.cuda.synchronize()
+    # the add mode rounds the norm's gradient, then adds ds and rounds
+    # again: an ulp of the first can outlive a cancellation, so its bound
+    # scales with |norm's gradient| + |result|
+    dxn = rmsnorm_backward_reference(dy, x, w, 1e-5)[0].float().abs() if add else 0.0
+    for g, ref, mag in zip(got, want, (dxn, 0.0)):
+        assert g.dtype == dtype and g.shape == ref.shape
+        scale = float(ref.float().abs().max())
+        bound_ref = ref.float().abs() + mag
+        if dtype == torch.bfloat16:
+            bound = 1e-3 + 2.0 ** -6 * bound_ref
+        else:
+            bound = 1e-5 * max(1.0, scale) * (1 + bound_ref)
+        assert torch.isfinite(g).all()
+        assert bool(((g.float() - ref.float()).abs() <= bound).all()), float(
+            (g.float() - ref.float()).abs().max())
+    again = (add_rmsnorm_backward_cuda(ds, dy, x, w, 1e-5) if add
+             else rmsnorm_backward_cuda(dy, x, w, 1e-5))
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_tiny_model_gradients_on_the_card_match_the_cpu(cuda):
+    """llama_tiny in fp32 (the scalar routes): the gradients of the loss
+    through the kernels' Functions equal the CPU's plain path, and every
+    attention and norm of the forward and backward went through a kernel."""
+    from bobrapet_tpu_torch import ops
+    from bobrapet_tpu_torch.parallel.train import cross_entropy_loss
+
+    cfg = llama.llama_tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(1))
+
+    def grads(device):
+        leaves = {}
+
+        def live(t):
+            leaves[len(leaves)] = t.to(device).requires_grad_(True)
+            return leaves[len(leaves) - 1]
+
+        p = {"embed": {"weight": live(params["embed"]["weight"])},
+             "final_norm": {"weight": live(params["final_norm"]["weight"])},
+             "lm_head": {"weight": live(params["lm_head"]["weight"])},
+             "layers": [{k: {n: live(t) for n, t in v.items()} for k, v in layer.items()}
+                        for layer in params["layers"]]}
+        t = tokens.to(device)
+        logits, _ = llama.forward(p, t[:, :-1], cfg)
+        loss = cross_entropy_loss(logits, t[:, 1:])
+        return loss, torch.autograd.grad(loss, list(leaves.values()))
+
+    counters = (ops.flash_attention_lse_cuda, ops.flash_attention_backward_cuda,
+                ops.rmsnorm_cuda, ops.rmsnorm_backward_cuda)
+    before = [c.launches for c in counters]
+    loss, got = grads(cuda)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    n = cfg.n_layers
+    assert launched == [n, n, 2 * n + 1, 2 * n + 1]
+    want_loss, want = grads("cpu")
+    assert float(loss.detach()) == pytest.approx(float(want_loss.detach()), rel=1e-5)
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * max(scale, 1e-3)
