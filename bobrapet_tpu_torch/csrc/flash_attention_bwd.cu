@@ -24,21 +24,48 @@
 // dq, dk, dv: 0.050 ms at 3.35 TB/s. So it sits near the ridge.
 //
 // Design: deterministic, no atomics; every output element is written by
-// one block. Three launches: D; then dk/dv, one block of 4 warps a tile of
-// 64 keys (16 a warp), looping over the packed rows that see those keys in
-// tiles of 32 (q and do double-buffered by cp.async), accumulating dk and
-// dv in fp32 registers (mma.sync m16n8k16 through attention_core.cuh, keys
-// on the m side: S^T = K Q^T, dP^T = V dO^T); then dq, one block a tile of
-// 64 packed rows (16 a warp) looping over key tiles of 32, as the forward's
-// rows kernel does. P and dS go into the products as two bf16 parts (hi +
-// lo, attention_core.cuh:accumulate_pv), as the forward's P does. fp32
-// takes scalar kernels (exact; the tensor cores would run fp32 as TF32).
-// No wgmma or TMA yet: a simple kernel first.
+// one block. Three launches: D; then dk/dv; then dq. fp32 takes scalar
+// kernels (exact; the tensor cores would run fp32 as TF32).
+//
+// bf16 (sm_90a): both kernels are persistent and warp-specialised. A block
+// of 384 threads has two consumer warpgroups (setmaxnreg: 232 registers a
+// thread) and a producer warpgroup (40) whose first warp keeps TMA loads in
+// flight through a ring of kBwdStages stages with full and empty mbarriers.
+// One block an SM walks its work items in a closed order (bwd_item): the
+// items come heaviest first under the causal mask and alternate direction
+// each round, so the last round holds the lightest items; an item is
+// computed by one block whatever the order, so the bits do not depend on it.
+//
+// * dk/dv: an item is 128 keys of one (batch, kv head), 64 a consumer. The
+//   producer loads the item's K and V once, then rings the q and do tiles
+//   (64 packed rows) of the rows that see any of its keys, with each tile
+//   row's lse and D (plain loads by the producer warp's lanes: they are
+//   head-major, not contiguous over packed rows). A consumer computes
+//   S^T = K Q^T and dP^T = V dO^T with wgmma from shared memory (m64n64,
+//   both K-major), forms P^T and dS^T in its accumulator registers, and
+//   accumulates dV += P^T dO and dK += dS^T Q with P^T and dS^T as wgmma's A
+//   registers and dO, Q as MN-major B; dK and dV stay in fp32 registers
+//   (m64n128 or m64n32) until the item ends.
+// * dq: an item is 128 packed rows, 64 a consumer; the producer loads their
+//   q and do once, then rings the K and V tiles (64 keys) up to the causal
+//   diagonal of the item's last row. S = Q K^T and dP = dO V^T from shared
+//   memory, dQ += dS K with dS in registers.
+//
+// TMA reads q and do as [B, Sq, Hq, D] through 4-D tensor maps whose box is
+// (head-dim columns, the group's heads, 64 / group queries): a kv head's
+// group of q heads is contiguous for each query, so the box lands in packed
+// row order. A box row is 128 bytes at D = 128 (two boxes a tile, 128-byte
+// swizzle) and 64 at D = 32 (one box, 64-byte swizzle). Rows past Sq or
+// keys past Sk arrive as zeros and are masked as BwdShape::mask says. P and
+// dS go into the products in one bf16 part or as hi + lo parts
+// (bobra_flash_attention_backward_parts; see PERF.md for the measurement).
 
+#include <limits.h>
 #include <math.h>
 
 #include "attention_core.cuh"
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace bobra {
 
@@ -268,39 +295,69 @@ attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernels
+// bf16: warp-specialised wgmma kernels
 
 namespace attn {
 
-constexpr int kBwdKeys = 64;    // keys of a dk/dv block: 16 a warp
-constexpr int kBwdQTile = 32;   // packed rows of one q tile in the dk/dv loop
-constexpr int kBwdRows = 64;    // packed rows of a dq block: 16 a warp
-constexpr int kBwdKTile = 32;   // keys of one tile in the dq loop
+constexpr int kBwdWgRows = 64;     // rows of a consumer warpgroup: wgmma's M
+constexpr int kBwdConsumers = 2;   // consumer warpgroups a block
+constexpr int kBwdTile = 64;       // rows of a ring tile: wgmma's N
+constexpr int kBwdStages = 3;      // ring stages
+// keys of a dk/dv work item, packed rows of a dq work item
+constexpr int kBwdItemRows = kBwdWgRows * kBwdConsumers;
+// the consumer warpgroups, then the producer warpgroup (its first warp loads)
+constexpr int kBwdWsThreads = (kBwdConsumers + 1) * 128;
+constexpr int kBwdProducerRegs = 40;
+constexpr int kBwdConsumerRegs = 232;
+static_assert(128 * kBwdProducerRegs + kBwdConsumers * 128 * kBwdConsumerRegs <= 65536,
+              "the register file of one SM");
 
+// A [64][D] bf16 tile in shared memory: D / kCols boxes of 64 rows by kCols
+// columns, each row swizzled over its kRowBytes (128 at D = 128, 64 at D =
+// 32) as TMA writes it and wgmma reads it.
 template <int D>
-__host__ __device__ constexpr int dkdv_smem_bytes() {
-  // K and V of the block's keys, then two stages of (q, do, lse, D)
-  return 2 * tile_bytes<D>(kBwdKeys) + 2 * (2 * tile_bytes<D>(kBwdQTile) + 2 * kBwdQTile * 4);
-}
+struct BwdTile {
+  static constexpr int kCols = D < 64 ? D : 64;
+  static constexpr int kRowBytes = kCols * 2;
+  static constexpr int kBoxes = D / kCols;
+  static constexpr int kBox = kBwdTile * kRowBytes;
+  static constexpr int kBytes = kBoxes * kBox;
+  static constexpr int kSbo = 8 * kRowBytes;  // between 8-row groups
+  static constexpr int kStepsPerBox = kCols / 16;
+  // the tile as a K-major operand (its rows wgmma's M or N, the head dim
+  // K): k16 step kk, 32 bytes along a box row
+  __device__ static uint64_t kmajor(uint32_t tile, int kk) {
+    return hopper::wgmma_desc_sw<kRowBytes>(
+        tile + (kk / kStepsPerBox) * kBox + 32 * (kk % kStepsPerBox), 16, kSbo);
+  }
+  // the tile as an MN-major B (its rows K, the head dim N; the boxes kBox
+  // apart): k16 step kk, 16 rows on
+  __device__ static uint64_t mnmajor(uint32_t tile, int kk) {
+    return hopper::wgmma_desc_sw<kRowBytes>(tile + kk * 16 * kRowBytes, kBox, kSbo);
+  }
+};
 
+// dk/dv: K and V of the item's keys (a tile each consumer), then the ring:
+// q, do and the tile rows' stats (lse in log2 units, D), 1024-aligned
 template <int D>
-__host__ __device__ constexpr int dq_smem_bytes() {
-  // q and do of the block's rows, then two stages of (K, V)
-  return 2 * tile_bytes<D>(kBwdRows) + 2 * 2 * tile_bytes<D>(kBwdKTile);
-}
+struct DkdvSmem {
+  static constexpr int kKV = 2 * kBwdConsumers * BwdTile<D>::kBytes;
+  static constexpr int kStats = 1024;
+  static constexpr int kStage = 2 * BwdTile<D>::kBytes + kStats;
+  static constexpr int kBars = (2 * kBwdStages + 2) * 8;
+  static constexpr int kBytes = 1024 + kKV + kBwdStages * kStage + kBars;
+};
 
-// 4-byte cp.async (L1 allowed): valid == false writes zeros
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  const int bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
+// dq: q and do of the item's rows (a tile each consumer), then the ring of K and V
+template <int D>
+struct DqSmem {
+  static constexpr int kQO = 2 * kBwdConsumers * BwdTile<D>::kBytes;
+  static constexpr int kStage = 2 * BwdTile<D>::kBytes;
+  static constexpr int kBars = (2 * kBwdStages + 2) * 8;
+  static constexpr int kBytes = 1024 + kQO + kBwdStages * kStage + kBars;
+};
 
 struct BwdPtrs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
   const float* lse;
   const float* delta;
   bf16* dq;
@@ -308,287 +365,569 @@ struct BwdPtrs {
   bf16* dv;
 };
 
-// one element's probability from its raw score (log2 units after the
-// scale) and its row's log-sum-exp (natural units), masked as the forward
-__device__ __forceinline__ float bwd_prob(float raw, float scale_log2, float lse, int mask) {
-  if (mask == 2) return 0.f;
-  const float x = mask == 1 ? kMasked : raw * scale_log2;
-  return exp2f(x - lse * kLog2e);
+// The persistent order: the items come heaviest first (dk/dv: key tiles in
+// ascending order; dq: row tiles in descending order), and in round r block
+// blk takes item r grid + blk on even rounds, r grid + grid - 1 - blk on odd
+// ones; -1 past the last item. ops/attention.py:bwd_block_items mirrors it.
+__device__ __forceinline__ int bwd_item(int r, int items) {
+  const int blk = blockIdx.x, grid = gridDim.x;
+  const int i = r * grid + ((r & 1) ? grid - 1 - blk : blk);
+  return i < items ? i : -1;
 }
 
-// dk, dv of 64 keys of kv head h: grid (ceil(sk / 64), hkv, b)
-template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_bwd_dkdv_kernel(const BwdPtrs A, const BwdShape S) {
-  constexpr int kChunks = D / 8;
-  constexpr int kNT = kBwdQTile / 8;  // score n-tiles: the q tile's rows
-  constexpr int kNO = D / 8;          // accumulator n-tiles
-  constexpr int kQTile = tile_bytes<D>(kBwdQTile);
-  constexpr int kStage = 2 * kQTile + 2 * kBwdQTile * 4;
+// 2^x in one MUFU instruction, with no branch: a masked element passes
+// -inf and gets 0 (a select ahead of exp2f compiled to a branch an element)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* k_s = smem;
-  unsigned char* v_s = smem + tile_bytes<D>(kBwdKeys);
-  unsigned char* ring = smem + 2 * tile_bytes<D>(kBwdKeys);
+template <int R>
+__device__ __forceinline__ void zero_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
 
-  const int k0 = blockIdx.x * kBwdKeys, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rows = S.rows();
-  const float scale_log2 = S.scale * kLog2e;
-
-  for (int e = tid; e < kBwdKeys * kChunks; e += kBwdThreads) {
-    const int j = e / kChunks, c = e % kChunks, key = k0 + j;
-    const bool ok = key < S.sk;
-    const long long off = ok ? S.kv_off(b, h, key, D) + c * 8 : 0;
-    cp_async16(smem_u32(k_s) + tile_offset<D>(j, c), A.k + off, ok);
-    cp_async16(smem_u32(v_s) + tile_offset<D>(j, c), A.v + off, ok);
+// (a, b) as a bf16 pair in one part, or as hi + lo parts
+template <int PARTS>
+__device__ __forceinline__ void to_parts(float a, float b, uint32_t (&w)[PARTS]) {
+  if constexpr (PARTS == 1) {
+    w[0] = bf16x2_bits(__floats2bfloat162_rn(a, b));
+  } else {
+    split_bf16x2(a, b, w[0], w[1]);
   }
-  // the packed rows that see any of these keys start at (k0 - q_offset) * group
-  const int first = S.causal ? max(0, k0 - S.q_offset) * S.group : 0;
-  const int t0 = first / kBwdQTile;
-  const int n_tiles = (rows + kBwdQTile - 1) / kBwdQTile;
-  auto load_tile = [&](int t) {
-    if (t < n_tiles) {
-      unsigned char* st = ring + (t & 1) * kStage;
-      const int r0 = t * kBwdQTile;
-      for (int e = tid; e < kBwdQTile * kChunks; e += kBwdThreads) {
-        const int r = e / kChunks, c = e % kChunks, pr = r0 + r;
-        const bool ok = pr < rows;
-        const long long off = ok ? S.q_off(b, h, pr, D) + c * 8 : 0;
-        const uint32_t dst = tile_offset<D>(r, c);
-        cp_async16(smem_u32(st) + dst, A.q + off, ok);
-        cp_async16(smem_u32(st + kQTile) + dst, A.dout + off, ok);
-      }
-      if (tid < kBwdQTile) {
-        const int pr = r0 + tid;
-        const bool ok = pr < rows;
-        const long long off = ok ? S.stat_off(b, h, pr) : 0;
-        cp_async4(smem_u32(st + 2 * kQTile) + tid * 4, A.lse + off, ok);
-        cp_async4(smem_u32(st + 2 * kQTile + kBwdQTile * 4) + tid * 4, A.delta + off, ok);
-      }
+}
+
+// the 64 x N accumulator of a score product as wgmma A fragments: k16
+// step kk holds columns 16kk.. (acc[4j + 2hh + x] is row 16 w4 + g + 8 hh,
+// column 8j + 2 qd + x; fragment register i the pair at acc[8kk + 2i])
+template <int PARTS, int R, int KS>
+__device__ __forceinline__ void a_fragments(const float (&acc)[R], uint32_t (&a)[PARTS][KS][4]) {
+  static_assert(R == 8 * KS, "two columns a register, 16 a k16 step");
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t w[PARTS];
+      to_parts<PARTS>(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1], w);
+#pragma unroll
+      for (int part = 0; part < PARTS; ++part) a[part][kk][i] = w[part];
     }
-    cp_async_commit();
-  };
-  load_tile(t0);  // one group with K and V
-
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int kw = k0 + warp * 16;  // this warp's first key
-  // the first packed row that sees any of this warp's keys
-  const int w_first = S.causal ? max(0, kw - S.q_offset) * S.group : 0;
-  float dk[kNO][4], dv[kNO][4];
-#pragma unroll
-  for (int j = 0; j < kNO; ++j) {
-    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
-    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
   }
+}
 
-  for (int t = t0; t < n_tiles; ++t) {
-    cp_async_wait<0>();
-    // tile t is in shared memory and every warp is done with tile t - 1,
-    // whose stage the next load takes
-    __syncthreads();
-    load_tile(t + 1);
-    const unsigned char* st = ring + (t & 1) * kStage;
-    const float* lse_s = reinterpret_cast<const float*>(st + 2 * kQTile);
-    const float* del_s = lse_s + kBwdQTile;
-    const int r0 = t * kBwdQTile;
-    if (kw < S.sk && r0 + kBwdQTile > w_first) {
-      // P^T = exp(K Q^T * scale - lse): keys on the rows, packed q rows on the columns
-      float p[kNT][4];
-      scores<D, kNT>(p, smem_u32(k_s), warp * 16, smem_u32(st), 0, lane);
+// acc += A B over the 64 rows of an MN-major B tile, A in registers
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  hopper::wgmma_m64n128k16_rs_tb<1>(d, a, b, 1);
+}
+__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  hopper::wgmma_m64n32k16_rs_tb<1>(d, a, b, 1);
+}
+
+// d += A B over KS k16 steps of an MN-major B tile from row 16 k0
+template <int D, int PARTS, int KS>
+__device__ __forceinline__ void accumulate_rs(float (&d)[D / 2], const uint32_t (&a)[PARTS][KS][4],
+                                              uint32_t b_tile, int k0) {
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
+  for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * j + t2 + (e & 1), pr = r0 + c;
-          const int key = kw + g + 8 * (e >> 1);
-          const int m = pr < rows ? S.mask(pr, key) : 2;
-          p[j][e] = bwd_prob(p[j][e], scale_log2, lse_s[c], m);
+    for (int part = 0; part < PARTS; ++part) {
+      mma_rs(d, a[part][kk], BwdTile<D>::mnmajor(b_tile, k0 + kk));
+    }
+  }
+}
+
+// acc (+)= A B^T over a k16 step, A and B K-major; N = 64 or 32 rows of B
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  hopper::wgmma_m64n64k16_ss<0, 0>(d, a, b, scale_d);
+}
+__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  hopper::wgmma_m64n32k16_ss<0, 0>(d, a, b, scale_d);
+}
+
+// sacc = A_s B_s^T and pacc = A_p B_p^T over the head dim (A 64 rows, B
+// 64 or 32 rows of K-major tiles), then waited for; the first k16 step
+// overwrites the accumulators, so they need no zeros
+template <int D, int R>
+__device__ __forceinline__ void two_score_products(float (&sacc)[R], float (&pacc)[R],
+                                                   uint32_t a_s, uint32_t b_s, uint32_t a_p,
+                                                   uint32_t b_p) {
+  using L = BwdTile<D>;
+  hopper::wgmma_fence_operands(sacc);
+  hopper::wgmma_fence_operands(pacc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) mma_ss(sacc, L::kmajor(a_s, kk), L::kmajor(b_s, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) mma_ss(pacc, L::kmajor(a_p, kk), L::kmajor(b_p, kk), kk > 0);
+  hopper::wgmma_commit();
+  hopper::wgmma_fence_operands(sacc);
+  hopper::wgmma_fence_operands(pacc);
+  hopper::wgmma_wait<0>();
+  hopper::wgmma_fence_operands(sacc);
+  hopper::wgmma_fence_operands(pacc);
+}
+
+// dk, dv of the work items this block takes: an item is 128 keys of one
+// (batch, kv head), 64 a consumer warpgroup; the producer rings the q and
+// do tiles of the packed rows that see any of those keys
+template <int D, int PARTS>
+__global__ void __launch_bounds__(kBwdWsThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap gmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, const BwdPtrs A,
+                      const BwdShape S, const int bh) {
+  using L = BwdTile<D>;
+  using M = DkdvSmem<D>;
+  constexpr int kSt = kBwdStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* kv_s = hopper::align1024(smem_raw);  // K of each consumer, then V
+  unsigned char* ring = kv_s + M::kKV;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kSt * M::kStage);
+  uint64_t* empty = full + kSt;
+  uint64_t* kv_full = empty + kSt;
+  uint64_t* kv_empty = kv_full + 1;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rows = S.rows(), hkv = S.hkv();
+  const int tile_rows = kBwdTile / S.group * S.group;  // whole queries
+  const int n_tiles = (rows + tile_rows - 1) / tile_rows;
+  const int items = (S.sk + kBwdItemRows - 1) / kBwdItemRows * bh;
+
+  if (tid == 0) {
+    hopper::prefetch_tensormap(&qmap);
+    hopper::prefetch_tensormap(&gmap);
+    hopper::prefetch_tensormap(&kmap);
+    hopper::prefetch_tensormap(&vmap);
+#pragma unroll
+    for (int s = 0; s < kSt; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp's lanes (stats), one with the bytes
+      hopper::mbar_init(&empty[s], 4 * kBwdConsumers);
+    }
+    hopper::mbar_init(kv_full, 1);
+    hopper::mbar_init(kv_empty, 4 * kBwdConsumers);
+    hopper::fence_barrier_init();
+  }
+  if (tile_rows < kBwdTile) {
+    // a group that does not divide 64: rows past tile_rows are never loaded; zeros there
+    for (int i = tid; i < kSt * M::kStage / 16; i += kBwdWsThreads) {
+      reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
+    }
+    hopper::fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kBwdConsumers) {
+    hopper::setmaxnreg_dec<kBwdProducerRegs>();
+    if (warp == 4 * kBwdConsumers) {
+      const int qt = kBwdTile / S.group;  // queries of a tile
+      int it = 0;
+      for (int r = 0;; ++r) {
+        const int item = bwd_item(r, items);
+        if (item < 0) break;
+        const int k0 = item / bh * kBwdItemRows, b = item % bh / hkv, h = item % hkv;
+        if (lane == 0) {
+          // a consumer whose first key is past Sk loads (and computes) nothing
+          const int live = min(kBwdConsumers, (S.sk - k0 + kBwdWgRows - 1) / kBwdWgRows);
+          hopper::mbar_wait(kv_empty, (r & 1) ^ 1);
+          hopper::mbar_expect_tx(kv_full, 2 * live * L::kBytes);
+          for (int wg = 0; wg < live; ++wg) {
+#pragma unroll
+            for (int bx = 0; bx < L::kBoxes; ++bx) {
+              const int off = wg * L::kBytes + bx * L::kBox;
+              hopper::tma_load_4d(kv_s + off, &kmap, bx * L::kCols, h, k0 + wg * kBwdWgRows, b,
+                                  kv_full);
+              hopper::tma_load_4d(kv_s + kBwdConsumers * L::kBytes + off, &vmap, bx * L::kCols,
+                                  h, k0 + wg * kBwdWgRows, b, kv_full);
+            }
+          }
+        }
+        const int first = S.causal ? max(0, k0 - S.q_offset) * S.group : 0;
+        for (int t = first / tile_rows; t < n_tiles; ++t, ++it) {
+          const int s = it % kSt;
+          hopper::mbar_wait(&empty[s], ((it / kSt) & 1) ^ 1);
+          unsigned char* st = ring + s * M::kStage;
+          float* stats = reinterpret_cast<float*>(st + 2 * L::kBytes);
+          for (int c = lane; c < kBwdTile; c += 32) {
+            const int pr = t * tile_rows + c;
+            const bool ok = c < tile_rows && pr < rows;
+            const long long off = S.stat_off(b, h, ok ? pr : 0);
+            stats[c] = ok ? A.lse[off] * kLog2e : 0.f;
+            stats[kBwdTile + c] = ok ? A.delta[off] : 0.f;
+          }
+          if (lane == 0) {
+            hopper::mbar_expect_tx(&full[s], 2 * L::kBoxes * tile_rows * L::kRowBytes);
+#pragma unroll
+            for (int bx = 0; bx < L::kBoxes; ++bx) {
+              hopper::tma_load_4d(st + bx * L::kBox, &qmap, bx * L::kCols, h * S.group, t * qt, b,
+                                  &full[s]);
+              hopper::tma_load_4d(st + L::kBytes + bx * L::kBox, &gmap, bx * L::kCols,
+                                  h * S.group, t * qt, b, &full[s]);
+            }
+          } else {
+            hopper::mbar_arrive(&full[s]);
+          }
         }
       }
-      // dv += P^T do
-      accumulate_pv<D, kNT>(dv, p, smem_u32(st + kQTile), 0, lane);
-      // dS^T = P^T * (V dO^T - D)
-      float ds[kNT][4];
-      scores<D, kNT>(ds, smem_u32(v_s), warp * 16, smem_u32(st + kQTile), 0, lane);
+    }
+  } else {
+    hopper::setmaxnreg_inc<kBwdConsumerRegs>();
+    const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, qd = lane & 3;
+    const float scale_log2 = S.scale * kLog2e;
+    const uint32_t k_tile = hopper::smem_addr(kv_s + wg * L::kBytes);
+    const uint32_t v_tile = k_tile + kBwdConsumers * L::kBytes;
+    float dk[D / 2], dv[D / 2];
+    int it = 0;
+    for (int r = 0;; ++r) {
+      const int item = bwd_item(r, items);
+      if (item < 0) break;
+      const int k0 = item / bh * kBwdItemRows, b = item % bh / hkv, h = item % hkv;
+      const int kw = k0 + wg * kBwdWgRows;  // this warpgroup's first key
+      // this thread's keys (accumulator rows): live ones, and the packed
+      // rows below `lim` that the causal mask hides from them
+      bool key_ok[2];
+      int lim[2];
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - del_s[8 * j + t2 + (e & 1)]);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int key = kw + 16 * w4 + g + 8 * hh;
+        key_ok[hh] = key < S.sk;
+        lim[hh] = S.causal ? (key - S.q_offset) * S.group : INT_MIN;
       }
-      // dk += dS^T q (scaled below)
-      accumulate_pv<D, kNT>(dk, ds, smem_u32(st), 0, lane);
-    }
-  }
-  cp_async_wait<0>();
-
-  // dk, dv go through K's and V's shared memory, so that device memory
-  // sees whole 16-byte chunks of each key row
-  __syncthreads();
+      const int w_first = S.causal ? max(0, kw - S.q_offset) * S.group : 0;
+      zero_acc(dk);
+      zero_acc(dv);
+      hopper::mbar_wait(kv_full, r & 1);
+      const int first = S.causal ? max(0, k0 - S.q_offset) * S.group : 0;
+      for (int t = first / tile_rows; t < n_tiles; ++t, ++it) {
+        const int s = it % kSt;
+        hopper::mbar_wait(&full[s], (it / kSt) & 1);
+        const int r0 = t * tile_rows;
+        if (kw < S.sk && r0 + tile_rows > w_first) {
+          const unsigned char* st = ring + s * M::kStage;
+          const uint32_t q_tile = hopper::smem_addr(st), g_tile = q_tile + L::kBytes;
+          const float* stats = reinterpret_cast<const float*>(st + 2 * L::kBytes);
+          // the tile in two halves of 32 rows: P^T and dS^T of a half (in
+          // two bf16 parts) fit the registers beside dK and dV
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = warp * 16 + g + 8 * hh;
+          for (int half = 0; half < 2; ++half) {
+            const int h0 = 32 * half;  // the half's first tile row
+            // a half with no row, or none that sees this warpgroup's keys
+            if (h0 >= tile_rows || r0 + h0 >= rows || r0 + h0 + 32 <= w_first) continue;
+            // S^T = K Q^T, dP^T = V dO^T: keys on the rows, the half's packed rows on the columns
+            float sacc[16], pacc[16];
+            two_score_products<D>(sacc, pacc, k_tile, q_tile + h0 * L::kRowBytes, v_tile,
+                                  g_tile + h0 * L::kRowBytes);
+            // P^T = exp(S^T scale - lse) masked as the forward; dS^T = P^T (dP^T - D)
 #pragma unroll
-    for (int j = 0; j < kNO; ++j) {
-      const uint32_t off = tile_offset<D>(r, j) + (lane & 3) * 4;
-      *reinterpret_cast<__nv_bfloat162*>(k_s + off) =
-          __floats2bfloat162_rn(dk[j][2 * hh] * S.scale, dk[j][2 * hh + 1] * S.scale);
-      *reinterpret_cast<__nv_bfloat162*>(v_s + off) =
-          __floats2bfloat162_rn(dv[j][2 * hh], dv[j][2 * hh + 1]);
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < kBwdKeys * kChunks; e += kBwdThreads) {
-    const int j = e / kChunks, c = e % kChunks, key = k0 + j;
-    if (key < S.sk) {
-      const long long off = S.kv_off(b, h, key, D) + c * 8;
-      *reinterpret_cast<uint4*>(A.dk + off) =
-          *reinterpret_cast<const uint4*>(k_s + tile_offset<D>(j, c));
-      *reinterpret_cast<uint4*>(A.dv + off) =
-          *reinterpret_cast<const uint4*>(v_s + tile_offset<D>(j, c));
-    }
-  }
-}
-
-// dq of 64 packed rows of kv head h: grid (ceil(rows / 64), hkv, b)
-template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 2)
-flash_bwd_dq_kernel(const BwdPtrs A, const BwdShape S) {
-  constexpr int kChunks = D / 8;
-  constexpr int kNT = kBwdKTile / 8;
-  constexpr int kNO = D / 8;
-  constexpr int kKTile = tile_bytes<D>(kBwdKTile);
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* q_s = smem;
-  unsigned char* g_s = smem + tile_bytes<D>(kBwdRows);
-  unsigned char* ring = smem + 2 * tile_bytes<D>(kBwdRows);
-
-  const int row0 = blockIdx.x * kBwdRows, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rows = S.rows();
-  const float scale_log2 = S.scale * kLog2e;
-  const int last_row = min(rows, row0 + kBwdRows) - 1;
-  const int kv_len = S.causal ? min(S.sk, S.q_offset + last_row / S.group + 1) : S.sk;
-  const int n_tiles = (kv_len + kBwdKTile - 1) / kBwdKTile;
-
-  for (int e = tid; e < kBwdRows * kChunks; e += kBwdThreads) {
-    const int r = e / kChunks, c = e % kChunks, pr = row0 + r;
-    const bool ok = pr < rows;
-    const long long off = ok ? S.q_off(b, h, pr, D) + c * 8 : 0;
-    cp_async16(smem_u32(q_s) + tile_offset<D>(r, c), A.q + off, ok);
-    cp_async16(smem_u32(g_s) + tile_offset<D>(r, c), A.dout + off, ok);
-  }
-  auto load_tile = [&](int t) {
-    if (t < n_tiles) {
-      unsigned char* st = ring + (t & 1) * 2 * kKTile;
-      const int key0 = t * kBwdKTile;
-      for (int e = tid; e < kBwdKTile * kChunks; e += kBwdThreads) {
-        const int j = e / kChunks, c = e % kChunks, key = key0 + j;
-        const bool ok = key < kv_len;
-        const long long off = ok ? S.kv_off(b, h, key, D) + c * 8 : 0;
-        const uint32_t dst = tile_offset<D>(j, c);
-        cp_async16(smem_u32(st) + dst, A.k + off, ok);
-        cp_async16(smem_u32(st + kKTile) + dst, A.v + off, ok);
+            for (int j = 0; j < 4; ++j) {
+              const int c = h0 + 8 * j + 2 * qd;
+              const float2 l2 = *reinterpret_cast<const float2*>(stats + c);
+              const float2 dd = *reinterpret_cast<const float2*>(stats + kBwdTile + c);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int hh = e >> 1, x = e & 1, cc = c + x, pr = r0 + cc;
+                const bool live = key_ok[hh] && cc < tile_rows && pr < rows;
+                const float raw = pr < lim[hh] ? kMasked : sacc[4 * j + e] * scale_log2;
+                const float p = exp2_approx(live ? raw - (x ? l2.y : l2.x) : -INFINITY);
+                sacc[4 * j + e] = p;
+                pacc[4 * j + e] = p * (pacc[4 * j + e] - (x ? dd.y : dd.x));
+              }
+            }
+            uint32_t pa[PARTS][2][4], da[PARTS][2][4];
+            a_fragments<PARTS>(sacc, pa);
+            a_fragments<PARTS>(pacc, da);
+            hopper::wgmma_fence_operands(dk);
+            hopper::wgmma_fence_operands(dv);
+            hopper::wgmma_fence();  // the A registers before the products read them
+            accumulate_rs<D, PARTS>(dv, pa, g_tile, 2 * half);  // dv += P^T do
+            accumulate_rs<D, PARTS>(dk, da, q_tile, 2 * half);  // dk += dS^T q (scaled below)
+            hopper::wgmma_commit();
+            hopper::wgmma_fence_operands(dk);
+            hopper::wgmma_fence_operands(dv);
+            hopper::wgmma_wait<0>();
+            hopper::wgmma_fence_operands(dk);
+            hopper::wgmma_fence_operands(dv);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
       }
-    }
-    cp_async_commit();
-  };
-  load_tile(0);  // one group with q and do
-
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int wrow0 = row0 + warp * 16;
-  const bool has_rows = wrow0 < rows;
-  const int wlast = min(rows - 1, wrow0 + 15);
-  const int w_kv_end = S.causal ? min(kv_len, S.q_offset + wlast / S.group + 1) : kv_len;
-  // this thread's two rows: their log-sum-exp and D
-  float lse_r[2], del_r[2];
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(kv_empty);  // K and V read for this item
+      // acc[4j + 2hh + x]: key kw + 16 w4 + g + 8 hh, column 8j + 2 qd + x
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int pr = wrow0 + g + 8 * hh;
-    const bool ok = pr < rows;
-    lse_r[hh] = ok ? A.lse[S.stat_off(b, h, pr)] : 0.f;
-    del_r[hh] = ok ? A.delta[S.stat_off(b, h, pr)] : 0.f;
-  }
-  float dq[kNO][4];
+      for (int hh = 0; hh < 2; ++hh) {
+        const int key = kw + 16 * w4 + g + 8 * hh;
+        if (key >= S.sk) continue;
+        bf16* dkr = A.dk + S.kv_off(b, h, key, D);
+        bf16* dvr = A.dv + S.kv_off(b, h, key, D);
 #pragma unroll
-  for (int j = 0; j < kNO; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<0>();
-    __syncthreads();
-    load_tile(t + 1);
-    const unsigned char* st = ring + (t & 1) * 2 * kKTile;
-    const int key0 = t * kBwdKTile;
-    if (has_rows && key0 < w_kv_end) {
-      float p[kNT][4];
-      scores<D, kNT>(p, smem_u32(q_s), warp * 16, smem_u32(st), 0, lane);
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int pr = wrow0 + g + 8 * (e >> 1), key = key0 + 8 * j + t2 + (e & 1);
-          const int m = pr < rows ? S.mask(pr, key) : 2;
-          p[j][e] = bwd_prob(p[j][e], scale_log2, lse_r[e >> 1], m);
+        for (int j = 0; j < D / 8; ++j) {
+          const int c = 8 * j + 2 * qd, e = 4 * j + 2 * hh;
+          *reinterpret_cast<__nv_bfloat162*>(dkr + c) =
+              __floats2bfloat162_rn(dk[e] * S.scale, dk[e + 1] * S.scale);
+          *reinterpret_cast<__nv_bfloat162*>(dvr + c) = __floats2bfloat162_rn(dv[e], dv[e + 1]);
         }
       }
-      float ds[kNT][4];
-      scores<D, kNT>(ds, smem_u32(g_s), warp * 16, smem_u32(st + kKTile), 0, lane);
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - del_r[e >> 1]);
-      }
-      // dq += dS K (scaled below)
-      accumulate_pv<D, kNT>(dq, ds, smem_u32(st), 0, lane);
-    }
-  }
-  cp_async_wait<0>();
-
-  __syncthreads();  // every warp is done reading q
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = warp * 16 + g + 8 * hh;
-#pragma unroll
-    for (int j = 0; j < kNO; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(q_s + tile_offset<D>(r, j) + (lane & 3) * 4) =
-          __floats2bfloat162_rn(dq[j][2 * hh] * S.scale, dq[j][2 * hh + 1] * S.scale);
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < kBwdRows * kChunks; e += kBwdThreads) {
-    const int r = e / kChunks, c = e % kChunks, pr = row0 + r;
-    if (pr < rows) {
-      *reinterpret_cast<uint4*>(A.dq + S.q_off(b, h, pr, D) + c * 8) =
-          *reinterpret_cast<const uint4*>(q_s + tile_offset<D>(r, c));
     }
   }
 }
 
-template <int D>
-int launch_bwd_bf16(const BwdPtrs& A, const BwdShape& S, int b, int hkv, cudaStream_t st) {
+// dq of the work items this block takes: an item is 128 packed rows of one
+// (batch, kv head), 64 a consumer warpgroup; the producer rings the K and V
+// tiles up to the causal diagonal of the item's last row
+template <int D, int PARTS>
+__global__ void __launch_bounds__(kBwdWsThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap gmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, const BwdPtrs A, const BwdShape S,
+                    const int bh) {
+  using L = BwdTile<D>;
+  using M = DqSmem<D>;
+  constexpr int kSt = kBwdStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qo_s = hopper::align1024(smem_raw);  // q of each consumer, then do
+  unsigned char* ring = qo_s + M::kQO;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kSt * M::kStage);
+  uint64_t* empty = full + kSt;
+  uint64_t* qo_full = empty + kSt;
+  uint64_t* qo_empty = qo_full + 1;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rows = S.rows(), hkv = S.hkv();
+  const int tile_rows = kBwdTile / S.group * S.group;
+  const int item_rows = kBwdConsumers * tile_rows;
+  const int n_rt = (rows + item_rows - 1) / item_rows;
+  const int items = n_rt * bh;
+  // the keys an item's rows see: up to the diagonal of its last row
+  auto kv_len = [&](int row0) {
+    const int last = min(rows, row0 + item_rows) - 1;
+    return S.causal ? min(S.sk, S.q_offset + last / S.group + 1) : S.sk;
+  };
+
+  if (tid == 0) {
+    hopper::prefetch_tensormap(&qmap);
+    hopper::prefetch_tensormap(&gmap);
+    hopper::prefetch_tensormap(&kmap);
+    hopper::prefetch_tensormap(&vmap);
+#pragma unroll
+    for (int s = 0; s < kSt; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * kBwdConsumers);
+    }
+    hopper::mbar_init(qo_full, 1);
+    hopper::mbar_init(qo_empty, 4 * kBwdConsumers);
+    hopper::fence_barrier_init();
+  }
+  if (tile_rows < kBwdTile) {
+    for (int i = tid; i < M::kQO / 16; i += kBwdWsThreads) {
+      reinterpret_cast<uint4*>(qo_s)[i] = make_uint4(0, 0, 0, 0);
+    }
+    hopper::fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kBwdConsumers) {
+    hopper::setmaxnreg_dec<kBwdProducerRegs>();
+    if (warp == 4 * kBwdConsumers && lane == 0) {
+      const int qt = kBwdTile / S.group;
+      int it = 0;
+      for (int r = 0;; ++r) {
+        const int item = bwd_item(r, items);
+        if (item < 0) break;
+        const int row0 = (n_rt - 1 - item / bh) * item_rows, b = item % bh / hkv, h = item % hkv;
+        // a consumer whose first row is past the last loads (and computes) nothing
+        const int live = min(kBwdConsumers, (rows - row0 + tile_rows - 1) / tile_rows);
+        hopper::mbar_wait(qo_empty, (r & 1) ^ 1);
+        hopper::mbar_expect_tx(qo_full, 2 * live * L::kBoxes * tile_rows * L::kRowBytes);
+        for (int wg = 0; wg < live; ++wg) {
+#pragma unroll
+          for (int bx = 0; bx < L::kBoxes; ++bx) {
+            const int off = wg * L::kBytes + bx * L::kBox;
+            const int q0 = row0 / S.group + wg * qt;
+            hopper::tma_load_4d(qo_s + off, &qmap, bx * L::kCols, h * S.group, q0, b, qo_full);
+            hopper::tma_load_4d(qo_s + kBwdConsumers * L::kBytes + off, &gmap, bx * L::kCols,
+                                h * S.group, q0, b, qo_full);
+          }
+        }
+        const int n_kt = (kv_len(row0) + kBwdTile - 1) / kBwdTile;
+        for (int j = 0; j < n_kt; ++j, ++it) {
+          const int s = it % kSt;
+          hopper::mbar_wait(&empty[s], ((it / kSt) & 1) ^ 1);
+          unsigned char* st = ring + s * M::kStage;
+          hopper::mbar_expect_tx(&full[s], M::kStage);
+#pragma unroll
+          for (int bx = 0; bx < L::kBoxes; ++bx) {
+            hopper::tma_load_4d(st + bx * L::kBox, &kmap, bx * L::kCols, h, j * kBwdTile, b,
+                                &full[s]);
+            hopper::tma_load_4d(st + L::kBytes + bx * L::kBox, &vmap, bx * L::kCols, h,
+                                j * kBwdTile, b, &full[s]);
+          }
+        }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<kBwdConsumerRegs>();
+    const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, qd = lane & 3;
+    const float scale_log2 = S.scale * kLog2e;
+    const uint32_t q_tile = hopper::smem_addr(qo_s + wg * L::kBytes);
+    const uint32_t g_tile = q_tile + kBwdConsumers * L::kBytes;
+    float dq[D / 2];
+    int it = 0;
+    for (int r = 0;; ++r) {
+      const int item = bwd_item(r, items);
+      if (item < 0) break;
+      const int row0 = (n_rt - 1 - item / bh) * item_rows, b = item % bh / hkv, h = item % hkv;
+      const int wrow0 = row0 + wg * tile_rows;  // this warpgroup's first packed row
+      const int len = kv_len(row0);
+      // this thread's rows (accumulator rows): live ones, their log-sum-exp
+      // (log2 units), D, and the last key the causal mask lets them see
+      bool row_ok[2];
+      float lse_r[2], del_r[2];
+      int lim[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int lr = 16 * w4 + g + 8 * hh, pr = wrow0 + lr;
+        row_ok[hh] = lr < tile_rows && pr < rows;
+        const long long off = row_ok[hh] ? S.stat_off(b, h, pr) : 0;
+        lse_r[hh] = row_ok[hh] ? A.lse[off] * kLog2e : 0.f;
+        del_r[hh] = row_ok[hh] ? A.delta[off] : 0.f;
+        lim[hh] = S.causal ? S.q_offset + pr / S.group : INT_MAX;
+      }
+      const int wlast = min(rows - 1, wrow0 + tile_rows - 1);
+      const int w_end = wrow0 >= rows ? 0
+                        : S.causal ? min(len, S.q_offset + wlast / S.group + 1) : len;
+      zero_acc(dq);
+      hopper::mbar_wait(qo_full, r & 1);
+      const int n_kt = (len + kBwdTile - 1) / kBwdTile;
+      for (int j = 0; j < n_kt; ++j, ++it) {
+        const int s = it % kSt;
+        hopper::mbar_wait(&full[s], (it / kSt) & 1);
+        const int key0 = j * kBwdTile;
+        if (key0 < w_end) {
+          const uint32_t k_tile = hopper::smem_addr(ring + s * M::kStage);
+          const uint32_t v_tile = k_tile + L::kBytes;
+          // S = Q K^T, dP = dO V^T
+          float sacc[32], pacc[32];
+          two_score_products<D>(sacc, pacc, q_tile, k_tile, g_tile, v_tile);
+          // dS = P (dP - D), P = exp(S scale - lse) masked as the forward
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int hh = e >> 1, key = key0 + 8 * jj + 2 * qd + (e & 1);
+              const bool live = row_ok[hh] && key < S.sk;
+              const float raw = key > lim[hh] ? kMasked : sacc[4 * jj + e] * scale_log2;
+              const float p = exp2_approx(live ? raw - lse_r[hh] : -INFINITY);
+              pacc[4 * jj + e] = p * (pacc[4 * jj + e] - del_r[hh]);
+            }
+          }
+          uint32_t da[PARTS][4][4];
+          a_fragments<PARTS>(pacc, da);
+          hopper::wgmma_fence_operands(dq);
+          hopper::wgmma_fence();
+          accumulate_rs<D, PARTS>(dq, da, k_tile, 0);  // dq += dS k (scaled below)
+          hopper::wgmma_commit();
+          hopper::wgmma_fence_operands(dq);
+          hopper::wgmma_wait<0>();
+          hopper::wgmma_fence_operands(dq);
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(qo_empty);  // q and do read for this item
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (!row_ok[hh]) continue;
+        bf16* dqr = A.dq + S.q_off(b, h, wrow0 + 16 * w4 + g + 8 * hh, D);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int c = 8 * j + 2 * qd, e = 4 * j + 2 * hh;
+          *reinterpret_cast<__nv_bfloat162*>(dqr + c) =
+              __floats2bfloat162_rn(dq[e] * S.scale, dq[e + 1] * S.scale);
+        }
+      }
+    }
+  }
+}
+
+// the form of P and dS in the bf16 products (1: one bf16 part; 2: hi + lo)
+static int bwd_parts = 2;
+// which of the bf16 launches run (bit 0: D, 1: dk/dv, 2: dq): all, unless
+// a measurement times one alone
+static int bwd_launches = 7;
+
+template <int D, int PARTS>
+int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
+                    const BwdPtrs& A, const BwdShape& S, int b, cudaStream_t st) {
+  using L = BwdTile<D>;
   static bool ready[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem_bytes<D>());
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, PARTS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, DkdvSmem<D>::kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem_bytes<D>());
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, PARTS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, DqSmem<D>::kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[dev] = true;
   }
-  const int rows = S.sq * S.group;
-  const dim3 kv_grid((S.sk + kBwdKeys - 1) / kBwdKeys, hkv, b);
-  flash_bwd_dkdv_kernel<D><<<kv_grid, kBwdThreads, dkdv_smem_bytes<D>(), st>>>(A, S);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 q_grid((rows + kBwdRows - 1) / kBwdRows, hkv, b);
-  flash_bwd_dq_kernel<D><<<q_grid, kBwdThreads, dq_smem_bytes<D>(), st>>>(A, S);
+  const int sms = hopper::sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  // q and do as [B, Sq, Hq, D], k and v as [B, Sk, Hkv, D], innermost
+  // first; a tile is kCols of the head dim, the group's heads, and 64 /
+  // group queries (q) or 64 keys of one head (k, v)
+  const int hkv = S.hq / S.group, qt = kBwdTile / S.group;
+  const CUtensorMapSwizzle sw =
+      L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const uint64_t row = static_cast<uint64_t>(D) * 2;
+  const uint64_t q_dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S.hq),
+                              static_cast<uint64_t>(S.sq), static_cast<uint64_t>(b)};
+  const uint64_t q_strides[3] = {row, row * S.hq, row * S.hq * S.sq};
+  const uint32_t q_box[4] = {static_cast<uint32_t>(L::kCols), static_cast<uint32_t>(S.group),
+                             static_cast<uint32_t>(qt), 1};
+  const uint64_t kv_dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(hkv),
+                               static_cast<uint64_t>(S.sk), static_cast<uint64_t>(b)};
+  const uint64_t kv_strides[3] = {row, row * hkv, row * hkv * S.sk};
+  const uint32_t kv_box[4] = {static_cast<uint32_t>(L::kCols), 1, kBwdTile, 1};
+  CUtensorMap qmap, gmap, kmap, vmap;
+  const CUtensorMapDataType t = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if ((err = hopper::encode_4d(&qmap, t, q, q_dims, q_strides, q_box, sw)) != cudaSuccess ||
+      (err = hopper::encode_4d(&gmap, t, dout, q_dims, q_strides, q_box, sw)) != cudaSuccess ||
+      (err = hopper::encode_4d(&kmap, t, k, kv_dims, kv_strides, kv_box, sw)) != cudaSuccess ||
+      (err = hopper::encode_4d(&vmap, t, v, kv_dims, kv_strides, kv_box, sw)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int bh = b * hkv;
+  const int kv_items = (S.sk + kBwdItemRows - 1) / kBwdItemRows * bh;
+  const int item_rows = kBwdConsumers * qt * S.group;
+  const int q_items = (S.sq * S.group + item_rows - 1) / item_rows * bh;
+  const int kv_grid = min(kv_items, sms), q_grid = min(q_items, sms);
+  if (bwd_launches & 2) {
+    flash_bwd_dkdv_kernel<D, PARTS><<<kv_grid, kBwdWsThreads, DkdvSmem<D>::kBytes, st>>>(
+        qmap, gmap, kmap, vmap, A, S, bh);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (bwd_launches & 4) {
+    flash_bwd_dq_kernel<D, PARTS><<<q_grid, kBwdWsThreads, DqSmem<D>::kBytes, st>>>(
+        qmap, gmap, kmap, vmap, A, S, bh);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
+                    const BwdPtrs& A, const BwdShape& S, int b, cudaStream_t st) {
+  return bwd_parts == 1 ? launch_bwd_bf16<D, 1>(q, k, v, dout, A, S, b, st)
+                        : launch_bwd_bf16<D, 2>(q, k, v, dout, A, S, b, st);
 }
 
 }  // namespace attn
@@ -611,7 +950,8 @@ int launch_bwd_f32(const float* q, const float* k, const float* v, const float* 
 // The gradient of bobra_flash_attention_lse's output. q, o, dout, dq
 // [b, sq, hq, d]; k, v, dk, dv [b, sk, hq / group, d], all contiguous and of
 // one type; lse [b, hq, sq] fp32 from the forward; delta: fp32 scratch
-// [b, hq, sq]. bf16 pointers 16-byte aligned. Three launches on `stream`
+// [b, hq, sq]. bf16 pointers 16-byte aligned and a group of at most 64
+// heads. Three launches on `stream`
 // (D, then dk/dv, then dq); no output element is written twice and none is
 // accumulated with atomics. Returns the cudaError_t of the launches.
 extern "C" int bobra_flash_attention_backward(const void* q, const void* k, const void* v,
@@ -661,22 +1001,37 @@ extern "C" int bobra_flash_attention_backward(const void* q, const void* k, cons
       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
       reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
-  if (ptrs % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  attn_bwd_delta_kernel<__nv_bfloat16><<<delta_blocks, kBwdThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), del, sq, hq,
-      d, total);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // a ring tile holds whole queries: at most 64 heads a group
+  if (ptrs % 16 != 0 || group > attn::kBwdTile) return static_cast<int>(cudaErrorInvalidValue);
+  if (attn::bwd_launches & 1) {
+    attn_bwd_delta_kernel<__nv_bfloat16><<<delta_blocks, kBwdThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), del, sq,
+        hq, d, total);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   attn::BwdPtrs A;
-  A.q = static_cast<const attn::bf16*>(q);
-  A.k = static_cast<const attn::bf16*>(k);
-  A.v = static_cast<const attn::bf16*>(v);
-  A.dout = static_cast<const attn::bf16*>(dout);
   A.lse = static_cast<const float*>(lse);
   A.delta = del;
   A.dq = static_cast<attn::bf16*>(dq);
   A.dk = static_cast<attn::bf16*>(dk);
   A.dv = static_cast<attn::bf16*>(dv);
-  return d == 32 ? attn::launch_bwd_bf16<32>(A, S, b, hkv, st)
-                 : attn::launch_bwd_bf16<128>(A, S, b, hkv, st);
+  return d == 32 ? attn::launch_bwd_bf16<32>(q, k, v, dout, A, S, b, st)
+                 : attn::launch_bwd_bf16<128>(q, k, v, dout, A, S, b, st);
+}
+
+// Two measurement switches for chip_smoke.py; each returns the setting in
+// force. The form of P and dS in the bf16 products: 1 rounds each to one
+// bf16 part, 2 feeds them as hi + lo parts (set when `parts` is 1 or 2).
+extern "C" int bobra_flash_attention_backward_parts(int parts) {
+  if (parts == 1 || parts == 2) bobra::attn::bwd_parts = parts;
+  return bobra::attn::bwd_parts;
+}
+
+// Which of the bf16 launches run: bit 0 D, bit 1 dk/dv, bit 2 dq (set
+// when `mask` is 1-7), so that each can be timed alone. The outputs are
+// the gradients only with all three.
+extern "C" int bobra_flash_attention_backward_launches(int mask) {
+  if (mask >= 1 && mask <= 7) bobra::attn::bwd_launches = mask;
+  return bobra::attn::bwd_launches;
 }

@@ -2,9 +2,12 @@
 // completion on one), TMA tensor loads, programmatic dependent launch,
 // register moves between warpgroups, wgmma (shared-memory descriptors,
 // fences, the m64n128k16 bf16 product with A in registers, the m64n128
-// and n16 products with both operands in shared memory) and, on the host,
-// the tensor-map encoder, a launch with programmatic dependent launch and
-// the SM count.
+// and n16 products with both operands in shared memory; for the attention
+// backward the m64n64 and n32 products from shared memory, the n128 and n32
+// products with A in registers and B of either major, and descriptors of
+// 64-byte-swizzled operands) and, on the host, the tensor-map encoders (2-D,
+// and 4-D for the backward's head-strided tiles), a launch with
+// programmatic dependent launch and the SM count.
 // Plain CUDA with no PyTorch header; the encoder reaches the driver's
 // cuTensorMapEncodeTiled through the runtime's entry-point query, so the
 // library links no libcuda.
@@ -100,6 +103,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// the box of a 4-D tensor map at (c0, c1, c2, c3), innermost first, into
+// shared memory at dst; the box lands densely, innermost dimension fastest
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // bring a tensor map's descriptor into the cache ahead of its first load
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
@@ -149,6 +164,18 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr, uint32_t lbo, uin
   d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16;
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32;
   d |= static_cast<uint64_t>(1) << 62;  // layout: 128-byte swizzle
+  return d;
+}
+
+// the same for an operand swizzled over `SW` bytes a row: 128 (layout 1)
+// or 64 (layout 2: rows of 64 bytes, the pattern repeating every 512)
+template <int SW>
+__device__ __forceinline__ uint64_t wgmma_desc_sw(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  static_assert(SW == 128 || SW == 64, "128- or 64-byte swizzle");
+  uint64_t d = static_cast<uint64_t>((saddr & 0x3FFFFu) >> 4);
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32;
+  d |= static_cast<uint64_t>(SW == 128 ? 1 : 2) << 62;
   return d;
 }
 
@@ -259,6 +286,95 @@ __device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], both from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A from registers as in
+// wgmma_m64n128k16_rs, B from shared memory K-major (TB 0) or MN-major (1)
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], as the n128 product above
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float (&d)[16], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
 // ---------------------------------------------------------------------------
 // host: launches
 
@@ -331,6 +447,35 @@ inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type, const v
   const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
                             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, promotion,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a 4-D tiled tensor map: dims innermost first, strides (bytes) of dims 1-3
+inline cudaError_t encode_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                             const uint64_t (&dims)[4], const uint64_t (&strides)[3],
+                             const uint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+  static EncodeTiledFn encode = nullptr;  // cuTensorMapEncodeTiled, looked up once
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t s[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t b[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base), d, s, b, elem_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

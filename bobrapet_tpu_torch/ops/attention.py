@@ -74,6 +74,68 @@ _BWD_ARGTYPES = (
 )
 
 
+#: the bf16 backward's tiles (``csrc/flash_attention_bwd.cu``): rows of one
+#: consumer warpgroup (wgmma's M: keys in the dk/dv kernel, packed rows in
+#: the dq kernel), consumer warpgroups a block, and rows of one tile of the
+#: ring (wgmma's N: packed q rows in dk/dv, keys in dq)
+BWD_WG_ROWS, BWD_CONSUMERS, BWD_TILE = 64, 2, 64
+#: rows of one work item: two consumer warpgroups' worth
+BWD_ITEM_ROWS = BWD_WG_ROWS * BWD_CONSUMERS
+
+
+def bwd_tile_rows(group: int) -> int:
+    """Packed rows a 64-row tile holds in the bf16 backward: whole queries
+    of ``group`` heads each (64 when the group divides 64)."""
+    return BWD_TILE // group * group
+
+
+def bwd_dkdv_items(b: int, sq: int, sk: int, hkv: int, group: int, causal: bool,
+                   q_offset: int) -> list[tuple[tuple[int, int, int], int]]:
+    """The dk/dv kernel's work items in the order its blocks take them:
+    ``((batch, kv head, key tile of 128), q tiles it reads)``. Item ``i``
+    is key tile ``i // (b hkv)``: under the causal mask an earlier key
+    tile sees more rows, so the heaviest come first."""
+    rows, tile = sq * group, bwd_tile_rows(group)
+    n_tiles = -(-rows // tile)
+    out = []
+    for kt in range(-(-sk // BWD_ITEM_ROWS)):
+        first = max(0, kt * BWD_ITEM_ROWS - q_offset) * group if causal else 0
+        work = max(0, n_tiles - first // tile)
+        out += [((i // hkv, i % hkv, kt), work) for i in range(b * hkv)]
+    return out
+
+
+def bwd_dq_items(b: int, sq: int, sk: int, hkv: int, group: int, causal: bool,
+                 q_offset: int) -> list[tuple[tuple[int, int, int], int]]:
+    """The dq kernel's work items in the order its blocks take them:
+    ``((batch, kv head, row tile of two warpgroups), k/v tiles it reads)``.
+    Item ``i`` is row tile ``n - 1 - i // (b hkv)``: under the causal mask
+    a later row sees more keys, so the heaviest come first."""
+    rows, tile = sq * group, bwd_tile_rows(group)
+    n_rt = -(-rows // (BWD_CONSUMERS * tile))
+    out = []
+    for j in range(n_rt):
+        rt = n_rt - 1 - j
+        last = min(rows, (rt + 1) * BWD_CONSUMERS * tile) - 1
+        kv_len = min(sk, q_offset + last // group + 1) if causal else sk
+        out += [((i // hkv, i % hkv, rt), -(-kv_len // BWD_TILE)) for i in range(b * hkv)]
+    return out
+
+
+def bwd_block_items(n_items: int, grid: int) -> list[list[int]]:
+    """The items each persistent block of the backward takes: round ``r``
+    gives block ``s`` item ``r grid + s`` on even rounds and ``r grid +
+    grid - 1 - s`` on odd ones, so a block that took a heavy item in one
+    round takes a light one in the next (the items come heaviest first)."""
+    out = [[] for _ in range(grid)]
+    for r in range(-(-n_items // grid)):
+        for s in range(grid):
+            i = r * grid + (s if r % 2 == 0 else grid - 1 - s)
+            if i < n_items:
+                out[s].append(i)
+    return out
+
+
 def kv_splits(size: int) -> int:
     """Blocks of one thread-block cluster that share a decode's keys: the
     next power of two of ``size`` / 64, between 1 and 8. ``size`` is a
@@ -448,6 +510,26 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 
 #: launches of the backward since the count was last set to 0
 flash_attention_backward_cuda.launches = 0
+
+
+def flash_backward_parts(parts: int = 0) -> int:
+    """The form of P and dS in the bf16 backward's products on the card: 1
+    (each rounded to one bf16 part) or 2 (hi + lo parts). Sets it when
+    ``parts`` is 1 or 2; returns the form in force. A switch for measuring
+    the two forms (``bobra_flash_attention_backward_parts``); launches
+    nothing and counts nothing."""
+    fn = kernel_function("bobra_flash_attention_backward_parts", [ctypes.c_int])
+    return int(fn(int(parts)))
+
+
+def flash_backward_launches(mask: int = 0) -> int:
+    """Which of the bf16 backward's three launches run on the card: bit 0
+    D, bit 1 dk/dv, bit 2 dq (7 unless a measurement times one alone; the
+    outputs are the gradients only with 7). Sets it when ``mask`` is 1-7;
+    returns the mask in force (``bobra_flash_attention_backward_launches``).
+    Launches nothing and counts nothing."""
+    fn = kernel_function("bobra_flash_attention_backward_launches", [ctypes.c_int])
+    return int(fn(int(mask)))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -173,7 +173,14 @@ Phases, each fatal on failure (exit 1, and no result line):
    log-sum-exp and its backward at the step's shapes (q [8, 512, 32, 128],
    k/v [8, 512, 8, 128], causal, bf16), ragged S of 100 and 77 at group
    sizes 4 and 1 in bf16 and fp32, the RMSNorm backward in plain and add
-   mode at [4096, 4096] in bf16 and fp32 (each twice, the same bits); (b)
+   mode at [4096, 4096] in bf16 and fp32 (each twice, the same bits); the
+   bf16 attention backward also at TRAIN_BWD_CASES (group 8, a q_offset,
+   keys not a multiple of 64, no mask, head dim 32), with each bf16 case's
+   D, dk/dv and dq launches timed apart (each run alone), P and dS in one
+   bf16 part against two (each form's error, whether it holds TRAIN_TOL,
+   its times; the kernels' two parts restored), and the ptxas registers
+   and spills and the SASS's HGMMA / UTMALDG / SYNCS counts of every
+   instance of its bf16 kernels; (b)
    the port's make_train_step at Llama-3-8B width, 16 of its 32 layers,
    bf16, on a one-rank mesh: 10 steps of adamw(3e-4, weight_decay=0.1) on
    make_token_batch's 8 x 513 tokens, every loss finite, the first near
@@ -431,6 +438,19 @@ TRAIN_ATTN_CASES = (("train step", TRAIN_BATCH, TRAIN_SEQ, 32, 8, "bfloat16"),
                     ("ragged group 4 fp32", 2, 100, 32, 8, "float32"),
                     ("ragged group 1", 2, 77, 8, 8, "bfloat16"),
                     ("ragged group 1 fp32", 2, 77, 8, 8, "float32"))
+# phase 10b's further bf16 cases of the attention backward: (name, b, sq,
+# sk, hq, hkv, d, causal, q_offset); lse from the log-sum-exp forward at the
+# same mask
+TRAIN_BWD_CASES = (("ragged group 8", 2, 100, 100, 64, 8, 128, True, 0),
+                   ("S 77 group 4", 2, 77, 77, 32, 8, 128, True, 0),
+                   ("S 77 group 8", 2, 77, 77, 64, 8, 128, True, 0),
+                   ("q_offset 64 Sk 164", 2, 100, 164, 32, 8, 128, True, 64),
+                   ("Sk 200 no mask", 1, 128, 200, 32, 8, 128, False, 0),
+                   ("head dim 32", 2, 100, 100, 8, 2, 32, True, 0),
+                   ("group 8 train width", 4, 512, 512, 64, 8, 128, True, 0))
+# the bf16 backward's three launches by their bits in
+# ops.flash_backward_launches: each is timed alone
+BWD_LAUNCHES = (("delta", 1), ("dkdv", 2), ("dq", 4))
 # the RMSNorm backward at the train step's rows (8 x 512 tokens)
 TRAIN_NORM_ROWS = TRAIN_BATCH * TRAIN_SEQ
 # the backward kernels against their plain versions (atol, rtol): bf16, the
@@ -3631,6 +3651,144 @@ def read_train_counts(ops) -> dict:
             "add_rmsnorm_backward": ops.add_rmsnorm_backward_cuda.launches}
 
 
+def backward_launch_ms(torch, ops, call, flush) -> dict:
+    """Device ms of each of the bf16 backward's launches (D, dk/dv, dq),
+    each run alone (ops.flash_backward_launches) and timed as time_ms
+    times a call; all three are restored. (Back-to-back profiler runs
+    late in a whole run saw a share of these kernels, then none.)"""
+    before = ops.flash_backward_launches()
+    out = {}
+    try:
+        for name, bit in BWD_LAUNCHES:
+            ops.flash_backward_launches(bit)
+            out[name] = time_ms(torch, call, flush)
+    finally:
+        ops.flash_backward_launches(before)
+    return out
+
+
+def backward_parts(torch, ops, flush, name, args, kw, want) -> dict:
+    """The bf16 backward with P and dS in one bf16 part and in two (hi +
+    lo): each form's largest error against the plain version ``want``,
+    whether it holds TRAIN_TOL, its ms and its launches' ms. The form in
+    force before is restored."""
+    atol, rtol = TRAIN_TOL[("attention_bwd", "bfloat16")]
+    before = ops.flash_backward_parts()
+    out = {}
+    try:
+        for parts in (1, 2):
+            ops.flash_backward_parts(parts)
+            call = lambda: ops.flash_attention_backward_cuda(*args, **kw)  # noqa: E731
+            got = call()
+            errs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
+            within = all(bool(torch.isfinite(g).all())
+                         and float((e - rtol * w.float().abs()).max()) <= atol
+                         for g, e, w in zip(got, errs, want))
+            out[parts] = {"max_abs_err": max(float(e.max()) for e in errs),
+                          "within_tolerance": within, "ms": time_ms(torch, call, flush),
+                          "launch_ms": backward_launch_ms(torch, ops, call, flush)}
+    finally:
+        ops.flash_backward_parts(before)
+    for parts, r in out.items():
+        print(f"  attention backward {name}, P and dS in {parts} bf16 part(s): max_abs_err "
+              f"{r['max_abs_err']:.3e} (within the tolerance: {r['within_tolerance']}), "
+              f"{r['ms']:.5f} ms (D {r['launch_ms']['delta']:.5f}, dk/dv "
+              f"{r['launch_ms']['dkdv']:.5f}, dq {r['launch_ms']['dq']:.5f})", flush=True)
+    return out
+
+
+def sdpa_backward_ms(torch, F, flush, q, k, v, do, causal: bool, q_offset: int) -> float:
+    """SDPA's backward (autograd, enable_gqa) on the same inputs, a
+    yardstick: the mask as the port's (keys past q_offset + i hidden from
+    query i) through is_causal where Sq = Sk and no offset, else a boolean
+    mask."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    sq, sk = q.shape[1], k.shape[1]
+    mask = None
+    if causal and not (sq == sk and q_offset == 0):
+        mask = (q_offset + torch.arange(sq, device=q.device))[:, None] >= torch.arange(
+            sk, device=q.device)[None, :]
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                         is_causal=causal and mask is None, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    return time_ms(torch, lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
+                   flush)
+
+
+def train_backward_case(torch, F, ops, flush, name, b, sq, sk, hq, hkv, d, causal, q_offset,
+                        gen, dev) -> dict:
+    """The bf16 attention backward at q [b, sq, hq, d], k/v [b, sk, hkv, d]
+    with the mask and offset given, against its plain version, twice the
+    same bits; timed, its launches apart, in one part and in two."""
+    dt = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    q, k, v, do = randn(b, sq, hq, d), randn(b, sk, hkv, d), randn(b, sk, hkv, d), \
+        randn(b, sq, hq, d)
+    kw = {"causal": causal, "q_offset": q_offset}
+    out, lse = ops.flash_attention_lse_cuda(q, k, v, **kw)
+    args = (q, k, v, out, do, lse)
+    got = ops.flash_attention_backward_cuda(*args, **kw)
+    want = ops.flash_attention_backward_reference(*args, **kw)
+    err = max(compare(torch, "attention_bwd", f"attention backward {name} d{n}", g, w, "bfloat16")
+              for n, g, w in zip("qkv", got, want))
+    again = ops.flash_attention_backward_cuda(*args, **kw)
+    if not all(torch.equal(a, g) for a, g in zip(again, got)):
+        fail(f"attention backward {name}: two runs gave different bits")
+    b_ms, b_by = bound(attention_bwd_bytes(b, sq, sk, hq, hkv, d, 2),
+                       attention_bwd_flops(b, sq, sk, hq, d, causal, q_offset), "bfloat16")
+    kernel = lambda: ops.flash_attention_backward_cuda(*args, **kw)  # noqa: E731
+    with torch.no_grad():
+        case = {"case": f"attention backward {name}", "kernel": "flash_attention_backward",
+                "q": [b, sq, hq, d], "kv": [b, sk, hkv, d], "causal": causal,
+                "q_offset": q_offset, "dtype": "bfloat16", "max_abs_err": err,
+                "same_bits_twice": True, "ms": time_ms(torch, kernel, flush),
+                "plain_ms": time_ms(torch, lambda: ops.flash_attention_backward_reference(
+                    *args, **kw), flush),
+                "launch_ms": backward_launch_ms(torch, ops, kernel, flush),
+                "parts": backward_parts(torch, ops, flush, name, args, kw, want)}
+    case.update({"library_ms": sdpa_backward_ms(torch, F, flush, q, k, v, do, causal, q_offset),
+                 "library": "scaled_dot_product_attention (enable_gqa; the same mask) backward",
+                 "bound_ms": b_ms, "bound_by": b_by})
+    return case
+
+
+def backward_build_report() -> list:
+    """Every instance of the bf16 attention backward's kernels: registers,
+    static shared memory and spills from the build log, and its SASS's
+    wgmma (HGMMA), TMA (UTMALDG) and mbarrier (SYNCS) instructions where
+    the toolkit's cuobjdump is at hand. Fails on a spill, and on an
+    instance whose SASS shows no HGMMA or no UTMALDG."""
+    from bobrapet_tpu_torch.kernels import build as kbuild
+
+    insts = [dict(i) for i in ptxas_instances(kbuild.build_log) if "flash_bwd_" in i["name"]]
+    if not insts:
+        fail("the build log shows no instance of the bf16 attention backward")
+    sass = {}
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([tool, "-sass", str(kbuild.build())], capture_output=True,
+                              text=True, timeout=300).stdout
+    except (OSError, subprocess.SubprocessError):
+        text = ""
+    for chunk in text.split("Function : ")[1:]:
+        sass[chunk.split("\n", 1)[0].strip()] = {
+            op: len(re.findall(rf"\b{op}\b", chunk)) for op in ("HGMMA", "UTMALDG", "SYNCS")}
+    for inst, name in zip(insts, demangle([i["name"] for i in insts])):
+        inst["sass"] = sass.get(inst["name"])
+        inst["name"] = name
+        print(f"  backward instance {name.split('(')[0]}: {inst['registers']} registers, "
+              f"{inst['smem_bytes']} bytes static smem, spill stores {inst['spill_stores']} B, "
+              f"spill loads {inst['spill_loads']} B, SASS {inst['sass']}", flush=True)
+        if inst["spill_stores"] or inst["spill_loads"]:
+            fail(f"{name} spills registers")
+        if inst["sass"] is not None and not (inst["sass"]["HGMMA"] and inst["sass"]["UTMALDG"]):
+            fail(f"{name}: no wgmma or no TMA load in its SASS")
+    return insts
+
+
 def train_attention_case(torch, F, ops, flush, name, b, s, hq, hkv, dtype, gen, dev) -> list:
     """The log-sum-exp forward and the backward at q [b, s, hq, 128], k/v
     [b, s, hkv, 128], causal, each against its plain version on the same
@@ -3682,6 +3840,11 @@ def train_attention_case(torch, F, ops, flush, name, b, s, hq, hkv, dtype, gen, 
                    q, k, v, out, do, lse), flush),
                "plain_ms": time_ms(torch, lambda: ops.flash_attention_backward_reference(
                    q, k, v, out, do, lse), flush)}
+        if dtype == "bfloat16":
+            bwd["launch_ms"] = backward_launch_ms(
+                torch, ops, lambda: ops.flash_attention_backward_cuda(q, k, v, out, do, lse), flush)
+            bwd["parts"] = backward_parts(torch, ops, flush, name, (q, k, v, out, do, lse), {},
+                                          want)
     bwd.update({
         "library_ms": time_ms(torch, lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), dot, retain_graph=True), flush),
@@ -3730,9 +3893,13 @@ def train_norm_case(torch, F, ops, flush, name, rows, d, dtype, gen, dev, add=Fa
 
 def train_kernel_cases(torch, F, ops, flush, gen, dev) -> list:
     """Phase 10b (a): every training kernel against its plain version."""
+    instances = backward_build_report()
     cases = []
     for name, b, s, hq, hkv, dtype in TRAIN_ATTN_CASES:
         cases += train_attention_case(torch, F, ops, flush, name, b, s, hq, hkv, dtype, gen, dev)
+    cases += [train_backward_case(torch, F, ops, flush, *case, gen, dev)
+              for case in TRAIN_BWD_CASES]
+    next(c for c in cases if c["case"] == "attention backward train step")["instances"] = instances
     for dtype in ("bfloat16", "float32"):
         for add in (False, True):
             name = (f"{'add_' if add else ''}rmsnorm backward train"
@@ -4406,6 +4573,15 @@ def main() -> None:
             "bound_by": top["bound_by"], "library_ms": top["library_ms"], "cases": cases,
         }
 
+    def train_entry(name, src, replaces, main_case):
+        """A training kernel's entry; the attention backward's also carries
+        its launches' ms, the one- and two-part forms and its instances."""
+        out = entry(name, f"bobrapet_tpu_torch/csrc/{src}", replaces,
+                    [c for c in trained["cases"] if c["kernel"] == name], main_case)
+        top = next(c for c in out["cases"] if c["case"] == main_case)
+        out.update({k: top[k] for k in ("launch_ms", "parts", "instances") if k in top})
+        return out
+
     rms_entry = entry("rmsnorm", "bobrapet_tpu_torch/csrc/rmsnorm.cu",
                       "bobrapet_tpu/ops/rmsnorm.py:33", rms_cases, "rmsnorm decode")
     rms_entry["launches_add_mode"] = sum(path["add_rmsnorm"] for path in own.values())
@@ -4450,8 +4626,7 @@ def main() -> None:
           for part, line, cases in (
               (part, line, [c for c in moe_cases if c["kernel"] == f"moe_{part}"])
               for part, line in (("gate_up", 200), ("down", 206)))),
-        *(entry(name, f"bobrapet_tpu_torch/csrc/{src}", replaces,
-                [c for c in trained["cases"] if c["kernel"] == name], main_case)
+        *(train_entry(name, src, replaces, main_case)
           for name, src, replaces, main_case in (
               ("flash_attention_lse", "flash_attention.cu", "bobrapet_tpu/ops/attention.py:117",
                "attention lse train step"),
