@@ -57,11 +57,41 @@
 // packed rows (the standalone speculative verify, Sq = k + 1) the rows go
 // in tiles of 16 on the grid. fp32 takes the scalar kernel reading the
 // same array. Its bound is the decode's: the valid K/V rows, once.
+//
+// A third entry point, bobra_flash_attention_lse, is the train step's forward:
+// the output and each row's log-sum-exp, which the backward
+// (flash_attention_bwd.cu) reads. fp32 takes the scalar kernel. bf16 takes
+// flash_fwd_lse_kernel, built for sm_90a like the backward's dq kernel and
+// sharing its pieces (attention_wgmma.cuh): persistent blocks, one an SM, of
+// two consumer warpgroups (64 packed rows each, 232 registers a thread after
+// setmaxnreg) and a producer warpgroup whose first warp loads by TMA. An item
+// is 128 packed rows of one (batch, kv head); items come heaviest first under
+// the causal mask, in alternating rounds (the dq kernel's order, mirrored by
+// ops/attention.py:bwd_dq_items, bwd_block_items), and each output element and
+// lse entry is written by one block: no atomics, the same bits whatever the
+// order. The producer loads an item's q once (two q buffers, so the next
+// item's q lands while this one finishes) and rings K and V tiles of 64 keys
+// through full and empty mbarriers up to the causal diagonal of the item's
+// last row. A consumer computes S = Q K^T by wgmma from shared memory
+// (m64n64), the online softmax in registers (exp2, masks only on edge tiles),
+// and O += P V with P in registers as hi + lo bf16 parts (one part breaks the
+// bf16 tolerance, as in the rows kernel) and V as an MN-major B (m64n128, or
+// m64n32 at D = 32), the next tile's scores issued with this tile's P V so
+// that the softmax runs while the tensor cores work (4% faster than each step
+// in turn; the two consumers also taking turns gained nothing: PERF.md). The
+// output goes out through the warp's rows of the q tile in whole 16-byte
+// chunks. At the train step's shapes (q [8,512,32,128], k/v [8,512,8,128],
+// causal) it moves 84.4 MB, 0.0252 ms at 3.35 TB/s, against 17.2 GFLOP of
+// causal products (25.8 with P in two parts), 0.017 ms at 989 TFLOP/s: bytes
+// bound it, at the ridge.
 
+#include <limits.h>
 #include <math.h>
 
 #include "attention_core.cuh"
+#include "attention_wgmma.cuh"
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace bobra {
 
@@ -229,9 +259,9 @@ __host__ __device__ constexpr int rows_smem_bytes() {
 // fragments read per k-step) so that several fit an SM and one block's
 // loads overlap another's math; the row blocks with the most keys start
 // first. A three-stage ring needs one block barrier per tile.
-template <int D, bool kLse = false>
+template <int D>
 __global__ void __launch_bounds__(kThreads, kRowMinBlocks)
-flash_rows_kernel(const DensePolicy<D> P, float* __restrict__ lse = nullptr) {
+flash_rows_kernel(const DensePolicy<D> P) {
   constexpr int kChunks = D / 8;
   constexpr int kTile = tile_bytes<D>(kRowKeys);
   constexpr int kNT = kRowKeys / 8;  // score n-tiles of a warp: the whole key tile
@@ -325,21 +355,6 @@ flash_rows_kernel(const DensePolicy<D> P, float* __restrict__ lse = nullptr) {
   }
   cp_async_wait<0>();
   quad_sum(l);
-  if constexpr (kLse) {
-    // each packed row's log-sum-exp of the scaled scores, natural units,
-    // into [B, Hq, Sq]: m and l are in log2 units of the scaled scores
-    if ((lane & 3) == 0) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = row0 + warp * 16 + g + 8 * hh;
-        if (r < rows) {
-          const long long head = static_cast<long long>(h) * P.group + r % P.group;
-          lse[(static_cast<long long>(b) * gridDim.y * P.group + head) * P.sq + r / P.group] =
-              (m[hh] + log2f(l[hh])) * kLn2;
-        }
-      }
-    }
-  }
 
   // the output tile goes through q's shared memory, so that device memory
   // sees whole 16-byte chunks of each packed row
@@ -364,23 +379,22 @@ flash_rows_kernel(const DensePolicy<D> P, float* __restrict__ lse = nullptr) {
   }
 }
 
-template <int D, bool kLse = false>
-int launch_rows(const DensePolicy<D>& P, int hkv, int batch, cudaStream_t st,
-                float* lse = nullptr) {
+template <int D>
+int launch_rows(const DensePolicy<D>& P, int hkv, int batch, cudaStream_t st) {
   static bool ready[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(flash_rows_kernel<D, kLse>,
+    err = cudaFuncSetAttribute(flash_rows_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                rows_smem_bytes<D>());
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[dev] = true;
   }
   const dim3 grid((P.sq * P.group + kRowBlock - 1) / kRowBlock, hkv, batch);
-  flash_rows_kernel<D, kLse><<<grid, kThreads, rows_smem_bytes<D>(), st>>>(P, lse);
+  flash_rows_kernel<D><<<grid, kThreads, rows_smem_bytes<D>(), st>>>(P);
   return 0;
 }
 
@@ -416,34 +430,384 @@ int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int 
   return launch_decode(P, sq * group, splits, split_chunk(sk, splits), hkv, b, 0, st);
 }
 
-// the rows kernel at any number of packed rows, writing each row's
-// log-sum-exp beside the output (the training forward)
+// ---------------------------------------------------------------------------
+// bf16 training forward: persistent, warp-specialised, TMA and wgmma
+
+constexpr int kFwdStages = 3;  // K/V ring stages
+
+// the output and log-sum-exp of the training forward, and its shape
+struct FwdArgs {
+  bf16* o;
+  float* lse;  // [B, Hq, Sq] fp32
+  long long o_sb, o_ss;
+  int sq, sk, hq, group, causal, q_offset;
+  float scale_log2;  // 1/sqrt(D) * log2(e)
+};
+
+// two items' q (a tile each consumer; item r takes buffer r % 2), then the
+// ring of K and V tiles, then the barriers; 1024-aligned
+template <int D>
+struct FwdSmem {
+  static constexpr int kQ = kBwdConsumers * BwdTile<D>::kBytes;
+  static constexpr int kStage = 2 * BwdTile<D>::kBytes;
+  static constexpr int kBars = (2 * kFwdStages + 4) * 8;
+  static constexpr int kBytes = 1024 + 2 * kQ + kFwdStages * kStage + kBars;
+};
+
+// One 64 x 64 score tile of this thread's rows (s[4j + 2hh + x]: row
+// 16 w4 + g + 8 hh of the warpgroup, key key0 + 8j + 2qd + x) into
+// probabilities: scaled into log2 units, masked on an edge tile (keys past
+// Sk -inf, keys past a row's causal bound kMasked), the row max m updated
+// across the quad, s turned into exp2(s - m). Returns each row's alpha =
+// exp2(m_old - m) and adds this thread's share of the tile's row sums,
+// rescaled, into l. A row's first tile holds key 0, which every row sees,
+// so m is finite after it.
+__device__ __forceinline__ void fwd_softmax(float (&s)[32], float (&m)[2], float (&l)[2],
+                                            float (&alpha)[2], bool edge, int key0, int qd,
+                                            const int (&lim)[2], int sk, float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * j + 2 * qd + (e & 1);
+        s[4 * j + e] = key >= sk ? -INFINITY : key > lim[e >> 1] ? kMasked : s[4 * j + e];
+      }
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float mx = m[hh];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    alpha[hh] = exp2_approx(m[hh] - mx);
+    m[hh] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const float p = exp2_approx(s[4 * j + 2 * hh + x] - mx);
+        s[4 * j + 2 * hh + x] = p;
+        sum += p;
+      }
+    }
+    l[hh] = l[hh] * alpha[hh] + sum;
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void rescale_rows(float (&o)[R], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+// S = Q K^T over the head dim into sacc (64 rows by 64 keys), issued and
+// committed, not waited for
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&sacc)[32], uint32_t q_tile,
+                                             uint32_t k_tile) {
+  using L = BwdTile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    mma_ss(sacc, L::kmajor(q_tile, kk), L::kmajor(k_tile, kk), kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// O += P V over a tile's 64 keys, P in registers as hi + lo bf16 parts,
+// issued and committed, not waited for
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[2][4][4],
+                                         uint32_t v_tile) {
+  accumulate_rs<D, 2>(o, pa, v_tile, 0);
+  hopper::wgmma_commit();
+}
+
+// (o, lse) of the work items this block takes: an item is 128 packed rows
+// of one (batch, kv head), 64 a consumer warpgroup, in the dq kernel's
+// order (flash_attention_bwd.cu); the producer loads the item's q once and
+// rings the K and V tiles up to the causal diagonal of its last row
+template <int D>
+__global__ void __launch_bounds__(kBwdWsThreads, 1)
+flash_fwd_lse_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, const FwdArgs A, const int bh) {
+  using L = BwdTile<D>;
+  using M = FwdSmem<D>;
+  constexpr int kSt = kFwdStages;
+  constexpr int kChunks = D / 8;  // 16-byte chunks of a row
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = hopper::align1024(smem_raw);
+  unsigned char* ring = q_s + 2 * M::kQ;  // K, then V, of each stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kSt * M::kStage);
+  uint64_t* empty = full + kSt;
+  uint64_t* q_full = empty + kSt;  // one a q buffer
+  uint64_t* q_empty = q_full + 2;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rows = A.sq * A.group, hkv = A.hq / A.group;
+  // whole queries a tile; rows past tile_rows hold stale values, never stored
+  const int tile_rows = kBwdTile / A.group * A.group;
+  const int item_rows = kBwdConsumers * tile_rows;
+  const int n_rt = (rows + item_rows - 1) / item_rows;
+  const int items = n_rt * bh;
+  // the keys an item's rows see: up to the diagonal of its last row
+  auto kv_len = [&](int row0) {
+    const int last = min(rows, row0 + item_rows) - 1;
+    return A.causal ? min(A.sk, A.q_offset + last / A.group + 1) : A.sk;
+  };
+
+  if (tid == 0) {
+    hopper::prefetch_tensormap(&qmap);
+    hopper::prefetch_tensormap(&kmap);
+    hopper::prefetch_tensormap(&vmap);
+#pragma unroll
+    for (int s = 0; s < kSt; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * kBwdConsumers);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&q_full[i], 1);
+      hopper::mbar_init(&q_empty[i], 4 * kBwdConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kBwdConsumers) {
+    hopper::setmaxnreg_dec<kBwdProducerRegs>();
+    if (warp == 4 * kBwdConsumers && lane == 0) {
+      const int qt = kBwdTile / A.group;  // queries of a tile
+      int it = 0;
+      for (int r = 0;; ++r) {
+        const int item = bwd_item(r, items);
+        if (item < 0) break;
+        const int row0 = (n_rt - 1 - item / bh) * item_rows, b = item % bh / hkv, h = item % hkv;
+        // a consumer whose first row is past the last loads (and computes) nothing
+        const int live = min(kBwdConsumers, (rows - row0 + tile_rows - 1) / tile_rows);
+        const int qb = r & 1;
+        unsigned char* qs = q_s + qb * M::kQ;
+        hopper::mbar_wait(&q_empty[qb], ((r >> 1) & 1) ^ 1);
+        hopper::mbar_expect_tx(&q_full[qb], live * L::kBoxes * tile_rows * L::kRowBytes);
+        for (int wg = 0; wg < live; ++wg) {
+#pragma unroll
+          for (int bx = 0; bx < L::kBoxes; ++bx) {
+            hopper::tma_load_4d(qs + wg * L::kBytes + bx * L::kBox, &qmap, bx * L::kCols,
+                                h * A.group, row0 / A.group + wg * qt, b, &q_full[qb]);
+          }
+        }
+        const int n_kt = (kv_len(row0) + kBwdTile - 1) / kBwdTile;
+        for (int j = 0; j < n_kt; ++j, ++it) {
+          const int s = it % kSt;
+          hopper::mbar_wait(&empty[s], ((it / kSt) & 1) ^ 1);
+          unsigned char* st = ring + s * M::kStage;
+          hopper::mbar_expect_tx(&full[s], M::kStage);
+#pragma unroll
+          for (int bx = 0; bx < L::kBoxes; ++bx) {
+            hopper::tma_load_4d(st + bx * L::kBox, &kmap, bx * L::kCols, h, j * kBwdTile, b,
+                                &full[s]);
+            hopper::tma_load_4d(st + L::kBytes + bx * L::kBox, &vmap, bx * L::kCols, h,
+                                j * kBwdTile, b, &full[s]);
+          }
+        }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<kBwdConsumerRegs>();
+    const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, qd = lane & 3;
+    float o[D / 2];
+    int it = 0;
+    for (int r = 0;; ++r) {
+      const int item = bwd_item(r, items);
+      if (item < 0) break;
+      const int row0 = (n_rt - 1 - item / bh) * item_rows, b = item % bh / hkv, h = item % hkv;
+      const int qb = r & 1;
+      unsigned char* q_tile_p = q_s + qb * M::kQ + wg * L::kBytes;
+      const uint32_t q_tile = hopper::smem_addr(q_tile_p);
+      const int wrow0 = row0 + wg * tile_rows;  // this warpgroup's first packed row
+      const int len = kv_len(row0);
+      // this thread's rows (accumulator rows): the last key the causal mask
+      // lets each see
+      int lim[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        lim[hh] = A.causal ? A.q_offset + (wrow0 + 16 * w4 + g + 8 * hh) / A.group : INT_MAX;
+      }
+      const int wlast = min(rows - 1, wrow0 + tile_rows - 1);
+      // tiles this warpgroup computes (a consumer with no row computes none),
+      // and the keys every one of its rows sees: a tile past them is masked
+      const int w_end = wrow0 >= rows ? 0
+                        : A.causal ? min(len, A.q_offset + wlast / A.group + 1) : len;
+      const int n_w = (w_end + kBwdTile - 1) / kBwdTile;
+      const int w_live = min(A.sk, A.causal ? A.q_offset + wrow0 / A.group + 1 : A.sk);
+      zero_acc(o);
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      hopper::mbar_wait(&q_full[qb], (r >> 1) & 1);
+      const int n_kt = (len + kBwdTile - 1) / kBwdTile;
+      // tile j's scores are issued with tile j - 1's P V and waited for
+      // alone, so the softmax of tile j runs while P V of tile j - 1 is
+      // on the tensor cores; o and P's registers are left alone until
+      // that product completes, and a stage is released after it. The
+      // first tile and the last P V are peeled, so that no product is
+      // issued on a path of its own (ptxas serializes every product of
+      // a kernel that does)
+      int j = 0;
+      if (n_w > 0) {
+        uint32_t pa[2][4][4];
+        int s_prev = it % kSt;
+        const uint32_t k0_tile = hopper::smem_addr(ring + s_prev * M::kStage);
+        uint32_t v_prev = k0_tile + L::kBytes;
+        {
+          hopper::mbar_wait(&full[s_prev], (it / kSt) & 1);
+          float sacc[32];
+          hopper::wgmma_fence_operands(sacc);
+          hopper::wgmma_fence();
+          issue_scores<D>(sacc, q_tile, k0_tile);
+          hopper::wgmma_wait<0>();
+          hopper::wgmma_fence_operands(sacc);
+          float alpha[2];
+          fwd_softmax(sacc, m, l, alpha, kBwdTile > w_live, 0, qd, lim, A.sk, A.scale_log2);
+          a_fragments<2>(sacc, pa);
+        }
+        for (j = 1, ++it; j < n_w; ++j, ++it) {
+          const int s = it % kSt;
+          hopper::mbar_wait(&full[s], (it / kSt) & 1);
+          const int key0 = j * kBwdTile;
+          const uint32_t k_tile = hopper::smem_addr(ring + s * M::kStage);
+          float sacc[32];
+          hopper::wgmma_fence_operands(sacc);
+          hopper::wgmma_fence_operands(o);
+          hopper::wgmma_fence();
+          issue_scores<D>(sacc, q_tile, k_tile);
+          issue_pv<D>(o, pa, v_prev);
+          hopper::wgmma_wait<1>();  // the scores; P V may still run
+          hopper::wgmma_fence_operands(sacc);
+          float alpha[2];
+          fwd_softmax(sacc, m, l, alpha, key0 + kBwdTile > w_live, key0, qd, lim, A.sk,
+                      A.scale_log2);
+          hopper::wgmma_wait<0>();
+          hopper::wgmma_fence_operands(o);
+          __syncwarp();
+          if (lane == 0) hopper::mbar_arrive(&empty[s_prev]);
+          rescale_rows(o, alpha);
+          a_fragments<2>(sacc, pa);
+          s_prev = s;
+          v_prev = k_tile + L::kBytes;
+        }
+        hopper::wgmma_fence_operands(o);
+        hopper::wgmma_fence();
+        issue_pv<D>(o, pa, v_prev);
+        hopper::wgmma_wait<0>();
+        hopper::wgmma_fence_operands(o);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s_prev]);
+      }
+      // tiles past this warpgroup's rows: released at once
+      for (; j < n_kt; ++j, ++it) {
+        const int s = it % kSt;
+        hopper::mbar_wait(&full[s], (it / kSt) & 1);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      }
+      quad_sum(l);
+      if (wrow0 < rows) {
+        // each packed row's log-sum-exp of the scaled scores, natural
+        // units, into [B, Hq, Sq]: m and l are in log2 units
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int lr = 16 * w4 + g + 8 * hh, pr = wrow0 + lr;
+          if (qd == 0 && lr < tile_rows && pr < rows) {
+            const long long head = static_cast<long long>(h) * A.group + pr % A.group;
+            A.lse[(static_cast<long long>(b) * A.hq + head) * A.sq + pr / A.group] =
+                (m[hh] + log2f(l[hh])) * kLn2;
+          }
+        }
+        // the output through this warp's 16 rows of the q tile, which no
+        // product reads any more, so that device memory sees whole 16-byte
+        // chunks of each packed row
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int lr = 16 * w4 + g + 8 * hh;
+          const float inv = 1.f / l[hh];
+          if (lr < tile_rows) {
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j) {
+              *reinterpret_cast<__nv_bfloat162*>(q_tile_p + tile_offset<D>(lr, j) + qd * 4) =
+                  __floats2bfloat162_rn(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+            }
+          }
+        }
+        __syncwarp();
+        for (int e = lane; e < 16 * kChunks; e += 32) {
+          const int lr = 16 * w4 + e / kChunks, c = e % kChunks, pr = wrow0 + lr;
+          if (lr < tile_rows && pr < rows) {
+            bf16* orow = A.o + b * A.o_sb + (pr / A.group) * A.o_ss +
+                         (static_cast<long long>(h) * A.group + pr % A.group) * D;
+            *reinterpret_cast<uint4*>(orow + c * 8) =
+                *reinterpret_cast<const uint4*>(q_tile_p + tile_offset<D>(lr, c));
+          }
+        }
+      }
+      // these generic accesses before the next TMA write into the buffer
+      hopper::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&q_empty[qb]);
+    }
+  }
+}
+
+// the training forward in bf16: one launch of flash_fwd_lse_kernel, a
+// persistent block an SM (or an item, where there are fewer)
 template <int D>
 int launch_flash_lse_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                           int b, int sq, int sk, int hkv, int group, long long q_sb,
                           long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                           long long v_ss, long long o_sb, long long o_ss, int causal,
                           int q_offset, float scale, cudaStream_t st) {
-  DensePolicy<D> P;
-  P.q = static_cast<const bf16*>(q);
-  P.k = static_cast<const bf16*>(k);
-  P.v = static_cast<const bf16*>(v);
-  P.o = static_cast<bf16*>(o);
-  P.sq = sq;
-  P.sk = sk;
-  P.group = group;
-  P.causal = causal;
-  P.q_offset = q_offset;
-  P.q_sb = q_sb;
-  P.q_ss = q_ss;
-  P.k_sb = k_sb;
-  P.k_ss = k_ss;
-  P.v_sb = v_sb;
-  P.v_ss = v_ss;
-  P.o_sb = o_sb;
-  P.o_ss = o_ss;
-  P.scale_log2 = scale * kLog2e;
-  return launch_rows<D, true>(P, hkv, b, st, lse);
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_lse_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, FwdSmem<D>::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  const int sms = hopper::sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int hq = hkv * group;
+  CUtensorMap qmap, kmap, vmap;
+  if ((err = encode_q_map<D>(&qmap, q, b, sq, hq, group, q_ss, q_sb)) != cudaSuccess ||
+      (err = encode_kv_map<D>(&kmap, k, b, sk, hkv, k_ss, k_sb)) != cudaSuccess ||
+      (err = encode_kv_map<D>(&vmap, v, b, sk, hkv, v_ss, v_sb)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  FwdArgs A;
+  A.o = static_cast<bf16*>(o);
+  A.lse = lse;
+  A.o_sb = o_sb;
+  A.o_ss = o_ss;
+  A.sq = sq;
+  A.sk = sk;
+  A.hq = hq;
+  A.group = group;
+  A.causal = causal;
+  A.q_offset = q_offset;
+  A.scale_log2 = scale * kLog2e;
+  const int bh = b * hkv;
+  const int item_rows = kBwdConsumers * (kBwdTile / group * group);
+  const int items = (sq * group + item_rows - 1) / item_rows * bh;
+  flash_fwd_lse_kernel<D><<<min(items, sms), kBwdWsThreads, FwdSmem<D>::kBytes, st>>>(
+      qmap, kmap, vmap, A, bh);
+  return 0;
 }
 
 // the decode core over a whole cache of `cap` rows with device lengths,
@@ -587,9 +951,9 @@ extern "C" int bobra_cached_attention(const void* q, const void* k, const void* 
 // The training forward: bobra_flash_attention's layout and arguments (no
 // splits) with each row's log-sum-exp of the scaled scores, natural log,
 // written to lse [b, hq, sq] fp32 contiguous, for the backward
-// (csrc/flash_attention_bwd.cu). bf16 always takes the rows kernel (any
-// number of packed rows), fp32 the scalar kernel. Returns the cudaError_t
-// of the launch.
+// (csrc/flash_attention_bwd.cu). bf16 takes flash_fwd_lse_kernel (any
+// number of packed rows; a group of at most 64 heads, as the backward),
+// fp32 the scalar kernel. Returns the cudaError_t of the launch.
 extern "C" int bobra_flash_attention_lse(const void* q, const void* k, const void* v, void* o,
                                          void* lse, int b, int sq, int sk, int hq, int group,
                                          int d, long long q_sb, long long q_ss, long long k_sb,
@@ -613,7 +977,10 @@ extern "C" int bobra_flash_attention_lse(const void* q, const void* k, const voi
     const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                            reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
     const long long strides = q_sb | q_ss | k_sb | k_ss | v_sb | v_ss | o_sb | o_ss;
-    if (ptrs % 16 != 0 || strides % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    // a 64-row tile holds whole queries: at most 64 heads a group
+    if (ptrs % 16 != 0 || strides % 8 != 0 || group > attn::kBwdTile) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     const int hkv = hq / group;
     switch (d) {
       case 32:

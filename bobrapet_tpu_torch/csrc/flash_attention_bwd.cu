@@ -59,11 +59,14 @@
 // keys past Sk arrive as zeros and are masked as BwdShape::mask says. P and
 // dS go into the products in one bf16 part or as hi + lo parts
 // (bobra_flash_attention_backward_parts; see PERF.md for the measurement).
+// The tiles, the work order, the products and the tensor maps are shared
+// with the training forward (attention_wgmma.cuh).
 
 #include <limits.h>
 #include <math.h>
 
 #include "attention_core.cuh"
+#include "attention_wgmma.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -299,43 +302,7 @@ attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 namespace attn {
 
-constexpr int kBwdWgRows = 64;     // rows of a consumer warpgroup: wgmma's M
-constexpr int kBwdConsumers = 2;   // consumer warpgroups a block
-constexpr int kBwdTile = 64;       // rows of a ring tile: wgmma's N
 constexpr int kBwdStages = 3;      // ring stages
-// keys of a dk/dv work item, packed rows of a dq work item
-constexpr int kBwdItemRows = kBwdWgRows * kBwdConsumers;
-// the consumer warpgroups, then the producer warpgroup (its first warp loads)
-constexpr int kBwdWsThreads = (kBwdConsumers + 1) * 128;
-constexpr int kBwdProducerRegs = 40;
-constexpr int kBwdConsumerRegs = 232;
-static_assert(128 * kBwdProducerRegs + kBwdConsumers * 128 * kBwdConsumerRegs <= 65536,
-              "the register file of one SM");
-
-// A [64][D] bf16 tile in shared memory: D / kCols boxes of 64 rows by kCols
-// columns, each row swizzled over its kRowBytes (128 at D = 128, 64 at D =
-// 32) as TMA writes it and wgmma reads it.
-template <int D>
-struct BwdTile {
-  static constexpr int kCols = D < 64 ? D : 64;
-  static constexpr int kRowBytes = kCols * 2;
-  static constexpr int kBoxes = D / kCols;
-  static constexpr int kBox = kBwdTile * kRowBytes;
-  static constexpr int kBytes = kBoxes * kBox;
-  static constexpr int kSbo = 8 * kRowBytes;  // between 8-row groups
-  static constexpr int kStepsPerBox = kCols / 16;
-  // the tile as a K-major operand (its rows wgmma's M or N, the head dim
-  // K): k16 step kk, 32 bytes along a box row
-  __device__ static uint64_t kmajor(uint32_t tile, int kk) {
-    return hopper::wgmma_desc_sw<kRowBytes>(
-        tile + (kk / kStepsPerBox) * kBox + 32 * (kk % kStepsPerBox), 16, kSbo);
-  }
-  // the tile as an MN-major B (its rows K, the head dim N; the boxes kBox
-  // apart): k16 step kk, 16 rows on
-  __device__ static uint64_t mnmajor(uint32_t tile, int kk) {
-    return hopper::wgmma_desc_sw<kRowBytes>(tile + kk * 16 * kRowBytes, kBox, kSbo);
-  }
-};
 
 // dk/dv: K and V of the item's keys (a tile each consumer), then the ring:
 // q, do and the tile rows' stats (lse in log2 units, D), 1024-aligned
@@ -364,87 +331,6 @@ struct BwdPtrs {
   bf16* dk;
   bf16* dv;
 };
-
-// The persistent order: the items come heaviest first (dk/dv: key tiles in
-// ascending order; dq: row tiles in descending order), and in round r block
-// blk takes item r grid + blk on even rounds, r grid + grid - 1 - blk on odd
-// ones; -1 past the last item. ops/attention.py:bwd_block_items mirrors it.
-__device__ __forceinline__ int bwd_item(int r, int items) {
-  const int blk = blockIdx.x, grid = gridDim.x;
-  const int i = r * grid + ((r & 1) ? grid - 1 - blk : blk);
-  return i < items ? i : -1;
-}
-
-// 2^x in one MUFU instruction, with no branch: a masked element passes
-// -inf and gets 0 (a select ahead of exp2f compiled to a branch an element)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <int R>
-__device__ __forceinline__ void zero_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) d[i] = 0.f;
-}
-
-// (a, b) as a bf16 pair in one part, or as hi + lo parts
-template <int PARTS>
-__device__ __forceinline__ void to_parts(float a, float b, uint32_t (&w)[PARTS]) {
-  if constexpr (PARTS == 1) {
-    w[0] = bf16x2_bits(__floats2bfloat162_rn(a, b));
-  } else {
-    split_bf16x2(a, b, w[0], w[1]);
-  }
-}
-
-// the 64 x N accumulator of a score product as wgmma A fragments: k16
-// step kk holds columns 16kk.. (acc[4j + 2hh + x] is row 16 w4 + g + 8 hh,
-// column 8j + 2 qd + x; fragment register i the pair at acc[8kk + 2i])
-template <int PARTS, int R, int KS>
-__device__ __forceinline__ void a_fragments(const float (&acc)[R], uint32_t (&a)[PARTS][KS][4]) {
-  static_assert(R == 8 * KS, "two columns a register, 16 a k16 step");
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t w[PARTS];
-      to_parts<PARTS>(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1], w);
-#pragma unroll
-      for (int part = 0; part < PARTS; ++part) a[part][kk][i] = w[part];
-    }
-  }
-}
-
-// acc += A B over the 64 rows of an MN-major B tile, A in registers
-__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  hopper::wgmma_m64n128k16_rs_tb<1>(d, a, b, 1);
-}
-__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-  hopper::wgmma_m64n32k16_rs_tb<1>(d, a, b, 1);
-}
-
-// d += A B over KS k16 steps of an MN-major B tile from row 16 k0
-template <int D, int PARTS, int KS>
-__device__ __forceinline__ void accumulate_rs(float (&d)[D / 2], const uint32_t (&a)[PARTS][KS][4],
-                                              uint32_t b_tile, int k0) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-    for (int part = 0; part < PARTS; ++part) {
-      mma_rs(d, a[part][kk], BwdTile<D>::mnmajor(b_tile, k0 + kk));
-    }
-  }
-}
-
-// acc (+)= A B^T over a k16 step, A and B K-major; N = 64 or 32 rows of B
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  hopper::wgmma_m64n64k16_ss<0, 0>(d, a, b, scale_d);
-}
-__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
-  hopper::wgmma_m64n32k16_ss<0, 0>(d, a, b, scale_d);
-}
 
 // sacc = A_s B_s^T and pacc = A_p B_p^T over the head dim (A 64 rows, B
 // 64 or 32 rows of K-major tiles), then waited for; the first k16 step
@@ -864,7 +750,6 @@ static int bwd_launches = 7;
 template <int D, int PARTS>
 int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
                     const BwdPtrs& A, const BwdShape& S, int b, cudaStream_t st) {
-  using L = BwdTile<D>;
   static bool ready[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -881,28 +766,17 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* dou
   }
   const int sms = hopper::sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  // q and do as [B, Sq, Hq, D], k and v as [B, Sk, Hkv, D], innermost
-  // first; a tile is kCols of the head dim, the group's heads, and 64 /
-  // group queries (q) or 64 keys of one head (k, v)
+  // q and do as [B, Sq, Hq, D], k and v as [B, Sk, Hkv, D], contiguous
   const int hkv = S.hq / S.group, qt = kBwdTile / S.group;
-  const CUtensorMapSwizzle sw =
-      L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  const uint64_t row = static_cast<uint64_t>(D) * 2;
-  const uint64_t q_dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S.hq),
-                              static_cast<uint64_t>(S.sq), static_cast<uint64_t>(b)};
-  const uint64_t q_strides[3] = {row, row * S.hq, row * S.hq * S.sq};
-  const uint32_t q_box[4] = {static_cast<uint32_t>(L::kCols), static_cast<uint32_t>(S.group),
-                             static_cast<uint32_t>(qt), 1};
-  const uint64_t kv_dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(hkv),
-                               static_cast<uint64_t>(S.sk), static_cast<uint64_t>(b)};
-  const uint64_t kv_strides[3] = {row, row * hkv, row * hkv * S.sk};
-  const uint32_t kv_box[4] = {static_cast<uint32_t>(L::kCols), 1, kBwdTile, 1};
+  const long long q_ss = static_cast<long long>(S.hq) * D;
+  const long long kv_ss = static_cast<long long>(hkv) * D;
   CUtensorMap qmap, gmap, kmap, vmap;
-  const CUtensorMapDataType t = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if ((err = hopper::encode_4d(&qmap, t, q, q_dims, q_strides, q_box, sw)) != cudaSuccess ||
-      (err = hopper::encode_4d(&gmap, t, dout, q_dims, q_strides, q_box, sw)) != cudaSuccess ||
-      (err = hopper::encode_4d(&kmap, t, k, kv_dims, kv_strides, kv_box, sw)) != cudaSuccess ||
-      (err = hopper::encode_4d(&vmap, t, v, kv_dims, kv_strides, kv_box, sw)) != cudaSuccess) {
+  if ((err = encode_q_map<D>(&qmap, q, b, S.sq, S.hq, S.group, q_ss, q_ss * S.sq)) !=
+          cudaSuccess ||
+      (err = encode_q_map<D>(&gmap, dout, b, S.sq, S.hq, S.group, q_ss, q_ss * S.sq)) !=
+          cudaSuccess ||
+      (err = encode_kv_map<D>(&kmap, k, b, S.sk, hkv, kv_ss, kv_ss * S.sk)) != cudaSuccess ||
+      (err = encode_kv_map<D>(&vmap, v, b, S.sk, hkv, kv_ss, kv_ss * S.sk)) != cudaSuccess) {
     return static_cast<int>(err);
   }
   const int bh = b * hkv;

@@ -16,10 +16,11 @@ greedy decode step while the lengths move.
 
 Training: :func:`attention` on a card, with grad enabled and an input that
 requires it, goes through an ``autograd.Function`` whose forward is
-:func:`flash_attention_lse_cuda` (the rows kernel, also writing each row's
-log-sum-exp) and whose backward is :func:`flash_attention_backward_cuda`
-(``csrc/flash_attention_bwd.cu``). Without grad it calls
-:func:`flash_attention_cuda` as before.
+:func:`flash_attention_lse_cuda` (in bf16 a persistent warp-specialised
+kernel that also writes each row's log-sum-exp, in the dq kernel's work
+order: :func:`bwd_dq_items`, :func:`bwd_block_items`) and whose backward is
+:func:`flash_attention_backward_cuda` (``csrc/flash_attention_bwd.cu``).
+Without grad it calls :func:`flash_attention_cuda` as before.
 """
 
 from __future__ import annotations
@@ -84,8 +85,9 @@ BWD_ITEM_ROWS = BWD_WG_ROWS * BWD_CONSUMERS
 
 
 def bwd_tile_rows(group: int) -> int:
-    """Packed rows a 64-row tile holds in the bf16 backward: whole queries
-    of ``group`` heads each (64 when the group divides 64)."""
+    """Packed rows a 64-row tile holds in the bf16 training kernels (the
+    backward and the log-sum-exp forward): whole queries of ``group`` heads
+    each (64 when the group divides 64)."""
     return BWD_TILE // group * group
 
 
@@ -419,8 +421,8 @@ def _check_train_inputs(name: str, q_offset: int, q: torch.Tensor, k: torch.Tens
                         v: torch.Tensor, *more: torch.Tensor) -> tuple[int, int, int, int, int]:
     """The checks of the training entries (contiguous q, k, v and the
     rest on one card, one type, a kernel head width, a host ``q_offset``
-    >= 0): ``(b, sq, sk, hq, hkv)``. Types first, then shapes, then the
-    device."""
+    >= 0, in bf16 a group of at most 64 heads): ``(b, sq, sk, hq, hkv)``.
+    Types first, then shapes, then the device."""
     tensors = (q, k, v) + more
     if q.dtype not in KERNEL_DTYPES or any(t.dtype != q.dtype for t in (k, v)):
         raise TypeError(f"{name} takes float32 or bfloat16 q, k, v of one type, got "
@@ -438,6 +440,9 @@ def _check_train_inputs(name: str, q_offset: int, q: torch.Tensor, k: torch.Tens
         raise ValueError(f"{name}: empty input")
     if isinstance(q_offset, torch.Tensor) or int(q_offset) != q_offset or q_offset < 0:
         raise ValueError(f"q_offset must be a host int >= 0, got {q_offset!r}")
+    if q.dtype == torch.bfloat16 and hq // hkv > BWD_TILE:
+        raise ValueError(f"{name}: a GQA group of {hq // hkv} heads is above {BWD_TILE}: the "
+                         f"bf16 kernels' {BWD_TILE}-row tiles hold whole queries")
     dev = q.get_device()
     if not q.is_cuda or any(t.get_device() != dev for t in tensors):
         raise ValueError(f"{name} needs every tensor on one CUDA device, got "
@@ -452,10 +457,12 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``bobra_flash_attention_lse`` (``csrc/flash_attention.cu``):
     ``(o, lse)``, the output of :func:`flash_attention_cuda` and each row's
-    log-sum-exp of its scaled scores, fp32 ``[B, Hq, Sq]``. bf16 always
-    takes the rows kernel, fp32 the scalar kernel. q, k, v contiguous on
-    one card. Counts into its own ``launches`` only. Raises on what the
-    kernel does not take; it never computes the plain version instead."""
+    log-sum-exp of its scaled scores, fp32 ``[B, Hq, Sq]``. bf16 takes
+    ``flash_fwd_lse_kernel`` (one launch at any number of packed rows, a
+    GQA group of at most 64 heads), fp32 the scalar kernel. q, k, v
+    contiguous on one card. Counts into its own ``launches`` only. Raises
+    on what the kernel does not take; it never computes the plain version
+    instead."""
     refuse_grad("flash_attention_lse_cuda", q, k, v)
     b, sq, sk, hq, hkv = _check_train_inputs("flash_attention_lse_cuda", q_offset, q, k, v)
     d = q.shape[-1]

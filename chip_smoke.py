@@ -173,14 +173,16 @@ Phases, each fatal on failure (exit 1, and no result line):
    log-sum-exp and its backward at the step's shapes (q [8, 512, 32, 128],
    k/v [8, 512, 8, 128], causal, bf16), ragged S of 100 and 77 at group
    sizes 4 and 1 in bf16 and fp32, the RMSNorm backward in plain and add
-   mode at [4096, 4096] in bf16 and fp32 (each twice, the same bits); the
-   bf16 attention backward also at TRAIN_BWD_CASES (group 8, a q_offset,
-   keys not a multiple of 64, no mask, head dim 32), with each bf16 case's
-   D, dk/dv and dq launches timed apart (each run alone), P and dS in one
-   bf16 part against two (each form's error, whether it holds TRAIN_TOL,
-   its times; the kernels' two parts restored), and the ptxas registers
-   and spills and the SASS's HGMMA / UTMALDG / SYNCS counts of every
-   instance of its bf16 kernels; (b)
+   mode at [4096, 4096] in bf16 and fp32 (each twice, the same bits; the
+   bf16 forward also timed beside the serving entry's rows kernel on its
+   inputs); the bf16 attention backward also at TRAIN_BWD_CASES (group 8,
+   a q_offset, keys not a multiple of 64, no mask, head dim 32), fed the
+   log-sum-exp forward held to its plain version there too, with each bf16
+   case's D, dk/dv and dq launches timed apart (each run alone), P and dS
+   in one bf16 part against two (each form's error, whether it holds
+   TRAIN_TOL, its times; the kernels' two parts restored), and the ptxas
+   registers and spills and the SASS's HGMMA / UTMALDG / SYNCS counts of
+   every instance of the bf16 forward and backward kernels; (b)
    the port's make_train_step at Llama-3-8B width, 16 of its 32 layers,
    bf16, on a one-rank mesh: 10 steps of adamw(3e-4, weight_decay=0.1) on
    make_token_batch's 8 x 513 tokens, every loss finite, the first near
@@ -3715,11 +3717,32 @@ def sdpa_backward_ms(torch, F, flush, q, k, v, do, causal: bool, q_offset: int) 
                    flush)
 
 
+def lse_forward_check(torch, ops, name, q, k, v, dtype, kw) -> tuple:
+    """The log-sum-exp forward on q, k, v (causal and q_offset in ``kw``)
+    against its plain version: the output within the forward's tolerance,
+    lse within TRAIN_LSE_TOL, and the same bits from a second run.
+    Returns ``(o, lse, output error, lse error)``."""
+    out, lse = ops.flash_attention_lse_cuda(q, k, v, **kw)
+    ref_o, ref_lse = ops.flash_attention_lse_reference(q, k, v, **kw)
+    fwd_err = compare(torch, "attention", f"attention lse {name}", out, ref_o, dtype)
+    lse_err = float((lse - ref_lse).abs().max())
+    print(f"  attention lse {name}: lse max_abs_err {lse_err:.3e} (tolerance {TRAIN_LSE_TOL})",
+          flush=True)
+    if lse_err > TRAIN_LSE_TOL:
+        fail(f"attention lse {name}: the log-sum-exp disagrees with its plain version")
+    again = ops.flash_attention_lse_cuda(q, k, v, **kw)
+    if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+        fail(f"attention lse {name}: two runs gave different bits")
+    return out, lse, fwd_err, lse_err
+
+
 def train_backward_case(torch, F, ops, flush, name, b, sq, sk, hq, hkv, d, causal, q_offset,
                         gen, dev) -> dict:
     """The bf16 attention backward at q [b, sq, hq, d], k/v [b, sk, hkv, d]
-    with the mask and offset given, against its plain version, twice the
-    same bits; timed, its launches apart, in one part and in two."""
+    with the mask and offset given, fed the log-sum-exp forward's output
+    (held to its plain version, twice the same bits), against its plain
+    version, twice the same bits; timed, its launches apart, in one part
+    and in two."""
     dt = torch.bfloat16
 
     def randn(*shape):
@@ -3728,7 +3751,7 @@ def train_backward_case(torch, F, ops, flush, name, b, sq, sk, hq, hkv, d, causa
     q, k, v, do = randn(b, sq, hq, d), randn(b, sk, hkv, d), randn(b, sk, hkv, d), \
         randn(b, sq, hq, d)
     kw = {"causal": causal, "q_offset": q_offset}
-    out, lse = ops.flash_attention_lse_cuda(q, k, v, **kw)
+    out, lse, fwd_err, lse_err = lse_forward_check(torch, ops, name, q, k, v, "bfloat16", kw)
     args = (q, k, v, out, do, lse)
     got = ops.flash_attention_backward_cuda(*args, **kw)
     want = ops.flash_attention_backward_reference(*args, **kw)
@@ -3744,7 +3767,8 @@ def train_backward_case(torch, F, ops, flush, name, b, sq, sk, hq, hkv, d, causa
         case = {"case": f"attention backward {name}", "kernel": "flash_attention_backward",
                 "q": [b, sq, hq, d], "kv": [b, sk, hkv, d], "causal": causal,
                 "q_offset": q_offset, "dtype": "bfloat16", "max_abs_err": err,
-                "same_bits_twice": True, "ms": time_ms(torch, kernel, flush),
+                "same_bits_twice": True, "forward_max_abs_err": fwd_err,
+                "forward_lse_max_abs_err": lse_err, "ms": time_ms(torch, kernel, flush),
                 "plain_ms": time_ms(torch, lambda: ops.flash_attention_backward_reference(
                     *args, **kw), flush),
                 "launch_ms": backward_launch_ms(torch, ops, kernel, flush),
@@ -3755,17 +3779,19 @@ def train_backward_case(torch, F, ops, flush, name, b, sq, sk, hq, hkv, d, causa
     return case
 
 
-def backward_build_report() -> list:
-    """Every instance of the bf16 attention backward's kernels: registers,
-    static shared memory and spills from the build log, and its SASS's
-    wgmma (HGMMA), TMA (UTMALDG) and mbarrier (SYNCS) instructions where
-    the toolkit's cuobjdump is at hand. Fails on a spill, and on an
-    instance whose SASS shows no HGMMA or no UTMALDG."""
+def attention_build_report() -> dict:
+    """Every instance of the bf16 training attention kernels, by kernel:
+    the log-sum-exp forward (flash_fwd_lse_kernel) and the backward's
+    (flash_bwd_*): registers, static shared memory and spills from the
+    build log, and its SASS's wgmma (HGMMA), TMA (UTMALDG) and mbarrier
+    (SYNCS) instructions where the toolkit's cuobjdump is at hand. Fails
+    on a spill, and on an instance whose SASS shows no HGMMA or no UTMALDG."""
     from bobrapet_tpu_torch.kernels import build as kbuild
 
-    insts = [dict(i) for i in ptxas_instances(kbuild.build_log) if "flash_bwd_" in i["name"]]
-    if not insts:
-        fail("the build log shows no instance of the bf16 attention backward")
+    marks = {"flash_attention_lse": "flash_fwd_lse_kernel",
+             "flash_attention_backward": "flash_bwd_"}
+    insts = [dict(i) for i in ptxas_instances(kbuild.build_log)
+             if any(m in i["name"] for m in marks.values())]
     sass = {}
     tool = "/usr/local/cuda/bin/cuobjdump"
     try:
@@ -3776,17 +3802,23 @@ def backward_build_report() -> list:
     for chunk in text.split("Function : ")[1:]:
         sass[chunk.split("\n", 1)[0].strip()] = {
             op: len(re.findall(rf"\b{op}\b", chunk)) for op in ("HGMMA", "UTMALDG", "SYNCS")}
+    out = {kernel: [] for kernel in marks}
     for inst, name in zip(insts, demangle([i["name"] for i in insts])):
         inst["sass"] = sass.get(inst["name"])
+        kernel = next(k for k, m in marks.items() if m in inst["name"])
         inst["name"] = name
-        print(f"  backward instance {name.split('(')[0]}: {inst['registers']} registers, "
+        out[kernel].append(inst)
+        print(f"  {kernel} instance {name.split('(')[0]}: {inst['registers']} registers, "
               f"{inst['smem_bytes']} bytes static smem, spill stores {inst['spill_stores']} B, "
               f"spill loads {inst['spill_loads']} B, SASS {inst['sass']}", flush=True)
         if inst["spill_stores"] or inst["spill_loads"]:
             fail(f"{name} spills registers")
         if inst["sass"] is not None and not (inst["sass"]["HGMMA"] and inst["sass"]["UTMALDG"]):
             fail(f"{name}: no wgmma or no TMA load in its SASS")
-    return insts
+    for kernel, found in out.items():
+        if not found:
+            fail(f"the build log shows no instance of the bf16 {kernel} kernel")
+    return out
 
 
 def train_attention_case(torch, F, ops, flush, name, b, s, hq, hkv, dtype, gen, dev) -> list:
@@ -3800,14 +3832,7 @@ def train_attention_case(torch, F, ops, flush, name, b, s, hq, hkv, dtype, gen, 
         return torch.randn(shape, generator=gen, device=dev).to(dt)
 
     q, k, v, do = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d), randn(b, s, hq, d)
-    out, lse = ops.flash_attention_lse_cuda(q, k, v)
-    ref_o, ref_lse = ops.flash_attention_lse_reference(q, k, v)
-    fwd_err = compare(torch, "attention", f"attention lse {name}", out, ref_o, dtype)
-    lse_err = float((lse - ref_lse).abs().max())
-    print(f"  attention lse {name}: lse max_abs_err {lse_err:.3e} (tolerance {TRAIN_LSE_TOL})",
-          flush=True)
-    if lse_err > TRAIN_LSE_TOL:
-        fail(f"attention lse {name}: the log-sum-exp disagrees with its plain version")
+    out, lse, fwd_err, lse_err = lse_forward_check(torch, ops, name, q, k, v, dtype, {})
     got = ops.flash_attention_backward_cuda(q, k, v, out, do, lse)
     want = ops.flash_attention_backward_reference(q, k, v, out, do, lse)
     bwd_err = max(compare(torch, "attention_bwd", f"attention backward {name} d{n}", g, w, dtype)
@@ -3826,7 +3851,7 @@ def train_attention_case(torch, F, ops, flush, name, b, s, hq, hkv, dtype, gen, 
     shape = {"q": [b, s, hq, d], "kv": [b, s, hkv, d], "dtype": dtype}
     with torch.no_grad():
         fwd = {"case": f"attention lse {name}", "kernel": "flash_attention_lse", **shape,
-               "max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
+               "max_abs_err": fwd_err, "lse_max_abs_err": lse_err, "same_bits_twice": True,
                "ms": time_ms(torch, lambda: ops.flash_attention_lse_cuda(q, k, v), flush),
                "plain_ms": time_ms(torch, lambda: ops.flash_attention_lse_reference(q, k, v),
                                    flush),
@@ -3834,6 +3859,11 @@ def train_attention_case(torch, F, ops, flush, name, b, s, hq, hkv, dtype, gen, 
                    qt, kt, vt, is_causal=True, enable_gqa=True), flush),
                "library": "scaled_dot_product_attention (is_causal, enable_gqa) forward",
                "bound_ms": f_ms, "bound_by": f_by}
+        if dtype == "bfloat16":
+            # the serving entry's rows kernel on the same inputs: what the
+            # log-sum-exp forward ran (with an lse write) before its own kernel
+            fwd["rows_kernel_ms"] = time_ms(torch, lambda: ops.flash_attention_cuda(q, k, v),
+                                            flush)
         bwd = {"case": f"attention backward {name}", "kernel": "flash_attention_backward",
                **shape, "max_abs_err": bwd_err, "same_bits_twice": True,
                "ms": time_ms(torch, lambda: ops.flash_attention_backward_cuda(
@@ -3893,13 +3923,15 @@ def train_norm_case(torch, F, ops, flush, name, rows, d, dtype, gen, dev, add=Fa
 
 def train_kernel_cases(torch, F, ops, flush, gen, dev) -> list:
     """Phase 10b (a): every training kernel against its plain version."""
-    instances = backward_build_report()
+    instances = attention_build_report()
     cases = []
     for name, b, s, hq, hkv, dtype in TRAIN_ATTN_CASES:
         cases += train_attention_case(torch, F, ops, flush, name, b, s, hq, hkv, dtype, gen, dev)
     cases += [train_backward_case(torch, F, ops, flush, *case, gen, dev)
               for case in TRAIN_BWD_CASES]
-    next(c for c in cases if c["case"] == "attention backward train step")["instances"] = instances
+    for kernel, found in instances.items():
+        next(c for c in cases
+             if c["kernel"] == kernel and c["case"].endswith(" train step"))["instances"] = found
     for dtype in ("bfloat16", "float32"):
         for add in (False, True):
             name = (f"{'add_' if add else ''}rmsnorm backward train"
@@ -4108,7 +4140,7 @@ def plain_path_losses(torch, ops, llama, train, cfg, mesh, opt, tokens, seed: in
 
 
 # the training kernels' instances by the names the profiler gives them
-TRAIN_PORT_KERNELS = (("flash_attention_lse", ("flash_rows_kernel", "flash_attention_kernel")),
+TRAIN_PORT_KERNELS = (("flash_attention_lse", ("flash_fwd_lse_kernel", "flash_attention_kernel")),
                       ("flash_attention_backward", ("flash_bwd_", "attn_bwd_")),
                       ("rmsnorm_backward", ("rmsnorm_bwd_kernel", "rmsnorm_dw_reduce")),
                       ("rmsnorm", ("rmsnorm_kernel",)))
@@ -4574,12 +4606,15 @@ def main() -> None:
         }
 
     def train_entry(name, src, replaces, main_case):
-        """A training kernel's entry; the attention backward's also carries
-        its launches' ms, the one- and two-part forms and its instances."""
+        """A training kernel's entry; the attention kernels' also carry
+        their instances, the backward's its launches' ms and the one- and
+        two-part forms, the forward's the rows kernel's ms on its inputs
+        (the kernel it replaced)."""
         out = entry(name, f"bobrapet_tpu_torch/csrc/{src}", replaces,
                     [c for c in trained["cases"] if c["kernel"] == name], main_case)
         top = next(c for c in out["cases"] if c["case"] == main_case)
-        out.update({k: top[k] for k in ("launch_ms", "parts", "instances") if k in top})
+        out.update({k: top[k] for k in ("launch_ms", "parts", "instances", "rows_kernel_ms")
+                    if k in top})
         return out
 
     rms_entry = entry("rmsnorm", "bobrapet_tpu_torch/csrc/rmsnorm.cu",

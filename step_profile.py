@@ -4,7 +4,7 @@ tick on one CUDA card, for any checkout of the port.
 
     python3 step_profile.py [--tree DIR] [--seed N] [--graph | --wrappers | --tokens |
                             --pick [--no-pdl] |
-                            --quant [--no-pdl] | --moe]
+                            --quant [--no-pdl] | --moe | --train]
 
 Imports ``bobrapet_tpu_torch`` from DIR (default: this script's own
 checkout) and builds its kernels, makes Llama-3-8B at full width and
@@ -40,7 +40,14 @@ prefill and an eager step (``moe_step_profile``: expert products, bmm,
 other products, port kernels, elementwise); where the tree has the expert
 kernels, first their phase-3 cases (``moe_expert_case`` at each of
 MOE_TOKENS: kernel alone, plain version, the parent's sequence, bound).
-Prints one JSON line. With --tokens it prints instead a digest of the tokens
+Prints one JSON line. With --train it times instead the log-sum-exp
+attention forward at the train step's shapes (the tree's kernel and
+SDPA's forward under chip_smoke.py's ``time_ms``, and the bound) and runs
+chip_smoke.py's phase-10b train step on the tree (Llama-3-8B width,
+TRAIN_LAYERS deep, bf16, TRAIN_STEPS steps from --seed): the medians of
+step ms and of its forward, backward and optimizer ms (``StepTimer``)
+over the steps after the first, and each step's launches of the tree's
+log-sum-exp forward. With --tokens it prints instead a digest of the tokens
 of each leg of chip_smoke.py's main paths at full width, through the
 tree's own entry points (greedy_generate bf16 and int8, the default-built
 engine on config 6's traffic greedy and sampled, the prefix engine on
@@ -84,6 +91,8 @@ def main() -> None:
                     help="time the token pick at chip_smoke.py's pick cases instead")
     ap.add_argument("--moe", action="store_true",
                     help="time the Mixtral tree's greedy prefill and decode step instead")
+    ap.add_argument("--train", action="store_true",
+                    help="time the log-sum-exp forward and the train step's split instead")
     ap.add_argument("--no-pdl", action="store_true",
                     help="with --quant or --pick: launch the int8 products or the pick "
                          "without programmatic dependent launch")
@@ -119,6 +128,9 @@ def main() -> None:
         return
     if args.moe:
         moe_profile(smoke, torch, args, dev)
+        return
+    if args.train:
+        train_profile(smoke, torch, args, dev)
         return
     cfg = llama.llama3_8b()
     params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
@@ -254,6 +266,69 @@ def moe_profile(smoke, torch, args, dev) -> None:
                                             "bound_ms", "bound_by", "bit_share", "max_ulps")}
                          for c in cases],
         "greedy": splits, "parts": smoke.moe_step_profile(torch, moe, params, prompt, cfg, dev),
+    }), flush=True)
+
+
+def train_profile(smoke, torch, args, dev) -> None:
+    """``--train``: the log-sum-exp forward at the step's shapes, then the
+    step's split."""
+    import dataclasses
+    import time
+
+    import torch.nn.functional as F
+
+    from bobrapet_tpu_torch import ops
+    from bobrapet_tpu_torch import parallel as train
+    from bobrapet_tpu_torch.models import llama
+    from bobrapet_tpu_torch.parallel import mesh as mesh_mod
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    b, s, hq, hkv, d = smoke.TRAIN_BATCH, smoke.TRAIN_SEQ, 32, 8, 128
+    g = gen(args.seed)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    with torch.no_grad():
+        lse_ms = smoke.time_ms(torch, lambda: ops.flash_attention_lse_cuda(q, k, v), flush)
+        sdpa_ms = smoke.time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+    bound_ms, bound_by = smoke.bound((2 * q.numel() + k.numel() + v.numel()) * 2 + 4 * b * hq * s,
+                                     4 * d * smoke.attention_pairs(s, s, True, 0) * b * hq,
+                                     "bfloat16")
+    del q, k, v, qt, kt, vt, flush
+    cfg = dataclasses.replace(llama.llama3_8b(), n_layers=smoke.TRAIN_LAYERS)
+    mesh = mesh_mod.build_mesh({"data": 1}, device_type=dev.type)
+    params, state, opt = train.init_train_state(
+        cfg, mesh, gen(args.seed), train.adamw(smoke.TRAIN_LR, weight_decay=smoke.TRAIN_WD))
+    tokens = train.make_token_batch(gen(args.seed + 1), cfg, b, s, mesh)
+    step = train.make_train_step(cfg, mesh, optimizer=opt)
+    timer = smoke.StepTimer(torch)
+    step.phase_hook = timer
+    steps, losses, lse_launches = [], [], []
+    for _ in range(smoke.TRAIN_STEPS):
+        ops.flash_attention_lse_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer.start()
+        params, state, loss = step(params, state, tokens)
+        torch.cuda.synchronize()
+        steps.append({"step": (time.perf_counter() - t0) * 1e3, **timer.split()})
+        losses.append(float(loss))
+        lse_launches.append(ops.flash_attention_lse_cuda.launches)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    timed = steps[1:]
+    print(json.dumps({
+        "tree": str(args.tree), "card": smoke.card_line(),
+        "lse_forward": {"shape": [b, s, hq, hkv, d], "ms": lse_ms, "sdpa_forward_ms": sdpa_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by},
+        "train_step": {"layers": cfg.n_layers, "steps": len(steps), "losses": losses,
+                       "lse_launches_per_step": lse_launches,
+                       "ms_p50": {part: smoke.p50([x[part] for x in timed])
+                                  for part in ("step",) + smoke.StepTimer.PARTS}},
     }), flush=True)
 
 

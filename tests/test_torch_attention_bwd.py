@@ -119,7 +119,9 @@ def _constants(text: str) -> dict:
 
 
 def test_the_cuda_source_holds_the_mirror_constants():
-    text = (CSRC / "flash_attention_bwd.cu").read_text()
+    # the tiles and the order live in the header the forward shares
+    text = (CSRC / "attention_wgmma.cuh").read_text()
+    assert '#include "attention_wgmma.cuh"' in (CSRC / "flash_attention_bwd.cu").read_text()
     c = _constants(text)
     assert c["kBwdWgRows"] == attn_ops.BWD_WG_ROWS
     assert c["kBwdConsumers"] == attn_ops.BWD_CONSUMERS
